@@ -1,0 +1,593 @@
+"""DimArray: a named-axis array over ``torch.Tensor`` data.
+
+The PyTorch counterpart of ``weatherbenchx_tpu.darray``. Data is always a
+``torch.Tensor`` (numpy input becomes a CPU tensor); coordinates are either
+host numpy arrays (latitudes, datetimes, labels) or tensors (validity
+masks that live beside the data on the device). Binary operations align
+their operands by dimension NAME, xarray style, and put every operand on
+the one non-CPU device any of them lives on.
+
+The host-side coordinate machinery (``Coord``, ``broadcast_dims``,
+``_merge_coords``, ``_check_shared_sizes``, ``_label_indices``) is copied
+from the JAX package rather than imported: every module of that package
+imports jax, which the port must not.
+
+A "dataset" is a ``dict[str, DimArray]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import operator
+from typing import Any, Callable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+
+def _is_host_value(v: Any) -> bool:
+  """True for host-side values: numpy arrays and Python/numpy scalars."""
+  return isinstance(v, (np.ndarray, bool, int, float, str, bytes, np.generic))
+
+
+def torch_dtype(dtype) -> torch.dtype:
+  """The torch dtype for a torch or numpy dtype (or a numpy type)."""
+  if isinstance(dtype, torch.dtype):
+    return dtype
+  return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+def as_tensor(value: Any, device: torch.device | str | None = None
+              ) -> torch.Tensor:
+  """``value`` as a tensor; numpy input is copied only where it must be."""
+  if isinstance(value, torch.Tensor):
+    return value if device is None else value.to(device)
+  arr = np.asarray(value)
+  if arr.dtype.kind in 'OUSMm':
+    raise TypeError(f'DimArray data cannot hold dtype {arr.dtype}')
+  if not arr.flags.c_contiguous:  # e.g. reversed views; torch takes no
+    arr = arr.copy()                # negative strides
+  return torch.as_tensor(arr, device=device)
+
+
+def _on_one_device(*tensors: torch.Tensor) -> list[torch.Tensor]:
+  """Moves CPU tensors to the device of the first non-CPU tensor, if any."""
+  dev = next((t.device for t in tensors if t.device.type != 'cpu'), None)
+  if dev is None:
+    return list(tensors)
+  return [t if t.device == dev else t.to(dev) for t in tensors]
+
+
+@dataclasses.dataclass(frozen=True)
+class Coord:
+  """A coordinate: values laid out along a (possibly empty) dims tuple.
+
+  ``values`` is a numpy array (host coordinate) or a tensor (device
+  coordinate). A dimension coordinate is a 1-D Coord named like its dim.
+  """
+
+  dims: tuple[str, ...]
+  values: Any
+
+  def __post_init__(self):
+    if not isinstance(self.dims, tuple):
+      object.__setattr__(self, 'dims', tuple(self.dims))
+
+  @property
+  def is_host(self) -> bool:
+    return _is_host_value(self.values)
+
+  def __repr__(self):
+    v = self.values
+    kind = 'host' if self.is_host else 'device'
+    return (f'Coord(dims={self.dims}, shape={tuple(np.shape(v))}, '
+            f'dtype={getattr(v, "dtype", type(v).__name__)}, {kind})')
+
+
+def broadcast_dims(*dim_tuples: Sequence[str]) -> tuple[str, ...]:
+  """Union of dims in order of first appearance (xarray broadcast order)."""
+  out: list[str] = []
+  for dims in dim_tuples:
+    for d in dims:
+      if d not in out:
+        out.append(d)
+  return tuple(out)
+
+
+def _check_shared_sizes(*operands) -> None:
+  """Raise a named-dim error when shared dims have incompatible extents.
+
+  Each operand is a ``(dims, shape)`` pair. Size-1 extents broadcast
+  against any size; two extents both >1 can never be reconciled.
+  """
+  sizes: dict[str, int] = {}
+  for dims, shape in operands:
+    for d, n in zip(dims, shape):
+      prev = sizes.get(d)
+      if prev is None or prev == 1:
+        sizes[d] = n
+      elif n != 1 and n != prev:
+        raise ValueError(
+            f'dimension {d!r} has mismatched sizes {prev} and {n}: '
+            'named-axis broadcasting requires equal (or size-1) extents '
+            'on shared dims')
+
+
+def _expand_to(data: torch.Tensor, dims: tuple[str, ...],
+               out_dims: tuple[str, ...]) -> torch.Tensor:
+  """Permutes ``data`` into out_dims order, with size-1 axes for the rest."""
+  if dims == out_dims:
+    return data
+  order = [dims.index(d) for d in out_dims if d in dims]
+  if order != list(range(len(dims))):
+    data = data.permute(order)
+  return data[tuple(slice(None) if d in dims else None for d in out_dims)]
+
+
+def _merge_coords(
+    result_dims: tuple[str, ...],
+    *coord_dicts: Mapping[str, Coord],
+) -> dict[str, Coord]:
+  """Merges coords of operands whose dims fit result_dims; first one wins."""
+  out: dict[str, Coord] = {}
+  for cd in coord_dicts:
+    for name, coord in cd.items():
+      if name not in out and set(coord.dims).issubset(result_dims):
+        out[name] = coord
+  return out
+
+
+# ---------------------------------------------------------------------------
+# DimArray
+# ---------------------------------------------------------------------------
+
+
+class DimArray:
+  """Named-axis array over tensor data with host or device coords."""
+
+  __slots__ = ('data', 'dims', 'coords')
+
+  def __init__(
+      self,
+      data: Any,
+      dims: Sequence[str] | str = (),
+      coords: Mapping[str, Coord | tuple | Any] | None = None,
+  ):
+    if isinstance(dims, str):
+      dims = (dims,)
+    dims = tuple(dims)
+    data = as_tensor(data)
+    if data.dim() != len(dims):
+      raise ValueError(
+          f'data has {data.dim()} axes but dims={dims} has {len(dims)}')
+    self.data = data
+    self.dims = dims
+    cdict: dict[str, Coord] = {}
+    for name, c in (coords or {}).items():
+      coord = _as_coord(name, c, dims)
+      if coord.dims == (name,) and name in dims:
+        n = data.shape[dims.index(name)]
+        cn = np.shape(coord.values)[0] if np.ndim(coord.values) else 1
+        if cn != n:
+          raise ValueError(
+              f'coordinate {name!r} has {cn} labels but dim {name!r} has '
+              f'length {n}')
+      cdict[name] = coord
+    self.coords = cdict
+
+  # -- basic properties -----------------------------------------------------
+
+  @property
+  def shape(self) -> tuple[int, ...]:
+    return tuple(self.data.shape)
+
+  @property
+  def ndim(self) -> int:
+    return len(self.dims)
+
+  @property
+  def dtype(self) -> torch.dtype:
+    return self.data.dtype
+
+  @property
+  def device(self) -> torch.device:
+    return self.data.device
+
+  @property
+  def sizes(self) -> dict[str, int]:
+    return dict(zip(self.dims, self.shape))
+
+  @property
+  def values(self) -> np.ndarray:
+    """Host numpy copy of the data (bfloat16 widens to float32)."""
+    d = self.data.detach().cpu()
+    if d.dtype == torch.bfloat16:
+      d = d.float()
+    return d.numpy()
+
+  def item(self):
+    return self.data.item()
+
+  def __repr__(self):
+    lines = [f'DimArray {self.sizes} {self.dtype} on {self.device}']
+    lines += [f'  {k}: {v}' for k, v in self.coords.items()]
+    lines.append(repr(self.data))
+    return '\n'.join(lines)
+
+  def coord_values(self, name: str) -> np.ndarray:
+    """Host numpy values of a coordinate."""
+    v = self.coords[name].values
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else (
+        np.asarray(v))
+
+  def has_coord(self, name: str) -> bool:
+    return name in self.coords
+
+  # -- construction helpers ---------------------------------------------------
+
+  def copy(self, data=None, coords=None) -> DimArray:
+    return DimArray(self.data if data is None else data, self.dims,
+                    self.coords if coords is None else coords)
+
+  def assign_coords(self, **coords) -> DimArray:
+    new = dict(self.coords)
+    for name, c in coords.items():
+      if c is None:
+        new.pop(name, None)
+      else:
+        new[name] = _as_coord(name, c, self.dims)
+    return DimArray(self.data, self.dims, new)
+
+  def drop_coords(self, names) -> DimArray:
+    if isinstance(names, str):
+      names = [names]
+    return DimArray(self.data, self.dims,
+                    {k: v for k, v in self.coords.items() if k not in names})
+
+  def rename(self, mapping: Mapping[str, str] | None = None, **kw
+             ) -> DimArray:
+    mapping = dict(mapping or {}, **kw)
+    dims = tuple(mapping.get(d, d) for d in self.dims)
+    coords = {
+        mapping.get(name, name): Coord(
+            tuple(mapping.get(d, d) for d in c.dims), c.values)
+        for name, c in self.coords.items()}
+    return DimArray(self.data, dims, coords)
+
+  # -- dtype / NaN ------------------------------------------------------------
+
+  def astype(self, dtype) -> DimArray:
+    return self.copy(data=self.data.to(torch_dtype(dtype)))
+
+  def isnull(self) -> DimArray:
+    d = self.data
+    if d.is_floating_point() or d.is_complex():
+      return self.copy(data=torch.isnan(d))
+    return self.copy(data=torch.zeros(d.shape, dtype=torch.bool,
+                                      device=d.device))
+
+  def notnull(self) -> DimArray:
+    return self.copy(data=~self.isnull().data)
+
+  def where(self, cond, other=float('nan')) -> DimArray:
+    """Keep values where cond is True, else ``other`` (xarray semantics)."""
+    cond_da = cond if isinstance(cond, DimArray) else DimArray(cond)
+    if isinstance(other, DimArray):
+      other_da = other
+    else:
+      other_t = as_tensor(other)
+      if other_t.dim() == 0 and self.data.is_floating_point():
+        # A scalar fill keeps the data's dtype (a Python float is float64).
+        other_t = other_t.to(self.dtype)
+      other_da = DimArray(other_t)
+    _check_shared_sizes((self.dims, self.shape),
+                        (cond_da.dims, cond_da.shape),
+                        (other_da.dims, other_da.shape))
+    out_dims = broadcast_dims(self.dims, cond_da.dims, other_da.dims)
+    x, c, o = _on_one_device(self.data, cond_da.data, other_da.data)
+    data = torch.where(_expand_to(c, cond_da.dims, out_dims),
+                       _expand_to(x, self.dims, out_dims),
+                       _expand_to(o, other_da.dims, out_dims))
+    return DimArray(data, out_dims,
+                    _merge_coords(out_dims, self.coords, cond_da.coords))
+
+  # -- arithmetic -------------------------------------------------------------
+
+  def _binary_op(self, other, op, reflexive=False) -> DimArray:
+    if isinstance(other, DimArray):
+      _check_shared_sizes((self.dims, self.shape), (other.dims, other.shape))
+      out_dims = broadcast_dims(self.dims, other.dims)
+      a, b = _on_one_device(self.data, other.data)
+      a = _expand_to(a, self.dims, out_dims)
+      b = _expand_to(b, other.dims, out_dims)
+      data = op(b, a) if reflexive else op(a, b)
+      return DimArray(data, out_dims,
+                      _merge_coords(out_dims, self.coords, other.coords))
+    if isinstance(other, (np.ndarray, np.generic, torch.Tensor)):
+      other = as_tensor(other, self.data.device)
+    a = self.data
+    return DimArray(op(other, a) if reflexive else op(a, other), self.dims,
+                    self.coords)
+
+  def __add__(self, o): return self._binary_op(o, operator.add)
+  def __radd__(self, o): return self._binary_op(o, operator.add, True)
+  def __sub__(self, o): return self._binary_op(o, operator.sub)
+  def __rsub__(self, o): return self._binary_op(o, operator.sub, True)
+  def __mul__(self, o): return self._binary_op(o, operator.mul)
+  def __rmul__(self, o): return self._binary_op(o, operator.mul, True)
+  def __truediv__(self, o): return self._binary_op(o, operator.truediv)
+  def __rtruediv__(self, o):
+    return self._binary_op(o, operator.truediv, True)
+  def __pow__(self, o): return self._binary_op(o, operator.pow)
+  def __gt__(self, o): return self._binary_op(o, operator.gt)
+  def __ge__(self, o): return self._binary_op(o, operator.ge)
+  def __lt__(self, o): return self._binary_op(o, operator.lt)
+  def __le__(self, o): return self._binary_op(o, operator.le)
+  def __eq__(self, o): return self._binary_op(o, operator.eq)  # type: ignore
+  def __ne__(self, o): return self._binary_op(o, operator.ne)  # type: ignore
+  def __and__(self, o): return self._binary_op(o, _logical(torch.logical_and))
+  def __rand__(self, o):
+    return self._binary_op(o, _logical(torch.logical_and), True)
+  def __or__(self, o): return self._binary_op(o, _logical(torch.logical_or))
+  def __ror__(self, o):
+    return self._binary_op(o, _logical(torch.logical_or), True)
+  def __xor__(self, o): return self._binary_op(o, _logical(torch.logical_xor))
+
+  def __neg__(self): return self.copy(data=-self.data)
+  def __abs__(self): return self.copy(data=self.data.abs())
+  def __invert__(self): return self.copy(data=torch.logical_not(self.data))
+
+  __hash__ = None  # type: ignore
+
+  # -- reductions ---------------------------------------------------------------
+
+  def _reduce(self, fn: Callable, dim=None) -> DimArray:
+    """``fn(data, axes)`` over named dims; ``axes`` is None for all dims."""
+    dims = _norm_dims(dim, self.dims)
+    if dim is not None and dim is not Ellipsis and not dims:
+      # Reducing over an explicitly-empty dim list is a no-op (xarray).
+      return self
+    axes = tuple(self.dims.index(d) for d in dims)
+    out_dims = tuple(d for d in self.dims if d not in dims)
+    data = fn(self.data, axes if len(axes) < self.ndim else None)
+    coords = {k: v for k, v in self.coords.items()
+              if set(v.dims).issubset(out_dims)}
+    return DimArray(data, out_dims, coords)
+
+  def sum(self, dim=None, skipna=False) -> DimArray:
+    f = torch.nansum if skipna else torch.sum
+    return self._reduce(lambda x, ax: f(x, dim=ax), dim)
+
+  def mean(self, dim=None, skipna=False) -> DimArray:
+    f = torch.nanmean if skipna else torch.mean
+    return self._reduce(lambda x, ax: f(x, dim=ax), dim)
+
+  def var(self, dim=None, skipna=False, ddof=0) -> DimArray:
+    def fn(x, ax):
+      if not skipna:
+        return torch.var(x, dim=ax, correction=ddof)
+      ok = ~torch.isnan(x)
+      n = ok.sum(dim=ax, keepdim=True)
+      mean = torch.nansum(x, dim=ax, keepdim=True) / n
+      sq = torch.where(ok, (x - mean) ** 2, 0).sum(dim=ax, keepdim=True)
+      out = sq / (n - ddof)
+      return out.reshape(()) if ax is None else out.squeeze(ax)
+    return self._reduce(fn, dim)
+
+  def count(self, dim=None) -> DimArray:
+    """Count of non-NaN values over dims."""
+    return self.notnull()._reduce(lambda x, ax: x.sum(dim=ax), dim)
+
+  # -- shape manipulation -------------------------------------------------------
+
+  def transpose(self, *dims: str) -> DimArray:
+    if not dims:
+      dims = tuple(reversed(self.dims))
+    if '...' in dims:
+      named = [d for d in dims if d != '...']
+      rest = [d for d in self.dims if d not in named]
+      i = dims.index('...')
+      dims = tuple(named[:i]) + tuple(rest) + tuple(named[i:])
+    missing = [d for d in dims if d not in self.dims]
+    if missing or len(dims) != len(self.dims):
+      raise ValueError(
+          f'transpose dims {dims} do not match array dims {self.dims}'
+          + (f' (unknown: {missing})' if missing else ''))
+    if tuple(dims) == self.dims:
+      return self
+    order = [self.dims.index(d) for d in dims]
+    return DimArray(self.data.permute(order), dims, self.coords)
+
+  def broadcast_like(self, other: DimArray) -> DimArray:
+    out_dims = broadcast_dims(other.dims, self.dims)
+    sizes = {**self.sizes, **other.sizes}
+    data = _expand_to(self.data, self.dims, out_dims).expand(
+        tuple(sizes[d] for d in out_dims))
+    return DimArray(data, out_dims,
+                    _merge_coords(out_dims, self.coords, other.coords))
+
+  # -- indexing -------------------------------------------------------------------
+
+  def isel(self, indexers: Mapping[str, Any] | None = None, **kw
+           ) -> DimArray:
+    out = self
+    for dim, idx in dict(indexers or {}, **kw).items():
+      out = out._isel_one(dim, idx)
+    return out
+
+  def _isel_one(self, dim: str, idx) -> DimArray:
+    ax = self.dims.index(dim)
+    scalar = isinstance(idx, (int, np.integer))
+    if scalar:
+      idx = int(idx)
+    elif not isinstance(idx, slice):
+      idx = np.asarray(idx)
+    t_idx = (torch.as_tensor(idx, device=self.data.device)
+             if isinstance(idx, np.ndarray) else idx)
+    new_data = self.data[(slice(None),) * ax + (t_idx,)]
+    new_dims = self.dims[:ax] + self.dims[ax + 1:] if scalar else self.dims
+    new_coords = {}
+    for name, c in self.coords.items():
+      if dim not in c.dims:
+        new_coords[name] = c
+        continue
+      cax = c.dims.index(dim)
+      ci = (torch.as_tensor(idx, device=c.values.device)
+            if isinstance(c.values, torch.Tensor)
+            and isinstance(idx, np.ndarray) else idx)
+      cdims = (c.dims[:cax] + c.dims[cax + 1:]) if scalar else c.dims
+      new_coords[name] = Coord(cdims, c.values[(slice(None),) * cax + (ci,)])
+    return DimArray(new_data, new_dims, new_coords)
+
+  def sel(self, indexers: Mapping[str, Any] | None = None,
+          method: str | None = None, **kw) -> DimArray:
+    """Label-based selection on host (numpy) dimension coordinates."""
+    isel_idx = {}
+    for dim, labels in dict(indexers or {}, **kw).items():
+      coord = self.coord_values(dim)
+      if isinstance(labels, slice):
+        # Inclusive on both ends, in the coordinate's own order: on a
+        # descending coordinate, start is the upper bound.
+        descending = coord.size > 1 and coord[0] > coord[-1]
+        mask = np.ones(coord.shape, bool)
+        if labels.start is not None:
+          mask &= (coord <= labels.start) if descending else (
+              coord >= labels.start)
+        if labels.stop is not None:
+          mask &= (coord >= labels.stop) if descending else (
+              coord <= labels.stop)
+        isel_idx[dim] = np.nonzero(mask)[0]
+      else:
+        isel_idx[dim] = _label_indices(coord, labels, method)
+    return self.isel(isel_idx)
+
+
+def _logical(fn):
+  def op(a, b):
+    if not isinstance(a, torch.Tensor):
+      a = torch.as_tensor(a, device=b.device)
+    if not isinstance(b, torch.Tensor):
+      b = torch.as_tensor(b, device=a.device)
+    return fn(a, b)
+  return op
+
+
+def _as_coord(name: str, c, parent_dims: tuple[str, ...]) -> Coord:
+  if isinstance(c, Coord):
+    return c
+  if isinstance(c, tuple) and len(c) == 2:
+    dims, values = c
+    if isinstance(dims, str):
+      dims = (dims,)
+    if (isinstance(dims, (tuple, list))
+        and all(isinstance(d, str) for d in dims)
+        and set(dims) <= set(parent_dims)):
+      return Coord(tuple(dims), _coerce_coord_values(values))
+    # Otherwise a 2-tuple of VALUES, e.g. {'animal': ('cat', 'dog')}.
+  if isinstance(c, DimArray):
+    return Coord(c.dims, c.data)
+  values = _coerce_coord_values(c)
+  ndim = np.ndim(values) if not isinstance(values, torch.Tensor) else (
+      values.dim())
+  if ndim == 0:
+    return Coord((), values)
+  if ndim == 1:
+    return Coord((name,), values)
+  raise ValueError(
+      f'Cannot infer dims for >1-D coord {name!r}; pass (dims, values)')
+
+
+def _coerce_coord_values(values):
+  if isinstance(values, torch.Tensor):
+    return values
+  return np.asarray(values)
+
+
+def _norm_dims(dim, all_dims: tuple[str, ...]) -> tuple[str, ...]:
+  if dim is None or dim is Ellipsis:
+    return all_dims
+  if isinstance(dim, str):
+    dim = (dim,)
+  dims = tuple(dim)
+  missing = [d for d in dims if d not in all_dims]
+  if missing:
+    raise ValueError(f'Dimensions {missing} not found in {all_dims}')
+  return dims
+
+
+def _label_indices(coord: np.ndarray, labels, method: str | None):
+  labels_arr = np.asarray(labels)
+  scalar = labels_arr.ndim == 0
+  labels_arr = np.atleast_1d(labels_arr)
+  if labels_arr.dtype.kind == 'M':
+    labels_arr = labels_arr.astype(coord.dtype)
+  if method is None:
+    sorter = np.argsort(coord, kind='stable')
+    pos = np.searchsorted(coord, labels_arr, sorter=sorter)
+    pos = np.clip(pos, 0, len(coord) - 1)
+    idx = sorter[pos]
+    if not np.array_equal(coord[idx], labels_arr):
+      bad = labels_arr[coord[idx] != labels_arr]
+      raise KeyError(f'Labels not found in coordinate: {bad[:5]}')
+  elif method == 'nearest':
+    if coord.dtype.kind in 'Mm':
+      c = coord.astype('int64').astype('float64')
+      l = labels_arr.astype(coord.dtype).astype('int64').astype('float64')
+    else:
+      c, l = coord.astype('float64'), labels_arr.astype('float64')
+    idx = np.abs(c[None, :] - l[:, None]).argmin(axis=1)
+  elif method == 'ffill':
+    sorter = np.argsort(coord, kind='stable')
+    pos = np.searchsorted(coord[sorter], labels_arr, side='right') - 1
+    if np.any(pos < 0):
+      raise KeyError('Label before first coordinate value with method=ffill')
+    idx = sorter[pos]
+  else:
+    raise ValueError(f'Unknown sel method: {method}')
+  return int(idx[0]) if scalar else idx
+
+
+# ---------------------------------------------------------------------------
+# Module-level functions
+# ---------------------------------------------------------------------------
+
+
+def sqrt(x: DimArray) -> DimArray:
+  return x.copy(data=torch.sqrt(x.data))
+
+
+def ones_like(x: DimArray, dtype=None) -> DimArray:
+  return x.copy(data=torch.ones(
+      x.shape, dtype=torch_dtype(dtype) if dtype is not None else x.dtype,
+      device=x.device))
+
+
+def dot(*arrays: DimArray, dim: Sequence[str] | str) -> DimArray:
+  """Named contraction: multiply all arrays and sum over ``dim``.
+
+  The port of the JAX package's aggregation contraction, which there is
+  XLA's einsum outside any Pallas kernel: here ``torch.einsum`` in full
+  float32 (the package sets TF32 off at import). Operands move to the
+  first non-CPU device among them. All-bool operands become float32 first
+  (bool sums would be logical); mixed operands promote to one dtype,
+  since ``torch.einsum`` takes a single dtype.
+  """
+  dims = (dim,) if isinstance(dim, str) else tuple(dim)
+  all_dims = broadcast_dims(*[a.dims for a in arrays])
+  out_dims = tuple(d for d in all_dims if d not in dims)
+  operands = _on_one_device(*[a.data for a in arrays])
+  floats = [op.dtype for op in operands if op.dtype != torch.bool]
+  dtype = (functools.reduce(torch.promote_types, floats) if floats
+           else torch.float32)
+  operands = [op.to(dtype) for op in operands]
+  letters = {d: chr(ord('a') + i) for i, d in enumerate(all_dims)}
+  spec = ','.join(''.join(letters[d] for d in a.dims) for a in arrays)
+  spec += '->' + ''.join(letters[d] for d in out_dims)
+  data = torch.einsum(spec, *operands)
+  return DimArray(data, out_dims,
+                  _merge_coords(out_dims, *[a.coords for a in arrays]))
