@@ -6,7 +6,6 @@ port into the state of both chunks.
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from weatherbenchx_tpu import aggregation as j_aggregation
@@ -137,6 +136,9 @@ def test_misaligned_states_raise():
   b = aggregation.AggregationState(
       {'s': {'v': darray.DimArray(np.ones(2), ('x',), {'x': [1, 2]})}},
       {'s': {'v': darray.DimArray(np.ones(2), ('x',), {'x': [1, 2]})}})
-  with pytest.raises(NotImplementedError, match='outer'):
-    _ = a + b
+  # Misaligned states no longer raise: they sum by the zero-filled outer
+  # join, on the host.
+  total = (a + b).sum_weighted_statistics['s']['v']
+  np.testing.assert_array_equal(total.coord_values('x'), [0, 1, 2])
+  np.testing.assert_array_equal(total.values, [1.0, 2.0, 1.0])
   assert (a + aggregation.AggregationState.zero()) is not None

@@ -3,7 +3,8 @@
 On CPU tensors the port's wrappers take the kernels' plain versions; the
 JAX functions run their Pallas kernels in interpret mode. M = 2 and 5 take
 the JAX kernel's pair-enumeration body, M = 21 its sorting network (the
-crossover is at 20). The CUDA kernels themselves run only on the card:
+crossover is at 20). The cross sum is also held to a numpy brute force.
+The CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -136,8 +137,10 @@ def test_cpu_path_counts_no_launch():
   x = torch.randn(5, 3, 4)
   crps_pairwise.fused_ensemble_stats(x, x[0])
   crps_pairwise.pairwise_spread_sum(x)
+  crps_pairwise.pairwise_cross_sum(x, x[:2])
   assert crps_pairwise.LAUNCHES == {'fused_ensemble_stats': 0,
-                                    'pairwise_spread_sum': 0}
+                                    'pairwise_spread_sum': 0,
+                                    'pairwise_cross_sum': 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -163,3 +166,73 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     _build.load_library()
   with pytest.raises(RuntimeError, match='nvcc not found'):
     crps_pairwise._launch_spread(torch.zeros(3, 4))
+
+
+def _brute_force_cross(x, y):
+  return np.abs(x[:, None] - y[None, :]).sum((0, 1))
+
+
+@pytest.mark.parametrize('mx,my', [(1, 1), (3, 5), (8, 2)])
+def test_cross_matches_jax_and_brute_force(mx, my):
+  rng = np.random.default_rng(10 * mx + my)
+  x = rng.standard_normal((mx, 2, 9, 140)).astype(np.float32)
+  y = rng.standard_normal((my, 2, 9, 140)).astype(np.float32)
+  got = crps_pairwise.pairwise_cross_sum(torch.from_numpy(x),
+                                         torch.from_numpy(y))
+  assert got.dtype == torch.float32 and got.shape == (2, 9, 140)
+  want = np.asarray(j_crps.pairwise_cross_sum(jnp.asarray(x), jnp.asarray(y),
+                                              interpret=True))
+  np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+  np.testing.assert_allclose(got.numpy(), _brute_force_cross(x, y),
+                             rtol=RTOL, atol=ATOL)
+
+
+def test_cross_one_dimensional_inputs():
+  """1-D inputs (no data dims) give a 0-d sum, as JAX's broadcast form."""
+  rng = np.random.default_rng(2)
+  x = rng.standard_normal(6).astype(np.float32)
+  y = rng.standard_normal(4).astype(np.float32)
+  got = crps_pairwise.pairwise_cross_sum(torch.from_numpy(x),
+                                         torch.from_numpy(y))
+  want = np.asarray(j_crps.pairwise_cross_sum(jnp.asarray(x), jnp.asarray(y),
+                                              interpret=True))
+  assert got.shape == () == want.shape
+  np.testing.assert_allclose(got.item(), want, rtol=RTOL)
+  np.testing.assert_allclose(got.item(), _brute_force_cross(x, y), rtol=RTOL)
+
+
+@pytest.mark.parametrize('side', ['x', 'y'])
+def test_cross_nan_poisons_only_its_point(side):
+  rng = np.random.default_rng(3)
+  x = rng.standard_normal((5, 3, 40)).astype(np.float32)
+  y = rng.standard_normal((4, 3, 40)).astype(np.float32)
+  (x if side == 'x' else y)[2, 1, 17] = np.nan
+  got = crps_pairwise.pairwise_cross_sum(torch.from_numpy(x),
+                                         torch.from_numpy(y)).numpy()
+  nan = np.isnan(got)
+  assert nan[1, 17] and nan.sum() == 1
+  np.testing.assert_allclose(got[~nan], _brute_force_cross(x, y)[~nan],
+                             rtol=RTOL, atol=ATOL)
+
+
+def test_cross_bfloat16_computes_in_float32():
+  rng = np.random.default_rng(4)
+  x = torch.from_numpy(rng.standard_normal((5, 9, 129)).astype(np.float32))
+  y = torch.from_numpy(rng.standard_normal((3, 9, 129)).astype(np.float32))
+  xb, yb = x.bfloat16(), y.bfloat16()
+  got = crps_pairwise.pairwise_cross_sum(xb, yb)
+  want = crps_pairwise.pairwise_cross_sum(xb.float(), yb.float())
+  assert got.dtype == torch.bfloat16
+  # One bfloat16 rounding of the same float32 result.
+  np.testing.assert_array_equal(got.float().numpy(),
+                                want.bfloat16().float().numpy())
+
+
+def test_cross_rejects_mismatched_inputs():
+  x = torch.zeros(2, 3, 4, 5)
+  with pytest.raises(ValueError, match='mismatch'):
+    crps_pairwise.pairwise_cross_sum(x, torch.zeros(2, 3, 4, 6))
+  with pytest.raises(ValueError, match='rank mismatch'):
+    crps_pairwise.pairwise_cross_sum(x, torch.zeros(2, 3, 4))
+  with pytest.raises(TypeError, match='dtype mismatch'):
+    crps_pairwise.pairwise_cross_sum(x, x.double())

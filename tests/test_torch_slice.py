@@ -205,7 +205,13 @@ def test_float64_statistics_take_the_plain_forms():
 
 
 def test_ensemble_targets_raise_until_the_cross_kernel_lands():
+  """The cross kernel has landed: ensemble targets no longer raise, and
+  CRPSSkill takes the kernel's route (its plain version on the CPU)."""
   x, y, _ = _arrays(5)
   p, _ = _pair(darray, x, y, None)
-  with pytest.raises(NotImplementedError, match='cross kernel'):
-    probabilistic.CRPSSkill()._compute_per_variable(p['t2m'], p['t2m'])
+  crps_pairwise.reset_launch_counts()
+  got = probabilistic.CRPSSkill()._compute_per_variable(p['t2m'], p['t2m'])
+  assert got.dims == ('init_time', 'lead_time', 'latitude', 'longitude')
+  np.testing.assert_allclose(got.values, np.abs(x[:, None] - x[None]).mean(
+      (0, 1)), rtol=1e-5, atol=1e-6)
+  assert crps_pairwise.LAUNCHES['pairwise_cross_sum'] == 0  # CPU: no launch

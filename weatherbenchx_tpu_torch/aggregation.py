@@ -1,6 +1,7 @@
 """Aggregation: the monoid (Σ weighted statistics, Σ weights) and Aggregator.
 
-The port of ``weatherbenchx_tpu/aggregation.py:67-240, 369-614, 651-666``.
+The port of ``weatherbenchx_tpu/aggregation.py:67-240, 303-312, 369-614,
+651-666``.
 Every metric is a function of weighted means of per-chunk statistics, so
 evaluation over many chunks reduces to summing ``(Σ w·s, Σ w)`` pairs — a
 commutative monoid — then applying each metric's finalizer to the means.
@@ -11,6 +12,7 @@ state serializes with the JAX package's ``#``-separated key schema.
 """
 
 import dataclasses
+import functools
 from typing import Any, Collection, Hashable, Iterable, Mapping, Sequence
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from weatherbenchx_tpu_torch import binning as binning_lib
 from weatherbenchx_tpu_torch import darray
+from weatherbenchx_tpu_torch import io as io_lib
 from weatherbenchx_tpu_torch import tree
 from weatherbenchx_tpu_torch import weighting as weighting_lib
 from weatherbenchx_tpu_torch.darray import Coord, DimArray
@@ -40,10 +43,14 @@ def _host_dim_coords_equal(a: DimArray, b: DimArray) -> bool:
 
 
 def combining_sum(data_arrays: Sequence[DimArray]) -> DimArray:
-  """Sum of arrays of one layout (same dims, shape and dim coords).
+  """Sum with a zero-filled outer join over non-aligned dim coordinates.
 
-  The zero-filled outer join over differing coords that the JAX package
-  also offers (for sparse, ragged chunk results) is not ported yet.
+  Fast path (same dims, shape and dim coords): a tensor add on the
+  operands' device, in order. All-CPU inputs (e.g. float64 states from
+  ``to_host`` or a file) stay on the host in their promoted dtype: unlike
+  the JAX package, torch does not downcast float64 here, so one loop
+  serves both. General path: a host-side sorted-union outer join with zero
+  fill, matching ``xr.align(join='outer', fill_value=0)``.
   """
   data_arrays = list(data_arrays)
   first = data_arrays[0]
@@ -51,14 +58,67 @@ def combining_sum(data_arrays: Sequence[DimArray]) -> DimArray:
     return first
   if not all(a.dims == first.dims and a.shape == first.shape
              and _host_dim_coords_equal(a, first) for a in data_arrays[1:]):
-    raise NotImplementedError(
-        'combining_sum of arrays with different dims or coords (the outer '
-        'join) is not ported yet')
+    return _outer_join_sum(data_arrays)
   leaves = darray._on_one_device(*[a.data for a in data_arrays])
   acc = leaves[0]
   for leaf in leaves[1:]:
     acc = acc + leaf
   return first.copy(data=acc)
+
+
+def _outer_join_sum(arrays: Sequence[DimArray]) -> DimArray:
+  """Host-side zero-filled outer-join sum (sorted coordinate union).
+
+  Accumulates in float64 for floating inputs and returns a CPU tensor of
+  the inputs' promoted dtype, as the JAX package's host path does.
+  """
+  first = arrays[0]
+  dims = first.dims
+  for a in arrays[1:]:
+    if set(a.dims) != set(dims):
+      raise ValueError(
+          f'Cannot sum arrays with different dims: {a.dims} vs {dims}')
+  arrays = [a.transpose(*dims) for a in arrays]
+
+  union_coords: dict[str, np.ndarray] = {}
+  for d in dims:
+    has_coord = [a.coords.get(d) is not None for a in arrays]
+    sizes = {a.sizes[d] for a in arrays}
+    same_coords = all(has_coord) and all(
+        np.array_equal(a.coord_values(d), arrays[0].coord_values(d))
+        for a in arrays[1:])
+    if len(sizes) == 1 and (not any(has_coord) or same_coords):
+      continue  # aligned already
+    if not all(has_coord):
+      raise ValueError(
+          f'Cannot outer-join dim {d!r} without coordinates on all arrays')
+    union_coords[d] = np.unique(np.concatenate(
+        [a.coord_values(d) for a in arrays]))
+
+  dtype = functools.reduce(torch.promote_types, [a.dtype for a in arrays])
+  result = np.zeros(
+      [len(union_coords[d]) if d in union_coords else first.sizes[d]
+       for d in dims],
+      np.float64 if dtype.is_floating_point
+      else torch.empty(0, dtype=dtype).numpy().dtype)
+  for a in arrays:
+    indexers = [np.searchsorted(union_coords[d], a.coord_values(d))
+                if d in union_coords else np.arange(a.sizes[d])
+                for d in dims]
+    np.add.at(result, np.ix_(*indexers) if indexers else (), a.values)
+
+  coords: dict[str, Coord] = {}
+  for d in dims:
+    if d in union_coords:
+      coords[d] = Coord((d,), union_coords[d])
+    elif first.coords.get(d) is not None:
+      coords[d] = first.coords[d]
+  # Non-dim coords of the first input on unchanged dims.
+  for name, c in first.coords.items():
+    if (name not in coords and set(c.dims).issubset(dims)
+        and not any(d in union_coords for d in c.dims)):
+      coords[name] = c
+  return DimArray(torch.from_numpy(result).to(dtype), dims, coords)
 
 
 @dataclasses.dataclass
@@ -152,6 +212,15 @@ class AggregationState:
         node = node.setdefault(p, {})
       node[path[-1]] = da
     return cls(sum_ws, sum_w)
+
+  def save(self, path: str) -> None:
+    """Writes the state with ``io.save_dataset`` (the ``.npz`` container)."""
+    io_lib.save_dataset(path, self.to_dataset())
+
+  @classmethod
+  def load(cls, path: str) -> 'AggregationState':
+    """A state written by ``save`` (here or by the JAX package), on the CPU."""
+    return cls.from_dataset(io_lib.load_dataset(path))
 
 
 def _coord_fingerprint(c: Coord) -> tuple:

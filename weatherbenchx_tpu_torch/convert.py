@@ -21,7 +21,7 @@ from weatherbenchx_tpu_torch.darray import Coord, DimArray
 
 
 def _tensor(values: Any, device) -> torch.Tensor:
-  """A tensor holding its own copy (arrays read from jax are read-only)."""
+  """A tensor holding its own copy (arrays read out of JAX are read-only)."""
   arr = np.asarray(values)
   if arr.dtype.name == 'bfloat16':  # ml_dtypes' bfloat16: no torch mapping
     return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)

@@ -466,6 +466,42 @@ class DimArray:
         isel_idx[dim] = _label_indices(coord, labels, method)
     return self.isel(isel_idx)
 
+  def take(self, dim: str, indices: np.ndarray, new_dims: Sequence[str]
+           ) -> DimArray:
+    """Vectorized gather: replace ``dim`` with ``new_dims`` of indices.shape.
+
+    The named-array form of xarray's vectorized ``.sel`` with a
+    multi-dimensional indexer (e.g. valid_time at every (init_time,
+    lead_time) pair). Coords laid out along ``dim`` are gathered too and
+    become coords over ``new_dims``.
+    """
+    idx = np.asarray(indices)
+    new_dims = tuple(new_dims)
+    if len(new_dims) != idx.ndim:
+      raise ValueError(f'{new_dims=} does not match indices shape {idx.shape}')
+    ax = self.dims.index(dim)
+    flat = idx.reshape(-1).astype(np.int64)
+
+    def gather(values, axis):
+      if isinstance(values, torch.Tensor):
+        out = values.index_select(axis, torch.as_tensor(flat,
+                                                        device=values.device))
+      else:
+        out = np.take(np.asarray(values), flat, axis=axis)
+      return out.reshape(tuple(values.shape[:axis]) + idx.shape
+                         + tuple(values.shape[axis + 1:]))
+
+    coords = {}
+    for name, c in self.coords.items():
+      if dim not in c.dims:
+        coords[name] = c
+        continue
+      cax = c.dims.index(dim)
+      coords[name] = Coord(c.dims[:cax] + new_dims + c.dims[cax + 1:],
+                           gather(c.values, cax))
+    return DimArray(gather(self.data, ax),
+                    self.dims[:ax] + new_dims + self.dims[ax + 1:], coords)
+
 
 def _logical(fn):
   def op(a, b):

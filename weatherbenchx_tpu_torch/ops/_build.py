@@ -82,5 +82,8 @@ def load_library() -> ctypes.CDLL:
       lib.wbx_fused_ensemble_stats.restype = i32
       lib.wbx_pairwise_spread_sum.argtypes = [p, p, i64, i64, i32, i32, p]
       lib.wbx_pairwise_spread_sum.restype = i32
+      lib.wbx_pairwise_cross_sum.argtypes = [p, p, p, i64, i64, i64, i32, i32,
+                                             p]
+      lib.wbx_pairwise_cross_sum.restype = i32
       _library = lib
     return _library

@@ -1,6 +1,6 @@
 """Ensemble statistics for the CRPS family: CUDA kernels and plain versions.
 
-The port of ``weatherbenchx_tpu/ops/crps_pairwise.py:404-423, 583-603``.
+The port of ``weatherbenchx_tpu/ops/crps_pairwise.py:404-423, 571-603``.
 Each public function routes by the device of its input alone:
 
 * a CPU tensor takes the plain PyTorch version in this module;
@@ -8,8 +8,9 @@ Each public function routes by the device of its input alone:
   ``csrc/crps_pairwise.cu`` (built at first use by ``_build``), or raises.
 
 The kernels flatten the data axes: x is passed as a contiguous (M, N)
-array and y as (N), N = prod(rest). (The TPU kernel's rule against
-reshapes, which retile its memory layout, has no counterpart here.)
+array and y as (N) (or (My, N) for the cross sum), N = prod(rest). (The
+TPU kernel's rule against reshapes, which retile its memory layout, has no
+counterpart here.)
 
 ``LAUNCHES`` counts kernel launches per kernel, so that a run can show its
 main path went through the kernels; the plain versions do not count.
@@ -25,7 +26,8 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SHARED_BYTES = 232448
 _MIN_BLOCK_POINTS = 32
 
-LAUNCHES = {'fused_ensemble_stats': 0, 'pairwise_spread_sum': 0}
+LAUNCHES = {'fused_ensemble_stats': 0, 'pairwise_spread_sum': 0,
+            'pairwise_cross_sum': 0}
 
 
 def reset_launch_counts() -> None:
@@ -69,17 +71,35 @@ def fused_ensemble_stats_plain(x: torch.Tensor, y: torch.Tensor) -> tuple:
   return tuple(o.to(x.dtype) for o in outs)
 
 
+def pairwise_cross_sum_plain(x: torch.Tensor, y: torch.Tensor
+                             ) -> torch.Tensor:
+  """Σ_{i,j}|x_i − y_j| over both leading axes, one member at a time.
+
+  Loops over the smaller ensemble, so the largest temporary is the other
+  ensemble's (M, *rest) difference, never the (Mx, My, *rest) broadcast.
+  Not by the union-sort identity ½(S(x∪y) − S(x) − S(y)), which cancels in
+  float32.
+  """
+  dtype = _compute_dtype(x.dtype)
+  small, large = (x, y) if x.shape[0] <= y.shape[0] else (y, x)
+  large = large.to(dtype)
+  acc = torch.zeros(x.shape[1:], dtype=dtype, device=x.device)
+  for member in small.to(dtype):
+    acc += (large - member).abs_().sum(0)
+  return acc.to(x.dtype)
+
+
 # -- kernel wrappers ------------------------------------------------------------
 
 
-def _check_kernel_input(x: torch.Tensor) -> None:
+def _check_kernel_input(x: torch.Tensor, min_members: int = 2) -> None:
   if x.dtype not in KERNEL_DTYPES:
     raise TypeError(f'CUDA kernel takes float32 or bfloat16, got {x.dtype}')
   if not x.is_contiguous():
     raise ValueError('CUDA kernel input must be contiguous')
   m = x.shape[0]
-  if m < 2:
-    raise ValueError(f'need at least 2 ensemble members, got {m}')
+  if m < min_members:
+    raise ValueError(f'need at least {min_members} ensemble members, got {m}')
   if m * _MIN_BLOCK_POINTS * 4 > _MAX_SHARED_BYTES:
     raise ValueError(
         f'{m} members do not fit one block\'s shared memory '
@@ -118,6 +138,28 @@ def _launch_spread(x: torch.Tensor) -> torch.Tensor:
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(rc, 'pairwise_spread_sum')
     LAUNCHES['pairwise_spread_sum'] += 1
+  return out
+
+
+def _launch_cross(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  """x (Mx, N), y (My, N), both contiguous on one CUDA device.
+
+  The kernel stages the smaller ensemble in shared memory, so only that
+  one has to fit there.
+  """
+  mx, n = x.shape
+  my = y.shape[0]
+  _check_kernel_input(x if mx <= my else y, min_members=1)
+  if not (x.is_contiguous() and y.is_contiguous()):
+    raise ValueError('CUDA kernel input must be contiguous')
+  out = torch.empty((n,), dtype=x.dtype, device=x.device)
+  if n:
+    rc = _build.load_library().wbx_pairwise_cross_sum(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), mx, my, n,
+        KERNEL_DTYPES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error(rc, 'pairwise_cross_sum')
+    LAUNCHES['pairwise_cross_sum'] += 1
   return out
 
 
@@ -165,6 +207,28 @@ def pairwise_spread_sum(x: torch.Tensor) -> torch.Tensor:
     return pairwise_spread_sum_plain(x)
   return _launch_spread(x.contiguous().reshape(x.shape[0], -1)).reshape(
       x.shape[1:])
+
+
+def pairwise_cross_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+  """Σ_{i,j} |x[i] − y[j]| over both leading axes (two-ensemble CRPS skill).
+
+  x is (Mx, *rest) and y (My, *rest) with identical trailing shapes, any
+  rest rank (1-D inputs give a 0-d sum); returns a rest-shaped sum in x's
+  dtype without materializing the (Mx, My, *rest) broadcast. A NaN member
+  poisons only its own gridpoint.
+  """
+  if x.dim() != y.dim():
+    raise ValueError(f'rank mismatch: {tuple(x.shape)} vs {tuple(y.shape)}')
+  if x.dim() < 1 or tuple(x.shape[1:]) != tuple(y.shape[1:]):
+    raise ValueError(f'mismatched trailing shapes: {tuple(x.shape)} vs '
+                     f'{tuple(y.shape)}')
+  if x.dtype != y.dtype:
+    raise TypeError(f'dtype mismatch: {x.dtype} vs {y.dtype}')
+  if _route(x, y) == 'cpu':
+    return pairwise_cross_sum_plain(x, y)
+  return _launch_cross(x.contiguous().reshape(x.shape[0], -1),
+                       y.contiguous().reshape(y.shape[0], -1)).reshape(
+                           x.shape[1:])
 
 
 def spread_sum_along_axis(data: torch.Tensor, axis: int) -> torch.Tensor:

@@ -1,1 +1,1 @@
-"""Per-chunk evaluation on one device."""
+"""Per-chunk evaluation on one device, and the chunked evaluation pipeline."""
