@@ -1,4 +1,7 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions; and
+the benchmark path on the card: the device climatology gather against the
+host gather, SEEPS against its CPU run, the resource planner's budget, and
+the probabilistic CLI branch's fused-kernel launches.
 
 Marked ``cuda``: these skip without an NVIDIA GPU. On a machine with one
 (and without jax, which ``tests/conftest.py`` imports), run them with
@@ -122,3 +125,128 @@ def test_cross_kernel_one_dimensional_and_rejects(cuda):
                                      torch.zeros(1900, 4, device=cuda))
   with pytest.raises(TypeError, match='float32 or bfloat16'):
     crps_pairwise.pairwise_cross_sum(x.double(), y.double())
+
+
+# -- the deterministic benchmark path on the card ---------------------------------
+
+
+def _doy_hour_climatology(seed=0, n_lat=9, n_lon=12):
+  from weatherbenchx_tpu_torch.darray import DimArray
+  rng = np.random.default_rng(seed)
+  return DimArray(
+      rng.standard_normal((366, 4, 2, n_lat, n_lon)).astype(np.float32),
+      ('dayofyear', 'hour', 'level', 'latitude', 'longitude'),
+      {'dayofyear': np.arange(1, 367), 'hour': np.array([0, 6, 12, 18]),
+       'level': np.array([500, 850]), 'latitude': np.linspace(-90, 90, n_lat),
+       'longitude': np.arange(n_lon) * 30.0})
+
+
+def test_device_gather_equals_host_gather_bit_for_bit(cuda):
+  from weatherbenchx_tpu_torch.metrics import base
+  clim = _doy_hour_climatology()
+  valid = (np.datetime64('2020-12-30', 'ns')
+           + np.arange(12).reshape(3, 4) * np.timedelta64(6, 'h'))
+  idx = base.climatology_alignment_indices(clim, valid)
+  on_card = clim.copy(data=clim.data.to(cuda))
+  dev_idx = {d: torch.as_tensor(i.astype(np.int32), device=cuda)
+             for d, i in idx.items()}
+  got = base.gather_climatology(on_card, dev_idx, ('init_time', 'lead_time'))
+  want = base.gather_climatology_host(clim, idx, ('init_time', 'lead_time'))
+  assert got.data.device.type == 'cuda'
+  assert got.dims == want.dims and sorted(got.coords) == sorted(want.coords)
+  assert torch.equal(got.data.cpu(), want.data)
+
+
+def _seeps_inputs(seed=1):
+  from weatherbenchx_tpu_torch.darray import Coord, DimArray
+  rng = np.random.default_rng(seed)
+  inits = (np.datetime64('2020-01-01', 'ns')
+           + np.arange(2) * np.timedelta64(12, 'h'))
+  leads = (np.arange(4) * np.timedelta64(6, 'h')).astype('timedelta64[ns]')
+  space = {'latitude': np.linspace(-90, 90, 33),
+           'longitude': np.arange(64) * 5.625}
+  shape = (2, 4, 33, 64)
+  dims = ('init_time', 'lead_time', 'latitude', 'longitude')
+  p = np.abs(rng.standard_normal(shape)).astype(np.float32) * 2e-3
+  t = np.abs(rng.standard_normal(shape)).astype(np.float32) * 2e-3
+  p[0, 0, :4, :4] = np.nan
+  valid = Coord(('init_time', 'lead_time'), inits[:, None] + leads[None, :])
+  coords = {'init_time': inits, 'lead_time': leads, **space}
+  cshape = (3, 4, 33, 64)
+  cdims = ('dayofyear', 'hour', 'latitude', 'longitude')
+  ccoords = {'dayofyear': np.arange(1, 4), 'hour': np.array([0, 6, 12, 18]),
+             **space}
+  thr = (1.5e-3 + 2e-4 * rng.standard_normal(cshape)).astype(np.float32)
+  thr[:, :, 5] = np.nan
+  clim = {'tp_seeps_threshold': DimArray(thr, cdims, ccoords),
+          'tp_seeps_dry_fraction': DimArray(
+              rng.uniform(0.05, 0.95, cshape).astype(np.float32), cdims,
+              ccoords)}
+  return ({'tp': DimArray(p, dims, coords)},
+          {'tp': DimArray(t, dims, dict(coords, valid_time=valid))}, clim)
+
+
+def test_seeps_on_the_card_equals_its_cpu_run(cuda):
+  from weatherbenchx_tpu_torch import aggregation
+  from weatherbenchx_tpu_torch.metrics import base, categorical
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  p, t, clim = _seeps_inputs()
+  metrics = {'seeps': categorical.SEEPS(['tp'], clim)}
+  want = metrics['seeps'].compute(p, t)['tp']
+  ev = evaluator.ChunkEvaluator(
+      metrics, aggregation.Aggregator(reduce_dims=['latitude']), device=cuda)
+  dp, dt = ev.prepare_pair(p, t)
+  with base.device_resources(ev.resources()):
+    got = metrics['seeps'].compute(dp, dt)['tp']
+  assert got.data.device.type == 'cuda'
+  g, w = got.data.cpu(), want.data
+  assert torch.equal(torch.isnan(g), torch.isnan(w))
+  assert torch.equal(g.nan_to_num(), w.nan_to_num())
+  assert torch.equal(got.coords['mask'].values.cpu(),
+                     torch.as_tensor(want.coords['mask'].values))
+
+
+def test_planner_budget_comes_from_mem_get_info(cuda, monkeypatch):
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  monkeypatch.delenv('WBX_RESOURCE_BYTES', raising=False)
+  free, _ = torch.cuda.mem_get_info(cuda)
+  budget = evaluator._resource_budget_bytes(cuda)
+  assert budget == pytest.approx(evaluator._RESOURCE_SHARE * free, rel=0.01)
+  monkeypatch.setenv('WBX_RESOURCE_BYTES', '12345')
+  assert evaluator._resource_budget_bytes(cuda) == 12345
+
+
+def test_probabilistic_cli_launches_the_fused_kernel(cuda, tmp_path):
+  from weatherbenchx_tpu_torch import io
+  from weatherbenchx_tpu_torch.apps import run_benchmark_evaluation as cli
+  from weatherbenchx_tpu_torch.darray import DimArray
+  rng = np.random.default_rng(3)
+  inits = np.arange('2020-01-01', '2020-01-03', np.timedelta64(12, 'h'),
+                    dtype='datetime64[ns]')
+  leads = np.arange(0, 24, 6, dtype='timedelta64[h]').astype('timedelta64[ns]')
+  valid = np.arange('2020-01-01', '2020-01-04', np.timedelta64(6, 'h'),
+                    dtype='datetime64[ns]')
+  space = {'latitude': np.linspace(-90, 90, 32),
+           'longitude': np.arange(64) * 5.625}
+  io.save_dataset(str(tmp_path / 'ens.npz'), {'2m_temperature': DimArray(
+      rng.standard_normal((8, len(inits), len(leads), 32, 64)).astype(
+          np.float32),
+      ('number', 'time', 'prediction_timedelta', 'latitude', 'longitude'),
+      {'number': np.arange(8), 'time': inits, 'prediction_timedelta': leads,
+       **space})})
+  io.save_dataset(str(tmp_path / 'era5.npz'), {'2m_temperature': DimArray(
+      rng.standard_normal((len(valid), 32, 64)).astype(np.float32),
+      ('time', 'latitude', 'longitude'), {'time': valid, **space})})
+  crps_pairwise.reset_launch_counts()
+  cli.main(['--prediction=ens', f'--prediction_path={tmp_path}/ens.npz',
+            f'--target_path={tmp_path}/era5.npz', '--lead_time_stop_days=1',
+            '--init_time_start=2020-01-01', '--init_time_stop=2020-01-03',
+            '--variables=2m_temperature', f'--output_dir={tmp_path}/out',
+            '--device=cuda'])
+  n_chunks = len(inits)  # one init per chunk, all 4 leads in one
+  assert crps_pairwise.LAUNCHES['fused_ensemble_stats'] >= n_chunks
+  out = io.load_dataset(
+      f'{tmp_path}/out/ens_vs_era5_64x32_2020-init12h.npz')
+  crps = out['crps.2m_temperature']
+  glob = crps.values[:, list(crps.coord_values('region')).index('global')]
+  assert np.isfinite(glob).all() and abs(glob.mean() - 0.5642) < 0.05

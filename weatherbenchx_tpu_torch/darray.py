@@ -322,6 +322,13 @@ class DimArray:
   def __rmul__(self, o): return self._binary_op(o, operator.mul, True)
   def __truediv__(self, o): return self._binary_op(o, operator.truediv)
   def __rtruediv__(self, o):
+    if isinstance(o, (int, float, np.number)) and not isinstance(o, bool):
+      # torch computes scalar / tensor as reciprocal(tensor) * scalar, two
+      # roundings; numpy and XLA divide once. A 0-d tensor of the result
+      # dtype divides correctly rounded and promotes like the scalar.
+      dt = torch.result_type(self.data, o)
+      o = torch.tensor(o, dtype=dt, device=self.device)
+      return self.copy(data=torch.div(o, self.data))
     return self._binary_op(o, operator.truediv, True)
   def __pow__(self, o): return self._binary_op(o, operator.pow)
   def __gt__(self, o): return self._binary_op(o, operator.gt)
@@ -403,6 +410,22 @@ class DimArray:
     order = [self.dims.index(d) for d in dims]
     return DimArray(self.data.permute(order), dims, self.coords)
 
+  def expand_dims(self, dim: str | Mapping[str, int], axis: int = 0
+                  ) -> DimArray:
+    """New leading-at-``axis`` dims; a size > 1 broadcasts (a view)."""
+    if isinstance(dim, str):
+      dim = {dim: 1}
+    data = self.data
+    dims = list(self.dims)
+    for name, size in dim.items():
+      data = data.unsqueeze(axis)
+      if size != 1:
+        data = data.expand(data.shape[:axis] + (size,)
+                           + data.shape[axis + 1:])
+      dims.insert(axis, name)
+      axis += 1
+    return DimArray(data, tuple(dims), self.coords)
+
   def broadcast_like(self, other: DimArray) -> DimArray:
     out_dims = broadcast_dims(other.dims, self.dims)
     sizes = {**self.sizes, **other.sizes}
@@ -426,7 +449,7 @@ class DimArray:
     if scalar:
       idx = int(idx)
     elif not isinstance(idx, slice):
-      idx = np.asarray(idx)
+      idx = np.ascontiguousarray(idx)  # torch takes no negative strides
     t_idx = (torch.as_tensor(idx, device=self.data.device)
              if isinstance(idx, np.ndarray) else idx)
     new_data = self.data[(slice(None),) * ax + (t_idx,)]
@@ -501,6 +524,16 @@ class DimArray:
                            gather(c.values, cax))
     return DimArray(gather(self.data, ax),
                     self.dims[:ax] + new_dims + self.dims[ax + 1:], coords)
+
+  def sortby(self, name: str, ascending: bool = True) -> DimArray:
+    """Reorders the dim of the 1-D host coord ``name`` by its values."""
+    c = self.coords[name]
+    if len(c.dims) != 1:
+      raise ValueError('sortby requires a 1-D coordinate')
+    order = np.argsort(self.coord_values(name), kind='stable')
+    if not ascending:
+      order = order[::-1]
+    return self.isel({c.dims[0]: order})
 
 
 def _logical(fn):
@@ -601,6 +634,48 @@ def ones_like(x: DimArray, dtype=None) -> DimArray:
   return x.copy(data=torch.ones(
       x.shape, dtype=torch_dtype(dtype) if dtype is not None else x.dtype,
       device=x.device))
+
+
+def zeros_like(x: DimArray, dtype=None) -> DimArray:
+  return x.copy(data=torch.zeros(
+      x.shape, dtype=torch_dtype(dtype) if dtype is not None else x.dtype,
+      device=x.device))
+
+
+def comparison_safe_threshold(thresholds: DimArray, data_dtype,
+                              op: str) -> DimArray:
+  """Rounds float64 comparison constants directionally to a data dtype.
+
+  The port of ``weatherbenchx_tpu/darray.py:773-822``. Comparing float32
+  data with a threshold rounded to nearest in float32 can TIE a data value
+  that float64 puts strictly on one side, flipping an indicator statistic
+  against the float64 comparison. For data x exact in ``data_dtype`` and a
+  float64 threshold t, rounding t directionally keeps the float64 result:
+
+  * ops ``<=`` and ``>``: the largest ``data_dtype`` value <= t;
+  * ops ``<`` and ``>=``: the smallest ``data_dtype`` value >= t;
+
+  after which the comparison may run at any precision. A host-side
+  adjustment of the constants: a no-op for float64 or non-float data, and
+  for thresholds off the CPU (data-dependent thresholds are computed at
+  data precision on both sides, so ties there are shared, not skewed).
+  """
+  if op not in ('<=', '>', '<', '>='):
+    raise ValueError(f'unsupported comparison op {op!r}')
+  dt = torch_dtype(data_dtype)
+  t = thresholds.data
+  if not (t.device.type == 'cpu' and t.is_floating_point()
+          and dt.is_floating_point and torch.finfo(dt).bits < 64):
+    return thresholds
+  t64 = t.double()
+  t_near = t64.to(dt)
+  if op in ('<=', '>'):
+    step_to, off = -np.inf, t_near.double() > t64
+  else:
+    step_to, off = np.inf, t_near.double() < t64
+  rounded = torch.where(
+      off, torch.nextafter(t_near, torch.full_like(t_near, step_to)), t_near)
+  return thresholds.copy(data=rounded)
 
 
 def dot(*arrays: DimArray, dim: Sequence[str] | str) -> DimArray:

@@ -1,26 +1,27 @@
 """Gridded dataset loaders.
 
-The port of ``weatherbenchx_tpu/data/loaders.py:26-216``, over two
-sources: an in-memory ``dict[var, DimArray]`` dataset (``ds=``) or the
-``.npz`` container (``path=``, read whole with ``io.load_dataset``).
-Chunks come out on the host: CPU tensors and numpy coords.
+The port of ``weatherbenchx_tpu/data/loaders.py``, over two sources: an
+in-memory ``dict[var, DimArray]`` dataset (``ds=``) or a path opened by
+``io.open_dataset_auto`` (the ``.npz`` container, read whole). Chunks
+come out on the host: CPU tensors and numpy coords.
 
 Canonical dim names follow the ECMWF convention after renaming:
 ``init_time``/``lead_time`` for forecasts, ``valid_time`` for analyses,
 ``latitude``/``longitude`` for space, ``number`` for ensemble members.
 
-The JAX package's climatology, persistence and probabilistic-climatology
-loaders, and its lazy and xarray-backed stores, are not ported yet.
+The JAX package's lazy and xarray-backed stores are not ported yet.
 """
 
 import threading
 from typing import Any, Callable, Iterable, Mapping, Optional, Union
 
 import numpy as np
+import torch
 
 from weatherbenchx_tpu_torch import io as io_lib
-from weatherbenchx_tpu_torch.darray import Coord, DimArray
+from weatherbenchx_tpu_torch.darray import Coord, DimArray, _label_indices
 from weatherbenchx_tpu_torch.data import base
+from weatherbenchx_tpu_torch.metrics.base import dayofyear_and_hour
 
 Dataset = dict[str, DimArray]
 
@@ -99,7 +100,7 @@ class DatasetBackedLoader(base.DataLoader):
     with self._prepare_lock:
       if self._preprocessed:
         return
-      ds = self._ds if self._ds is not None else io_lib.load_dataset(
+      ds = self._ds if self._ds is not None else io_lib.open_dataset_auto(
           self._path)
       if self._preprocessing_fn is not None:
         ds = self._preprocessing_fn(ds)
@@ -177,4 +178,127 @@ class TargetsFromDataset(DatasetBackedLoader):
           init_time=Coord(('init_time',), init_times),
           lead_time=Coord(('lead_time',), lead_times),
           valid_time=Coord(('init_time', 'lead_time'), valid_time))
+    return out
+
+
+def _valid_times(init_times: np.ndarray, lead_times) -> np.ndarray:
+  """(init, lead) valid times in ns; exact lead times only."""
+  if lead_times is None or isinstance(lead_times, slice):
+    raise ValueError(
+        'Exact lead times must be specified for this data loader.')
+  return (init_times[:, None].astype('datetime64[ns]')
+          + lead_times[None, :].astype('timedelta64[ns]'))
+
+
+class ClimatologyFromDataset(DatasetBackedLoader):
+  """Reads a (dayofyear[, hour]) climatology as a predictions dataset."""
+
+  def __init__(
+      self,
+      climatology_time_coords: Iterable[str] = ('dayofyear', 'hour'),
+      rename_dimensions=None,
+      **kwargs,
+  ):
+    super().__init__(rename_dimensions=rename_dimensions, **kwargs)
+    self._climatology_time_coords = tuple(climatology_time_coords)
+
+  def _load_chunk_from_source(self, init_times, lead_times=None):
+    if isinstance(lead_times, slice):
+      raise ValueError(
+          'Lead time slice not yet supported for climatology data loaders.')
+    if lead_times is not None:
+      valid_time = _valid_times(init_times, lead_times)
+      out_dims = ('init_time', 'lead_time')
+    else:
+      valid_time = init_times.astype('datetime64[ns]')
+      out_dims = ('init_time',)
+    doy, hour = dayofyear_and_hour(valid_time)
+    units = {'dayofyear': doy, 'hour': hour}
+    out = {}
+    for k, da in self._ds.items():
+      sel = da
+      for i, name in enumerate(self._climatology_time_coords):
+        idx = _label_indices(sel.coord_values(name).astype(np.int64),
+                             units[name], None)
+        # The first select expands to the output dims; later ones index
+        # the same output dims, so they select diagonally.
+        sel = (sel.take(name, idx, out_dims) if i == 0
+               else _diagonal_take(sel, name, idx, out_dims))
+      coords = {'init_time': Coord(('init_time',), init_times)}
+      if lead_times is not None:
+        coords['lead_time'] = Coord(('lead_time',), lead_times)
+        coords['valid_time'] = Coord(out_dims, valid_time)
+      out[k] = sel.assign_coords(**coords)
+    return out
+
+
+def _diagonal_take(da: DimArray, dim: str, idx: np.ndarray,
+                   out_dims: tuple) -> DimArray:
+  """da[dim=idx] where idx is laid out along ``out_dims``, already dims of
+  ``da``: xarray's pointwise sel when the indexer shares the array's dims
+  (the second time select of a dayofyear x hour climatology)."""
+  rest = tuple(d for d in da.dims if d not in out_dims and d != dim)
+  da_t = da.transpose(*out_dims, dim, *rest)
+  n_out = len(out_dims)
+  data = da_t.data.reshape((-1,) + tuple(da_t.shape[n_out:]))
+  rows = torch.arange(data.shape[0])
+  gathered = data[rows, torch.as_tensor(idx.reshape(-1))]
+  gathered = gathered.reshape(idx.shape + tuple(da_t.shape[n_out + 1:]))
+  dims = tuple(out_dims) + rest
+  coords = {k: c for k, c in da.coords.items() if set(c.dims).issubset(dims)}
+  return DimArray(gathered, dims, coords)
+
+
+class PersistenceFromDataset(DatasetBackedLoader):
+  """The target dataset at init time as a forecast, repeated along
+  lead_time."""
+
+  def _load_chunk_from_source(self, init_times, lead_times=None):
+    if lead_times is None or isinstance(lead_times, slice):
+      raise ValueError(
+          'Exact lead times must be specified for persistence data loader.')
+    out = {}
+    for k, da in self._ds.items():
+      sel = da.sel(valid_time=init_times).rename({'valid_time': 'init_time'})
+      sel = sel.expand_dims({'lead_time': len(lead_times)}, axis=1)
+      out[k] = sel.assign_coords(
+          lead_time=Coord(('lead_time',), lead_times),
+          init_time=Coord(('init_time',), init_times))
+    return out
+
+
+class ProbabilisticClimatologyFromDataset(DatasetBackedLoader):
+  """Each year of a target dataset as one ensemble member: for each valid
+  time, the same (dayofyear, hour) of every year in [start_year,
+  end_year]."""
+
+  def __init__(self, start_year: int, end_year: int,
+               ensemble_dim: str = 'number', **kwargs):
+    super().__init__(**kwargs)
+    self._start_year = start_year
+    self._end_year = end_year
+    self._ensemble_dim = ensemble_dim
+
+  def _load_chunk_from_source(self, init_times, lead_times=None):
+    valid_time = _valid_times(init_times, lead_times)
+    doy, hour = dayofyear_and_hour(valid_time)
+    years = list(range(self._start_year, self._end_year + 1))
+    member_times = np.stack([
+        np.datetime64(str(year), 'ns')
+        + ((doy - 1) * 24 + hour) * np.timedelta64(1, 'h')
+        for year in years])  # (member, init, lead)
+    out = {}
+    for k, da in self._ds.items():
+      # ns-normalized keys: cross-unit datetime64 scalars hash differently.
+      coord = da.coord_values('valid_time').astype('datetime64[ns]')
+      idx = _label_indices(coord, member_times, None)
+      sel = da.take('valid_time', idx,
+                    (self._ensemble_dim, 'init_time', 'lead_time'))
+      out[k] = sel.assign_coords(**{
+          self._ensemble_dim: Coord((self._ensemble_dim,),
+                                    np.arange(len(years))),
+          'init_time': Coord(('init_time',), init_times),
+          'lead_time': Coord(('lead_time',), lead_times),
+          'valid_time': Coord(('init_time', 'lead_time'), valid_time),
+      })
     return out

@@ -26,7 +26,7 @@ def _local(path: str) -> str:
   if is_remote(path):
     raise NotImplementedError(
         f'{path!r}: remote paths (fsspec) are not ported to '
-        'weatherbenchx_tpu_torch yet; use a local path')
+        'weatherbenchx_tpu_torch yet (ROADMAP A8); use a local path')
   return path
 
 

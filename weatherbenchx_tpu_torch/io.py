@@ -9,7 +9,8 @@ the other.
 Data is read into CPU tensors; tensors are written from wherever they
 live (bfloat16, which numpy lacks, is written widened to float32). The
 JAX package's other containers (``.wbx``, ``.zarr``, netCDF) are not
-ported yet: their paths raise NotImplementedError.
+ported yet (ROADMAP queue A, item A8): their paths raise
+NotImplementedError.
 """
 
 import io as _pyio
@@ -24,6 +25,7 @@ from weatherbenchx_tpu_torch.darray import Coord, DimArray
 Dataset = Mapping[Hashable, DimArray]
 
 _UNPORTED_SUFFIXES = ('.wbx', '.zarr', '.nc')
+_NETCDF_LIKE = ('.nc', '.nc4', '.h5', '.grib', '.grib2')
 
 
 def _host(values) -> np.ndarray:
@@ -70,7 +72,7 @@ def _check_portable(path: str) -> None:
   if str(path).rstrip('/').endswith(_UNPORTED_SUFFIXES):
     raise NotImplementedError(
         f'{path!r}: weatherbenchx_tpu_torch reads and writes only the .npz '
-        'container; .wbx, .zarr and netCDF are not ported yet')
+        'container; .wbx, .zarr and netCDF are not ported yet (ROADMAP A8)')
 
 
 def _savez(file, dataset: Dataset) -> None:
@@ -106,3 +108,26 @@ def load_dataset(path: str) -> dict[str, DimArray]:
   with np.load(path, allow_pickle=False) as npz:
     meta = json.loads(bytes(npz['__meta__']).decode())
     return _assemble(meta, lambda key: npz[key])
+
+
+def open_dataset_auto(path: str) -> dict[str, DimArray]:
+  """Opens a store by its extension, as the JAX package's
+  ``io.open_dataset_auto`` decides (the one place that does).
+
+  A local ``.npz`` is read whole. The ``.wbx``, zarr and netCDF/GRIB
+  containers, and remote URLs (fsspec), are not ported yet (ROADMAP A8)
+  and raise NotImplementedError.
+  """
+  from weatherbenchx_tpu_torch import fileio  # fileio imports this module
+
+  stripped = str(path).rstrip('/')
+  if stripped.endswith('.npz'):
+    return fileio.load_dataset_any(path)
+  kind = ('.wbx' if stripped.endswith('.wbx')
+          else 'zarr' if stripped.endswith('.zarr') or fileio.is_remote(path)
+          else 'netCDF/GRIB' if stripped.endswith(_NETCDF_LIKE)
+          else 'this')
+  raise NotImplementedError(
+      f'{path!r}: opening a {kind} store is not ported to '
+      'weatherbenchx_tpu_torch yet (ROADMAP A8: .wbx, zarr and netCDF I/O, '
+      'and fsspec); use an .npz container')

@@ -7,8 +7,10 @@ distributions, and a process-global default registry. The JAX package's
 
 Counters the pipeline records: ``chunks_done``, ``load_retries``,
 ``chunks_failed``. Timings (seconds): ``load_targets_seconds``,
-``load_predictions_seconds``, ``eval_chunk_seconds`` (host clock around
-one chunk's device copy and the launch of its evaluation; device work may
+``load_predictions_seconds`` (which includes the statistics' host
+preparation of the chunk: climatology alignment indices and host-gathered
+climatology slices), ``eval_chunk_seconds`` (host clock around one
+chunk's device copy and the launch of its evaluation; device work may
 still be running when it stops), ``checkpoint_seconds``.
 """
 

@@ -4,11 +4,13 @@ The port of ``weatherbenchx_tpu/parallel/pipeline.py:52-204, 262-652,
 696-790`` to one device:
 
 * host enumeration of ``TimeChunks``, with threaded prefetch: loader
-  threads do host work only (selection, gathers, numpy); every device
-  operation runs on the calling thread;
-* per chunk, ``ChunkEvaluator.eval_chunk`` on the pipeline's device, its
-  state added to a running bucket per (init_time, lead_time) offset of the
-  dims the aggregator keeps;
+  threads do host work only (selection, gathers, numpy, and the
+  statistics' host preparation ``ChunkEvaluator.prepare_host``, i.e.
+  climatology alignment indices and host-gathered climatology slices);
+  every device operation runs on the calling thread;
+* per chunk, ``ChunkEvaluator.eval_host_prepared`` on the pipeline's
+  device, its state added to a running bucket per (init_time, lead_time)
+  offset of the dims the aggregator keeps;
 * at the end, the buckets on the host in float64, combined by the
   zero-filled outer join of ``aggregation.combining_sum`` (preserved
   chunked dims concatenate);
@@ -96,14 +98,22 @@ def load_chunk_pair(
     targets_loader: data_base.DataLoader,
     chunk: time_chunks_lib.TimeChunk,
     obs: Optional[observability.Metrics] = None,
+    prepare: Optional[Callable] = None,
 ):
-  """Loads one (predictions, targets) chunk pair on the host."""
+  """Loads one (predictions, targets) chunk pair on the host.
+
+  ``prepare(predictions, targets)``, host work on the loaded pair (the
+  evaluator's ``prepare_host``), runs as the last step of loading the
+  predictions and is timed with them.
+  """
   init_times, lead_times = chunk
   t0 = time.monotonic()
   targets = targets_loader.load_chunk(init_times, lead_times)
   t1 = time.monotonic()
   predictions = predictions_loader.load_chunk(
       init_times, lead_times, reference=targets)
+  if prepare is not None:
+    predictions, targets = prepare(predictions, targets)
   t2 = time.monotonic()
   if obs is not None:
     obs.record('load_targets_seconds', t1 - t0)
@@ -212,10 +222,12 @@ class EvaluationPipeline:
 
   def _load(self, chunk: time_chunks_lib.TimeChunk):
     return load_chunk_pair(self.predictions_loader, self.targets_loader,
-                           chunk, obs=self._obs)
+                           chunk, obs=self._obs,
+                           prepare=self._evaluator.prepare_host)
 
   def _chunk_stream(self, start_chunk: int = 0):
-    """Yields (index, offsets, (predictions, targets)), host chunks.
+    """Yields (index, offsets, (predictions, targets)), host chunks
+    already through the evaluator's host preparation.
 
     ``start_chunk`` drops completed chunks before their loads are
     submitted, so a resumed run does not re-read them.
@@ -288,7 +300,7 @@ class EvaluationPipeline:
     for i, offsets, (predictions, targets) in self._chunk_stream(start_chunk):
       key = self._bucket_key(offsets)
       with self._obs.timed('eval_chunk_seconds'):
-        state = self._evaluator.eval_chunk(predictions, targets)
+        state = self._evaluator.eval_host_prepared(predictions, targets)
         buckets[key] = buckets[key] + state if key in buckets else state
       self._obs.counter('chunks_done')
       done += 1
