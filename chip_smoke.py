@@ -9,10 +9,16 @@ Phases, each printing progress lines; any failed check raises, so the
 script exits nonzero:
 
 1. Device: requires a CUDA device; prints the card's name and power limit.
-2. Build: compiles the port's CUDA kernels from ops/csrc with nvcc.
+2. Build: compiles the port's CUDA kernels from ops/csrc with nvcc, the
+   register kernels' generated translation units in parallel; prints the
+   build time, the registers of every register kernel and fails unless
+   each shows 0 bytes of stack frame and spills.
 3. Kernels against their plain PyTorch versions on the card: several
    ensemble sizes and shapes, NaN members, |mean| >> std, float32 and
-   bfloat16, 1-D input, and the main paths' own shapes.
+   bfloat16, 1-D input, and the main paths' own shapes; each route
+   boundary (2, 63, 64 and 65 members); a NaN at every member position
+   and +-inf members at 21 and 49 members (the network route); and every
+   register kernel built, M = 2..64, in both dtypes.
 4. Main path at full width: ChunkEvaluator with fair CRPS, the unbiased
    spread/skill ratio and the unbiased ensemble-mean RMSE over 3 chunks of
    a 50-member 0.25-degree ensemble (50 x 1 x 4 x 721 x 1440 float32,
@@ -56,7 +62,10 @@ script exits nonzero:
    kernel launched at least once per chunk; tolerances are 6 standard
    errors at the global bin's effective size.
 9. Timing with CUDA events: each kernel against its plain version at its
-   path's shape, one whole eval_chunk, and the pipeline's seconds per chunk.
+   path's shape (fused and spread at M = 50, spread at M = 10, cross 50 x
+   10), beside its bound and beside a device-to-device copy of the 50-member
+   ensemble (the card's streaming rate); one whole eval_chunk, and the
+   pipeline's seconds per chunk.
 
 The last three lines are a JSON object describing the three kernels, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -120,6 +129,17 @@ ENS_CLOSED_FORMS = {
 # tolerance is 7.9 of them.
 CLI_GRID = (121, 240)
 CLI_RMSE_TOL = 0.03
+# Member counts on the network route checked with a NaN at every member
+# position and with infinite members (odd: the median's weight is 0).
+NAN_POSITION_MEMBERS = (21, 49)
+# The H100 SXM's HBM rate, and its float32 issue rate for operations that
+# are not FMAs (min, max, add, subtract): 128 per clock per SM x 132 SMs x
+# 1.98 GHz; the data sheet's 67 TFLOP/s counts an FMA as two. For the
+# kernels' bounds.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 33.5e12
+# Calls per timed sample (time_cuda), for kernels and plain versions alike.
+TIMING_REPS = 20
 
 
 def log(msg: str) -> None:
@@ -134,11 +154,13 @@ def card_line() -> str:
 
 
 def rel_err(got, want):
-  """(NaN patterns equal, max |got-want| / max(|want|, 1), max abs err)."""
+  """(NaN, +inf and -inf patterns equal, max |got-want| / max(|want|, 1)
+  and max abs err over the points where want is finite)."""
   import torch
   got, want = got.double(), want.double()
-  same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
-  ok = ~torch.isnan(want)
+  same_nan = all(bool(torch.equal(f(got), f(want)))
+                 for f in (torch.isnan, torch.isposinf, torch.isneginf))
+  ok = torch.isfinite(want)
   diff = (got[ok] - want[ok]).abs()
   if diff.numel() == 0:
     return same_nan, 0.0, 0.0
@@ -159,6 +181,13 @@ def check_kernels(seed: int) -> dict:
       (21, (1, 2, 37, 71), (10, 500), 0.0, 1.0),
       (50, (4, 777), None, 288.0, 3.0),
       (50, (1, 2, 37, 71), (49, 0), 0.0, 1.0),
+      # The route boundaries (the network from 2 members, the shared form
+      # past 64) and the ensemble path's 10 members.
+      (2, (2, 37, 71), (1, 700), 0.0, 1.0),
+      (10, (2, 37, 71), (5, 700), 0.0, 1.0),
+      (63, (2, 37, 71), (0, 700), 0.0, 1.0),
+      (64, (2, 37, 71), (63, 700), 0.0, 1.0),
+      (65, (2, 37, 71), (32, 700), 288.0, 3.0),
       (M, GRID, None, 0.0, 1.0),
   ]
   main_path_err = {}
@@ -193,11 +222,125 @@ def check_kernels(seed: int) -> dict:
       if nan_at is not None and not all(
           bool(torch.isnan(g.reshape(-1)[nan_at[1]])) for g in got):
         raise AssertionError(f'M={m}: NaN member did not poison its point')
-      log(f'kernel check M={m} rest={rest} {dname} nan={nan_at is not None} '
-          f'offset={offset}: max rel err {worst:.3g} '
-          f'(tol {KERNEL_RTOL[dname]}) ok')
+      log(f'kernel check M={m} ({cp.spread_form(m)}) rest={rest} {dname} '
+          f'nan={nan_at is not None} offset={offset}: max rel err '
+          f'{worst:.3g} (tol {KERNEL_RTOL[dname]}) ok')
+  check_nan_positions(rng)
+  check_infinities(rng)
+  check_every_register_kernel(rng)
   main_path_err['cross'] = check_cross_kernel(rng)
   return main_path_err
+
+
+def stats_against_plain(x, y, label: str, dname: str) -> tuple:
+  """The fused and spread-only kernels against their plain versions on
+  x (M, N) and y (N); returns the five outputs. Raises unless every output
+  has the plain version's NaN and +-inf pattern and is within
+  KERNEL_RTOL."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  got = cp._launch_stats(x, y) + (cp._launch_stats(x, None),)
+  want = cp.fused_ensemble_stats_plain(x, y) + (
+      cp.pairwise_spread_sum_plain(x),)
+  torch.cuda.synchronize()
+  names = ('spread_sum', 'skill_sum', 'mean', 'sq_dev_sum', 'spread_only')
+  for name, g, w in zip(names, got, want):
+    same, rel, _ = rel_err(g, w)
+    if not same:
+      raise AssertionError(f'{label} {name} {dname}: NaN/inf pattern differs '
+                           'from the plain version')
+    if rel > KERNEL_RTOL[dname]:
+      raise AssertionError(f'{label} {name} {dname}: rel err {rel:.3g} > '
+                           f'{KERNEL_RTOL[dname]}')
+  return got
+
+
+def check_nan_positions(rng) -> None:
+  """On the network route: point p holds a NaN at member p, for every p;
+  each output must be NaN there and nowhere else."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  for m in NAN_POSITION_MEMBERS:
+    if cp.spread_form(m) != 'network':
+      raise AssertionError(f'M={m} is not on the network route')
+    x = rng.standard_normal((m, 4000), dtype=np.float32)
+    for p in range(m):
+      x[p, p] = np.nan
+    y = rng.standard_normal(4000, dtype=np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+      dname = str(dtype).split('.')[-1]
+      got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
+                                torch.from_numpy(y).to(DEVICE, dtype),
+                                f'NaN positions M={m}', dname)
+      want = torch.arange(4000, device=DEVICE) < m
+      if not all(torch.equal(torch.isnan(g), want) for g in got):
+        raise AssertionError(f'M={m}: a NaN member must poison its own '
+                             'point, at every member position, and no other')
+      log(f'kernel check M={m} (network) {dname}: a NaN at each of the {m} '
+          'member positions poisons its own point only ok')
+
+
+def check_infinities(rng) -> None:
+  """On the network route: +-inf members (one +inf; one -inf; one of each;
+  two +inf; more than half +inf; more than half -inf) give the plain
+  version's inf and NaN points: inf where the median is finite, NaN where
+  it is infinite."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  for m in NAN_POSITION_MEMBERS:
+    if cp.spread_form(m) != 'network':
+      raise AssertionError(f'M={m} is not on the network route')
+    x = rng.standard_normal((m, 1000), dtype=np.float32)
+    x[0, 0] = np.inf
+    x[1, 1] = -np.inf
+    x[2, 2], x[3, 2] = np.inf, -np.inf
+    x[4:6, 3] = np.inf
+    x[:m // 2 + 1, 4] = np.inf
+    x[m - m // 2 - 1:, 5] = -np.inf
+    y = rng.standard_normal(1000, dtype=np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+      dname = str(dtype).split('.')[-1]
+      got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
+                                torch.from_numpy(y).to(DEVICE, dtype),
+                                f'infinities M={m}', dname)
+      head = got[4][:6].float().cpu().numpy()
+      if not (np.isposinf(head[:4]).all() and np.isnan(head[4:]).all()
+              and bool(torch.isfinite(got[4][6:]).all())):
+        raise AssertionError(f'M={m}: spread at the infinite points {head}')
+      log(f'kernel check M={m} (network) {dname}: +-inf members give the '
+          f'plain version\'s inf/NaN points {head.tolist()} ok')
+
+
+def check_every_register_kernel(rng) -> None:
+  """Each register kernel built, M = 2..64, fused and spread-only, against
+  the plain versions: a NaN member, a +inf and a -inf at other points.
+  Raises after all kernels, naming every one that failed."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  failed = []
+  for dtype in (torch.float32, torch.bfloat16):
+    dname = str(dtype).split('.')[-1]
+    for m in cp.REGISTER_MEMBERS:
+      x = rng.standard_normal((m, 3000), dtype=np.float32)
+      x[m // 2, 0] = np.nan
+      x[0, 1] = np.inf
+      x[m - 1, 2] = -np.inf
+      y = rng.standard_normal(3000, dtype=np.float32)
+      try:
+        got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
+                                  torch.from_numpy(y).to(DEVICE, dtype),
+                                  f'M={m}', dname)
+        if not all(bool(torch.isnan(g[0])) for g in got):
+          raise AssertionError(f'M={m} {dname}: NaN member did not poison '
+                               'its point')
+      except AssertionError as e:
+        failed.append(str(e))
+    log(f'kernel check: {len(cp.REGISTER_MEMBERS)} register kernels (M) '
+        f'{dname}, fused and spread-only, against the plain versions')
+  if failed:
+    raise AssertionError(f'{len(failed)} register kernel checks failed:\n'
+                         + '\n'.join(failed))
+  log('kernel check: every register kernel matches the plain versions ok')
 
 
 def check_cross_kernel(rng) -> float:
@@ -255,6 +398,62 @@ def check_cross_kernel(rng) -> float:
           f'nan={nan_at is not None} offset={offset}: max rel err {rel:.3g} '
           f'(tol {KERNEL_RTOL[dname]}) ok')
   return path_err
+
+
+def build_report(build_log: str) -> None:
+  """Phase 2's reading of nvcc's -Xptxas -v lines: the shared-memory and
+  cross kernels line by line; the register kernels as registers per
+  (dtype, output set) and M. Raises unless every register kernel was
+  compiled, with 0 bytes of stack frame and spills."""
+  import re
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  entry = re.compile(r"Compiling entry function '(\S+)'")
+  props = re.compile(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                     r'(\d+) bytes spill loads')
+  regs = re.compile(r'Used (\d+) registers')
+  name = re.compile(r'register_stats_kernelI(f|13__nv_bfloat16)Lb([01])E'
+                    r'Li(\d+)E')
+  kernels = {}  # mangled name -> [registers, stack + spill bytes]
+  current = None
+  for line in build_log.splitlines():
+    if line.startswith('== '):
+      log(f'  nvcc: {line}')
+    if m := entry.search(line):
+      current = m.group(1)
+      kernels[current] = [None, None]
+      if 'register_stats_kernel' not in current:
+        log(f'  nvcc: {line.strip()}')
+    elif current and (m := props.search(line)):
+      kernels[current][1] = sum(int(g) for g in m.groups())
+      if 'register_stats_kernel' not in current:
+        log(f'  nvcc: {line.strip()}')
+    elif current and (m := regs.search(line)):
+      kernels[current][0] = int(m.group(1))
+      if 'register_stats_kernel' not in current:
+        log(f'  nvcc: {line.strip()}')
+  table = {}
+  for mangled, (nregs, spill) in kernels.items():
+    if 'register_stats_kernel' not in mangled:
+      continue
+    if nregs is None or spill is None:
+      raise AssertionError(f'no ptxas properties for {mangled}')
+    if spill:
+      raise AssertionError(f'{mangled}: {spill} bytes of stack frame and '
+                           'spills on a register route')
+    if m := name.search(mangled):
+      dtype = 'f32' if m.group(1) == 'f' else 'bf16'
+      key = (dtype, ('spread', 'fused')[int(m.group(2))])
+      table.setdefault(key, {})[int(m.group(3))] = nregs
+  want = 4 * len(cp.REGISTER_MEMBERS)
+  got = sum(len(v) for v in table.values())
+  if got != want:
+    raise AssertionError(f'{got} register kernels in the build log, want '
+                         f'{want}')
+  for (dtype, outs), by_m in sorted(table.items()):
+    log(f'  nvcc: network {outs} {dtype} registers by M: '
+        + ' '.join(f'{m}:{r}' for m, r in sorted(by_m.items())))
+  log(f'  nvcc: {want} register kernels, every one with 0 bytes of stack '
+      'frame, spill stores and spill loads')
 
 
 def grid_coords():
@@ -1172,8 +1371,10 @@ def benchmark_cli_phase(seed: int) -> dict:
   return launches
 
 
-def time_cuda(fns: dict, rounds: int) -> dict:
-  """Median and IQR (ms) per function, CUDA events, taken in turns."""
+def time_cuda(fns: dict, rounds: int, reps: int = 1) -> dict:
+  """Median and IQR (ms per call) per function, taken in turns: CUDA
+  events around ``reps`` calls back to back, so that the host's launch
+  overhead hides behind the device's work."""
   import torch
   samples = {k: [] for k in fns}
   names = list(fns)
@@ -1182,47 +1383,123 @@ def time_cuda(fns: dict, rounds: int) -> dict:
       start = torch.cuda.Event(enable_timing=True)
       end = torch.cuda.Event(enable_timing=True)
       start.record()
-      fns[name]()
+      for _ in range(reps):
+        fns[name]()
       end.record()
       end.synchronize()
       if r:  # round 0 warms up
-        samples[name].append(start.elapsed_time(end))
+        samples[name].append(start.elapsed_time(end) / reps)
   return {k: (float(np.median(v)), float(np.percentile(v, 25)),
               float(np.percentile(v, 75)), len(v))
           for k, v in samples.items()}
 
 
+def stats_work(m: int, n: int, fused: bool) -> tuple:
+  """(bytes, operations) of the fused or spread-only kernel on float32
+  x (m, n), in the form spread_form(m): each input read once, each output
+  written once; per point the compare-exchanges' min and max, the shift
+  and weighted sum and the NaN test (network), or a difference and an add
+  per pair (shared); fused adds the sum, skill, mean and squared
+  deviations."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  if cp.spread_form(m) == 'network':
+    ops = 2 * len(cp.sort_network(m)) + 3 * m
+  else:
+    ops = m * (m - 1)
+  if fused:
+    ops += 5 * m + 1
+  nbytes = 4 * n * (m + (1 + 4 if fused else 1))
+  return nbytes, ops * n
+
+
+def cross_work(mx: int, my: int, n: int) -> tuple:
+  """(bytes, operations) of the cross kernel on float32 x (mx, n) and
+  y (my, n): a difference and an add per pair."""
+  return 4 * n * (mx + my + 1), 2 * mx * my * n
+
+
+def bound(nbytes: int, ops: int) -> tuple:
+  """(least ms on the card, 'bytes' or 'operations')."""
+  t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+  return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                     else 'operations')
+
+
+def time_kernels(x, y, yt, card: str) -> dict:
+  """Phase 9's kernel timings at the paths' shapes, float32: fused and
+  spread at M = 50, spread at M = 10 (the ensemble path's analysis), cross
+  50 x 10, each against its plain version, TIMING_REPS calls per sample
+  for both; and, in the kernels' turns, a device-to-device copy of x
+  (x.clone()), the card's streaming rate. Returns {name: (median, q1, q3,
+  runs)} in ms and logs each kernel beside its bound and its rate beside
+  the copy's."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  n = y.numel()
+  res = time_cuda({
+      'fused_kernel': lambda: cp.fused_ensemble_stats(x, y),
+      'spread_kernel': lambda: cp.pairwise_spread_sum(x),
+      'spread10_kernel': lambda: cp.pairwise_spread_sum(yt),
+      'cross_kernel': lambda: cp.pairwise_cross_sum(x, yt),
+      'copy': x.clone,
+  }, rounds=12, reps=TIMING_REPS)
+  res.update(time_cuda({
+      'fused_plain': lambda: cp.fused_ensemble_stats_plain(x, y),
+      'spread_plain': lambda: cp.pairwise_spread_sum_plain(x),
+      'spread10_plain': lambda: cp.pairwise_spread_sum_plain(yt),
+      'cross_plain': lambda: cp.pairwise_cross_sum_plain(x, yt),
+  }, rounds=6, reps=TIMING_REPS))
+  m, mt = x.shape[0], yt.shape[0]
+  med, q1, q3, count = res['copy']
+  copy_bytes = 2 * x.numel() * x.element_size()
+  log(f'timing copy (x.clone(), {copy_bytes} bytes read and written): '
+      f'median {med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms over {count} runs; '
+      f'{copy_bytes / med / 1e9:.4f} TB/s, '
+      f'{copy_bytes / med * 1e3 / HBM_BYTES_PER_S:.1%} of '
+      f'{HBM_BYTES_PER_S / 1e12} TB/s; card {card}')
+  work = {'fused': stats_work(m, n, True), 'spread': stats_work(m, n, False),
+          'spread10': stats_work(mt, n, False), 'cross': cross_work(m, mt, n)}
+  for name, (med, q1, q3, count) in res.items():
+    if name == 'copy':
+      continue
+    key, kind = name.rsplit('_', 1)
+    ms, by = bound(*work[key])
+    share = ''
+    if kind == 'kernel':
+      share = (f'{ms / med:.1%} of the bound, '
+               f'{copy_share(res, work[key][0], med, copy_bytes):.1%} of the '
+               'copy\'s rate; ')
+    log(f'timing {name}: median {med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms '
+        f'over {count} runs; {share}bound {ms:.4f} ms by {by}; N={n}, '
+        f'float32; card {card}')
+  return res
+
+
+def copy_share(res: dict, nbytes: int, ms: float, copy_bytes: int) -> float:
+  """A kernel's bytes per ms over the copy's in the same run."""
+  return (nbytes / ms) / (copy_bytes / res['copy'][0])
+
+
 def timing(ev, chunks, stores, card: str) -> dict:
-  """Phase 9: kernels vs plain at their paths' shapes; one eval_chunk; the
-  ensemble pipeline's seconds per chunk."""
-  import torch
+  """Phase 9: the kernels (time_kernels) at their paths' shapes; one
+  eval_chunk; the ensemble pipeline's seconds per chunk."""
   from weatherbenchx_tpu_torch import observability
   from weatherbenchx_tpu_torch.aggregation import AggregationState
-  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   p, t = chunks[0]
   x = p['2m_temperature'].data.to(DEVICE)
   y = t['2m_temperature'].data.to(DEVICE)
   yt = stores[1]['2m_temperature'].data[:, :GRID[1]][:, None].to(
       DEVICE).contiguous()
-  n = x[0].numel()
-  res = time_cuda({
-      'fused_kernel': lambda: cp.fused_ensemble_stats(x, y),
-      'fused_plain': lambda: cp.fused_ensemble_stats_plain(x, y),
-      'spread_kernel': lambda: cp.pairwise_spread_sum(x),
-      'spread_plain': lambda: cp.pairwise_spread_sum_plain(x),
-      'cross_kernel': lambda: cp.pairwise_cross_sum(x, yt),
-      'cross_plain': lambda: cp.pairwise_cross_sum_plain(x, yt),
-  }, rounds=12)
+  res = time_kernels(x, y, yt, card)
   pair = ev.prepare_pair(p, t)
-  res.update(time_cuda({
+  steps = time_cuda({
       'eval_chunk (host chunk in)': lambda: ev.eval_chunk(p, t),
       'eval_accum (chunk on device)':
           lambda: ev.eval_accum(pair, AggregationState.zero()),
-  }, rounds=10))
-  for name, (med, q1, q3, count) in res.items():
-    shape = f'Mx={M}, My={M_TARGETS}' if 'cross' in name else f'M={M}'
+  }, rounds=10)
+  for name, (med, q1, q3, count) in steps.items():
     log(f'timing {name}: median {med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms '
-        f'over {count} runs; {shape}, N={n}, float32; card {card}')
+        f'over {count} runs; M={M}, N={x[0].numel()}, float32; card {card}')
+  res.update(steps)
   del x, y, yt, pair
   registry = observability.Metrics()
   _, seconds = run_ensemble_pipeline(stores, registry)
@@ -1231,6 +1508,64 @@ def timing(ev, chunks, stores, card: str) -> dict:
       f'({N_ENS_INITS} chunks, wall clock to a final synchronize); per-chunk '
       f'means (s) {json.dumps(per_chunk)}; card {card}')
   return res
+
+
+def timing_fields(res: dict, key: str, work: tuple, form: str,
+                  copy_bytes: int) -> dict:
+  """A kernel's time, its plain version's (both TIMING_REPS calls per
+  sample), its bound and its rate against the copy's at one shape."""
+  ms = res[f'{key}_kernel'][0]
+  bound_ms, by = bound(*work)
+  return {'ms': ms, 'plain_ms': res[f'{key}_plain'][0], 'bound_ms': bound_ms,
+          'bound_by': by, 'library_ms': None, 'bytes': work[0],
+          'bound_share': bound_ms / ms,
+          'copy_share': copy_share(res, work[0], ms, copy_bytes),
+          'form': form}
+
+
+def kernels_line(main_launches, ens_launches, main_err, res, n) -> dict:
+  """The `kernels` JSON: fused and spread at M = 50, cross at 50 x 10, and
+  the spread's M = 10 launch (the ensemble path's analysis) beside it. No
+  single PyTorch call computes any of the three functions, so library_ms
+  is null."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  csrc = 'weatherbenchx_tpu_torch/ops/csrc/'
+  replaced = 'weatherbenchx_tpu/ops/crps_pairwise.py'
+  # The TPU kernel the JAX package runs for a spread of m members: its
+  # _spread_kernel_sort :229 from 20 members on (_spread_form),
+  # _spread_kernel :124 below.
+  def spread_line(m):
+    return 229 if m >= 20 else 124
+  f50, f10 = cp.spread_form(M), cp.spread_form(M_TARGETS)
+  register = csrc + ('crps_pairwise.cu' if f50 == 'shared'
+                     else 'register_stats.cuh')
+  copy_bytes = 2 * 4 * M * n
+  return {'kernels': [{
+      'name': 'fused_ensemble_stats', 'route': 'cuda', 'source': register,
+      'replaces': f'{replaced}:238',
+      'launches': main_launches['fused_ensemble_stats'],
+      'max_abs_err': max(main_err[k] for k in (
+          'spread_sum', 'skill_sum', 'mean', 'sq_dev_sum')),
+      **timing_fields(res, 'fused', stats_work(M, n, True), f50, copy_bytes),
+  }, {
+      'name': 'pairwise_spread_sum', 'route': 'cuda', 'source': register,
+      'replaces': f'{replaced}:{spread_line(M)}',
+      'launches': ens_launches['pairwise_spread_sum'],
+      'max_abs_err': main_err['spread_only'],
+      **timing_fields(res, 'spread', stats_work(M, n, False), f50,
+                      copy_bytes),
+      'm10': {'replaces': f'{replaced}:{spread_line(M_TARGETS)}',
+              **timing_fields(res, 'spread10',
+                              stats_work(M_TARGETS, n, False), f10,
+                              copy_bytes)},
+  }, {
+      'name': 'pairwise_cross_sum', 'route': 'cuda',
+      'source': csrc + 'crps_pairwise.cu', 'replaces': f'{replaced}:426',
+      'launches': ens_launches['pairwise_cross_sum'],
+      'max_abs_err': main_err['cross'],
+      **timing_fields(res, 'cross', cross_work(M, M_TARGETS, n), 'cross',
+                      copy_bytes),
+  }]}
 
 
 def main() -> int:
@@ -1253,12 +1588,11 @@ def main() -> int:
   t0 = time.perf_counter()
   lib_path = _build.build()
   _build.load_library()
-  log(f'phase 2 build: {_build.SOURCE} -> {lib_path} in '
-      f'{time.perf_counter() - t0:.1f} s')
+  log(f'phase 2 build: {_build.CSRC} + {len(_build.generated_sources())} '
+      f'generated files -> {lib_path} in {time.perf_counter() - t0:.1f} s '
+      f'({_build.PARTS + 1} nvcc processes at once, then the link)')
   with open(lib_path + '.log') as f:
-    for line in f:
-      if 'registers' in line or 'spill' in line or 'Compiling' in line:
-        log(f'  nvcc: {line.strip()}')
+    build_report(f.read())
 
   main_err = check_kernels(args.seed)
   log('phase 3 kernels: all checks within tolerance')
@@ -1276,28 +1610,9 @@ def main() -> int:
   log('phase 9 timing: done')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
 
-  source = 'weatherbenchx_tpu_torch/ops/csrc/crps_pairwise.cu'
-  replaced = 'weatherbenchx_tpu/ops/crps_pairwise.py'
-  print(json.dumps({'kernels': [{
-      'name': 'fused_ensemble_stats', 'route': 'cuda', 'source': source,
-      'replaces': f'{replaced}:238',
-      'launches': main_launches['fused_ensemble_stats'],
-      'max_abs_err': max(main_err[k] for k in (
-          'spread_sum', 'skill_sum', 'mean', 'sq_dev_sum')),
-      'ms': res['fused_kernel'][0], 'plain_ms': res['fused_plain'][0],
-  }, {
-      'name': 'pairwise_spread_sum', 'route': 'cuda', 'source': source,
-      'replaces': f'{replaced}:229',
-      'launches': ens_launches['pairwise_spread_sum'],
-      'max_abs_err': main_err['spread_only'],
-      'ms': res['spread_kernel'][0], 'plain_ms': res['spread_plain'][0],
-  }, {
-      'name': 'pairwise_cross_sum', 'route': 'cuda', 'source': source,
-      'replaces': f'{replaced}:426',
-      'launches': ens_launches['pairwise_cross_sum'],
-      'max_abs_err': main_err['cross'],
-      'ms': res['cross_kernel'][0], 'plain_ms': res['cross_plain'][0],
-  }]}), flush=True)
+  n = math.prod(GRID)
+  print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,
+                                n)), flush=True)
   print(card, flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind,

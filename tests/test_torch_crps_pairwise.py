@@ -165,7 +165,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
   with pytest.raises(RuntimeError, match='nvcc not found'):
     _build.load_library()
   with pytest.raises(RuntimeError, match='nvcc not found'):
-    crps_pairwise._launch_spread(torch.zeros(3, 4))
+    crps_pairwise._launch_stats(torch.zeros(3, 4), None)
 
 
 def _brute_force_cross(x, y):
@@ -236,3 +236,260 @@ def test_cross_rejects_mismatched_inputs():
     crps_pairwise.pairwise_cross_sum(x, torch.zeros(2, 3, 4))
   with pytest.raises(TypeError, match='dtype mismatch'):
     crps_pairwise.pairwise_cross_sum(x, x.double())
+
+
+# -- the register kernels' routes and their sorting network ------------------------
+
+
+def _jax_folded_network(m):
+  """The JAX package's odd-even merge network on p = 2^k ≥ m wires with its
+  own +inf pad fold (``_PAD``, ``_ce_min``, ``_ce_max``): a compare-exchange
+  that meets a pad row is applied symbolically and dropped; one between two
+  real rows is kept."""
+  p = 1
+  while p < m:
+    p *= 2
+  rows = list(range(m)) + [j_crps._PAD] * (p - m)
+  kept = []
+  for lo, hi, ascending in j_crps._sort_network(p, 'oem'):
+    assert ascending
+    a, b = rows[lo], rows[hi]
+    if a is j_crps._PAD or b is j_crps._PAD:
+      rows[lo], rows[hi] = j_crps._ce_min(a, b), j_crps._ce_max(a, b)
+    else:
+      kept.append((lo, hi))
+  # The fold never moved a real row: wires 0..m-1 still hold them.
+  assert all(r is not j_crps._PAD for r in rows[:m])
+  return kept
+
+
+@pytest.mark.parametrize('m', range(2, 65))
+def test_sort_network_is_the_jax_network_folded(m):
+  assert crps_pairwise.sort_network(m) == _jax_folded_network(m)
+
+
+def test_sort_network_sizes():
+  """The compare-exchange counts the kernel header cites."""
+  assert [len(crps_pairwise.sort_network(m)) for m in (10, 20, 50, 64)] == [
+      32, 103, 403, 543]
+
+
+def _apply_network(v, m):
+  """The kernel's compare-exchanges on rows of v: fmin/fmax, as CUDA's
+  fminf/fmaxf, drop a NaN operand."""
+  v = list(v)
+  for lo, hi in crps_pairwise.sort_network(m):
+    v[lo], v[hi] = np.fmin(v[lo], v[hi]), np.fmax(v[lo], v[hi])
+  return np.stack(v)
+
+
+@pytest.mark.parametrize('m', range(2, 17))
+def test_sort_network_sorts_every_zero_one_input(m):
+  """The 0-1 principle: a network that sorts every 0-1 input sorts all."""
+  bits = (np.arange(2 ** m)[None, :] >> np.arange(m)[:, None]) & 1
+  out = _apply_network(bits.astype(np.int8), m)
+  assert (np.diff(out, axis=0) >= 0).all()
+  np.testing.assert_array_equal(out.sum(0), bits.sum(0))
+
+
+@pytest.mark.parametrize('m', range(17, 65))
+def test_sort_network_sorts_random_inputs(m):
+  x = np.random.default_rng(m).standard_normal((m, 10_000)).astype(np.float32)
+  np.testing.assert_array_equal(_apply_network(x, m), np.sort(x, axis=0))
+
+
+def _emulate_network_spread(x):
+  """The network kernel's arithmetic at each point, in float32 numpy: the
+  NaN flag from the loaded values, ``sort_network`` with fmin/fmax, the
+  shift by the median x_(m//2), 2 Σ_k (2k − m − 1)(x_(k) − c) in k order."""
+  m = x.shape[0]
+  nan = np.isnan(x).any(0)
+  v = _apply_network(x.astype(np.float32), m)
+  c = v[m // 2]
+  acc = np.zeros_like(c)
+  with np.errstate(invalid='ignore'):
+    for k in range(m):
+      acc = acc + np.float32(2 * k + 1 - m) * (v[k] - c)
+  out = np.float32(2) * acc
+  out[nan] = np.nan
+  return out
+
+
+def _emulate_shared_spread(x):
+  """The shared-memory form's pair loop (past 64 members), in float32:
+  rows i0..i0+3 held in four accumulators, the pairs within them, then
+  every later row streamed past them; the four summed and doubled."""
+  m = x.shape[0]
+  acc = np.zeros((4,) + x.shape[1:], np.float32)
+  with np.errstate(invalid='ignore'):
+    for i0 in range(0, m, 4):
+      rows = [r for r in range(4) if i0 + r < m]
+      for r in rows:
+        for r2 in rows[r + 1:]:
+          acc[r] += np.abs(x[i0 + r] - x[i0 + r2])
+      for j in range(i0 + 4, m):
+        for r in rows:
+          acc[r] += np.abs(x[i0 + r] - x[j])
+  return np.float32(2) * (((acc[0] + acc[1]) + acc[2]) + acc[3])
+
+
+@pytest.mark.parametrize('m,offset,scale', [
+    (20, 0.0, 1.0), (21, 0.0, 1.0), (50, 0.0, 1.0), (64, 0.0, 1.0),
+    (50, 288.0, 3.0)])
+def test_network_emulation_matches_jax_and_plain(m, offset, scale):
+  rng = np.random.default_rng(m)
+  x = (offset + scale * rng.standard_normal((m, 8, 128))).astype(np.float32)
+  got = _emulate_network_spread(x)
+  plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
+                                               interpret=True))
+  truth = _brute_force_spread(x.astype(np.float64))
+  np.testing.assert_allclose(got, plain, rtol=RTOL, atol=ATOL)
+  np.testing.assert_allclose(got, truth, rtol=RTOL, atol=ATOL)
+  if offset:
+    # The JAX sort form weights unshifted order statistics of size 288, so
+    # its own float32 error is ~2e-5 of the spread here, past RTOL; the
+    # port's median shift keeps every term >= 0 and within RTOL of float64.
+    assert np.abs(jax_ - truth).max() / np.abs(truth).max() > RTOL
+  else:
+    np.testing.assert_allclose(got, jax_, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('m', [21, 49])
+def test_network_emulation_nan_at_every_member_position(m):
+  """Point p holds a NaN at member p: fmin/fmax lose it, the flag keeps it,
+  and it poisons that point alone."""
+  rng = np.random.default_rng(m)
+  x = rng.standard_normal((m, 8, 16)).astype(np.float32)
+  flat = x.reshape(m, -1)
+  for p in range(m):
+    flat[p, p] = np.nan
+  got = _emulate_network_spread(x).reshape(-1)
+  plain = crps_pairwise.pairwise_spread_sum_plain(
+      torch.from_numpy(x)).numpy().reshape(-1)
+  jax_ = np.asarray(j_crps.pairwise_spread_sum(
+      jnp.asarray(x), interpret=True)).reshape(-1)
+  want_nan = np.arange(flat.shape[1]) < m
+  for out in (got, plain, jax_):
+    np.testing.assert_array_equal(np.isnan(out), want_nan)
+  np.testing.assert_allclose(got[m:], plain[m:], rtol=RTOL, atol=ATOL)
+  np.testing.assert_allclose(got[m:], jax_[m:], rtol=RTOL, atol=ATOL)
+
+
+def _infinite_members(m):
+  """(m, 6) columns: one +inf; one -inf; one of each; two +inf (median
+  finite); more than half +inf (median +inf); more than half -inf."""
+  x = np.random.default_rng(m).standard_normal((m, 6)).astype(np.float32)
+  x[0, 0] = np.inf
+  x[1, 1] = -np.inf
+  x[2, 2], x[3, 2] = np.inf, -np.inf
+  x[4:6, 3] = np.inf
+  x[:m // 2 + 1, 4] = np.inf
+  x[m - m // 2 - 1:, 5] = -np.inf
+  return x
+
+
+@pytest.mark.parametrize('m', [21, 49])
+def test_network_emulation_infinities_follow_the_plain_version(m):
+  """Both sort, shift by the median and weight in k order, so they agree
+  on every inf and NaN: inf where the median is finite, NaN where it is
+  infinite (inf − inf)."""
+  x = _infinite_members(m)
+  got = _emulate_network_spread(x)
+  plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  np.testing.assert_array_equal(got, plain)
+  np.testing.assert_array_equal(got, [np.inf] * 4 + [np.nan] * 2)
+
+
+@pytest.mark.parametrize('m', [10, 21, 65])
+def test_pair_forms_give_nan_for_two_infinities_of_one_sign(m):
+  """The pair forms (the port's shared-memory form past 64 members, the
+  JAX package's body below 20) take |inf − inf| = NaN where the sort forms
+  give inf; and the JAX sort form, which neither shifts by the median nor
+  weights the median's zero coefficient, gives inf where the port's gives
+  NaN. Only the finite-median, one-infinity-per-sign columns agree."""
+  x = _infinite_members(m)
+  plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  pairs = _emulate_shared_spread(x)
+  np.testing.assert_array_equal(pairs, [np.inf] * 3 + [np.nan] * 3)
+  np.testing.assert_array_equal(plain, [np.inf] * 4 + [np.nan] * 2)
+  np.testing.assert_array_equal(_emulate_network_spread(x), plain)
+  jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
+                                               interpret=True))
+  want_jax = pairs if m < 20 else np.full(6, np.inf, np.float32)
+  np.testing.assert_array_equal(jax_, want_jax)
+
+
+@pytest.mark.parametrize('m', [2, 65, 66, 67, 100])
+def test_shared_emulation_matches_plain(m):
+  """Every m % 4 of the shared form's row groups, and 2 members."""
+  x = np.random.default_rng(m).standard_normal((m, 300)).astype(np.float32)
+  x[m // 2, 7] = np.nan
+  plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  got = _emulate_shared_spread(x)
+  np.testing.assert_array_equal(np.isnan(got), np.isnan(plain))
+  np.testing.assert_allclose(got, plain, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('m', [2, 3, 4])
+def test_network_emulation_infinities_at_few_members(m):
+  """The fewest members, where the median is the larger of two: one +inf
+  gives NaN (inf − inf) in both the network and the plain version."""
+  x = np.random.default_rng(m).standard_normal((m, 4)).astype(np.float32)
+  x[0, 0] = np.inf
+  x[m - 1, 1] = -np.inf
+  x[:, 2] = np.nan
+  got = _emulate_network_spread(x)
+  plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  np.testing.assert_array_equal(got, plain)
+  assert np.isfinite(got[3])
+
+
+def test_spread_form_routes_by_member_count():
+  """The network for every count 2..64, the shared form past it."""
+  assert list(crps_pairwise.REGISTER_MEMBERS) == list(range(2, 65))
+  assert [crps_pairwise.spread_form(m) for m in range(2, 66)] == (
+      ['network'] * 63 + ['shared'])
+  assert crps_pairwise.spread_form(400) == 'shared'
+
+
+def test_generated_header_writes_each_network_in_order():
+  """wbx_sort_networks.cuh holds sort_network(M), compare-exchange by
+  compare-exchange, for every M of REGISTER_MEMBERS; the parts instantiate
+  every register kernel once."""
+  header = _build.network_header()
+  bodies = {}
+  for block in header.split('void sort_network<')[1:]:
+    m = int(block.split('>', 1)[0])
+    body = block.split('{', 1)[1].split('}', 1)[0]
+    bodies[m] = [tuple(int(i) for i in line.strip()[len('compare_exchange(v['):
+                                                   -len(']);')].split('], v['))
+                 for line in body.strip().splitlines()]
+  members = list(crps_pairwise.REGISTER_MEMBERS)
+  assert sorted(bodies) == members
+  for m in members:
+    assert bodies[m] == crps_pairwise.sort_network(m), m
+  entries = [line for text in _build.part_sources().values()
+             for line in text.splitlines()
+             if line.startswith('WBX_REGISTER_ENTRY(')]
+  assert len(_build.part_sources()) == _build.PARTS
+  assert sorted(entries) == sorted(f'WBX_REGISTER_ENTRY({m})'
+                                   for m in members)
+
+
+def test_library_name_covers_the_generated_networks(monkeypatch):
+  name = _build.library_name(_build.generated_sources())
+  assert name == _build.library_name(_build.generated_sources())
+  monkeypatch.setattr(crps_pairwise, 'sort_network',
+                      lambda m, f=crps_pairwise.sort_network: f(m)[::-1])
+  assert _build.library_name(_build.generated_sources()) != name
+
+
+def test_register_symbols_name_the_generated_entries():
+  """The launcher's symbol for M is the one WBX_REGISTER_ENTRY(M) defines
+  (``wbx_ensemble_stats_registers_##M`` in register_stats.cuh)."""
+  with open(_build.SOURCE.replace('crps_pairwise.cu',
+                                  'register_stats.cuh')) as f:
+    text = f.read()
+  assert 'extern "C" int wbx_ensemble_stats_registers_##M(' in text
+  assert _build.register_symbol(50) == 'wbx_ensemble_stats_registers_50'

@@ -34,8 +34,13 @@ def _rel(got, want):
   return ((got[ok] - want[ok]).abs() / want[ok].abs().clamp(min=1)).max().item()
 
 
+# The route boundaries: the network from 2 to 64 members, the
+# shared-memory form past 64.
 @pytest.mark.parametrize('m,rest', [(2, (5,)), (3, (33,)), (21, (2, 3, 65)),
-                                    (50, (1, 129)), (400, (40,))])
+                                    (50, (1, 129)), (400, (40,)),
+                                    (10, (3, 70)), (16, (3, 70)),
+                                    (63, (2, 99)), (64, (2, 99)),
+                                    (65, (2, 99))])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_kernels_match_plain(cuda, m, rest, dtype, tol):
@@ -57,6 +62,33 @@ def test_kernels_match_plain(cuda, m, rest, dtype, tol):
     assert g.dtype == dtype and g.shape == rest
     assert _rel(g, w) <= tol
     assert torch.isnan(g.reshape(-1)[0])
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_every_register_kernel_matches_plain(cuda, dtype, tol):
+  """Each M built, fused and spread-only, with a NaN member, a +inf and a
+  -inf member at other points."""
+  for m in crps_pairwise.REGISTER_MEMBERS:
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((m, 300)).astype(np.float32)
+    x[m // 2, 0] = np.nan
+    x[0, 1] = np.inf
+    x[m - 1, 2] = -np.inf
+    xd = torch.from_numpy(x).to(cuda, dtype)
+    yd = torch.from_numpy(rng.standard_normal(300).astype(np.float32)).to(
+        cuda, dtype)
+    got = crps_pairwise._launch_stats(xd, yd) + (
+        crps_pairwise._launch_stats(xd, None),)
+    want = crps_pairwise.fused_ensemble_stats_plain(xd, yd) + (
+        crps_pairwise.pairwise_spread_sum_plain(xd),)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+      assert torch.equal(torch.isnan(g), torch.isnan(w)), m
+      assert torch.equal(torch.isinf(g), torch.isinf(w)), m
+      fin = torch.isfinite(w)
+      assert _rel(g[fin], w[fin]) <= tol, m
+      assert torch.isnan(g[0]), m
 
 
 def test_non_contiguous_input_and_empty_rest(cuda):

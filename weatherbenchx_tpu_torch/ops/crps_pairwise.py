@@ -4,13 +4,26 @@ The port of ``weatherbenchx_tpu/ops/crps_pairwise.py:404-423, 571-603``.
 Each public function routes by the device of its input alone:
 
 * a CPU tensor takes the plain PyTorch version in this module;
-* a CUDA tensor launches the hand-written kernel of
-  ``csrc/crps_pairwise.cu`` (built at first use by ``_build``), or raises.
+* a CUDA tensor launches a hand-written kernel (built at first use by
+  ``_build``), or raises.
 
 The kernels flatten the data axes: x is passed as a contiguous (M, N)
 array and y as (N) (or (My, N) for the cross sum), N = prod(rest). (The
 TPU kernel's rule against reshapes, which retile its memory layout, has no
 counterpart here.)
+
+The fused and spread-only kernels take one of two forms, picked from the
+member count M alone (``spread_form``), both hand-written CUDA:
+
+* ``network`` (M in ``REGISTER_MEMBERS``): one thread per gridpoint, the M
+  members in registers, sorted there by the compare-exchange list
+  ``sort_network(M)``; the spread is the weighted sum of order statistics
+  that ``pairwise_spread_sum_plain`` computes;
+* ``shared`` (larger M): the members staged in shared memory and a pair
+  loop run over them.
+
+``_build`` compiles one network kernel per M of ``REGISTER_MEMBERS``, the
+networks written out as straight-line code from ``sort_network``.
 
 ``LAUNCHES`` counts kernel launches per kernel, so that a run can show its
 main path went through the kernels; the plain versions do not count.
@@ -22,9 +35,16 @@ from weatherbenchx_tpu_torch.ops import _build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory one block may use on Hopper, and the fewest gridpoints a
-# block stages: the kernel needs M * 32 * 4 bytes at least.
+# block stages: the shared form needs M * 32 * 4 bytes at least.
 _MAX_SHARED_BYTES = 232448
 _MIN_BLOCK_POINTS = 32
+
+# The member counts whose kernels hold the ensemble in registers and sort
+# it. Every one sorts: on an H100 a register pair loop tied the network
+# within run-to-run noise from 8 to 24 members (both at 80-85% of the
+# memory bound) and fell 8-9% behind at 32 (PERF.md, PR 4).
+REGISTER_MAX_MEMBERS = 64
+REGISTER_MEMBERS = range(2, REGISTER_MAX_MEMBERS + 1)
 
 LAUNCHES = {'fused_ensemble_stats': 0, 'pairwise_spread_sum': 0,
             'pairwise_cross_sum': 0}
@@ -33,6 +53,43 @@ LAUNCHES = {'fused_ensemble_stats': 0, 'pairwise_spread_sum': 0,
 def reset_launch_counts() -> None:
   for k in LAUNCHES:
     LAUNCHES[k] = 0
+
+
+# -- the kernels' routes ----------------------------------------------------------
+
+
+def sort_network(m: int) -> list:
+  """Compare-exchanges [(lo, hi)] that sort m values ascending in place.
+
+  Batcher's odd-even merge sort on p = 2^k ≥ m wires, with wires m..p−1
+  held at +inf and folded away: a compare-exchange never moves a +inf pad
+  below a real value (every pad starts above every real value), so those
+  touching a pad do nothing and are dropped. Each (lo, hi) leaves min at
+  lo and max at hi. 403 compare-exchanges at m = 50.
+  """
+  if m < 1:
+    raise ValueError(f'need at least one wire, got {m}')
+  p = 1
+  while p < m:
+    p *= 2
+  ces = []
+  length = 1
+  while length < p:
+    k = length
+    while k >= 1:
+      for j in range(k % length, p - k, 2 * k):
+        for i in range(min(k, p - j - k)):
+          lo, hi = i + j, i + j + k
+          if lo // (2 * length) == hi // (2 * length) and hi < m:
+            ces.append((lo, hi))
+      k //= 2
+    length *= 2
+  return ces
+
+
+def spread_form(m: int) -> str:
+  """The kernel form for m members: 'network' or 'shared'."""
+  return 'network' if m in REGISTER_MEMBERS else 'shared'
 
 
 # -- plain versions -----------------------------------------------------------
@@ -111,34 +168,33 @@ def _raise_on_error(rc: int, name: str) -> None:
     raise RuntimeError(f'{name} kernel launch failed: CUDA error {rc}')
 
 
-def _launch_fused(x: torch.Tensor, y: torch.Tensor) -> tuple:
-  """x (M, N), y (N), both contiguous on one CUDA device."""
+def _launch_stats(x: torch.Tensor, y):
+  """The fused kernel (y given) or the spread-only kernel (y None).
+
+  x (M, N) and y (N) contiguous on one CUDA device, in the form
+  ``spread_form(M)``. Returns the four fused outputs, or the spread alone.
+  """
   _check_kernel_input(x)
   m, n = x.shape
+  fused = y is not None
   outs = tuple(torch.empty((n,), dtype=x.dtype, device=x.device)
-               for _ in range(4))
+               for _ in range(4 if fused else 1))
+  name = 'fused_ensemble_stats' if fused else 'pairwise_spread_sum'
   if n:
-    rc = _build.load_library().wbx_fused_ensemble_stats(
-        x.data_ptr(), y.data_ptr(), *(o.data_ptr() for o in outs), m, n,
-        KERNEL_DTYPES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on_error(rc, 'fused_ensemble_stats')
-    LAUNCHES['fused_ensemble_stats'] += 1
-  return outs
-
-
-def _launch_spread(x: torch.Tensor) -> torch.Tensor:
-  """x (M, N) contiguous on a CUDA device."""
-  _check_kernel_input(x)
-  m, n = x.shape
-  out = torch.empty((n,), dtype=x.dtype, device=x.device)
-  if n:
-    rc = _build.load_library().wbx_pairwise_spread_sum(
-        x.data_ptr(), out.data_ptr(), m, n, KERNEL_DTYPES[x.dtype],
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on_error(rc, 'pairwise_spread_sum')
-    LAUNCHES['pairwise_spread_sum'] += 1
-  return out
+    lib = _build.load_library()
+    ptrs = (x.data_ptr(), y.data_ptr() if fused else None,
+            *(o.data_ptr() for o in outs), *(None,) * (4 - len(outs)))
+    dtype = KERNEL_DTYPES[x.dtype]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if spread_form(m) == 'shared':
+      rc = lib.wbx_ensemble_stats_shared(*ptrs, m, n, dtype, fused,
+                                         x.device.index, stream)
+    else:
+      rc = getattr(lib, _build.register_symbol(m))(
+          *ptrs, n, dtype, fused, x.device.index, stream)
+    _raise_on_error(rc, name)
+    LAUNCHES[name] += 1
+  return outs if fused else outs[0]
 
 
 def _launch_cross(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -190,7 +246,7 @@ def fused_ensemble_stats(x: torch.Tensor, y: torch.Tensor) -> tuple:
   if _route(x, y) == 'cpu':
     return fused_ensemble_stats_plain(x, y)
   rest = y.shape
-  outs = _launch_fused(x.contiguous().reshape(x.shape[0], -1),
+  outs = _launch_stats(x.contiguous().reshape(x.shape[0], -1),
                        y.contiguous().reshape(-1))
   return tuple(o.reshape(rest) for o in outs)
 
@@ -205,8 +261,8 @@ def pairwise_spread_sum(x: torch.Tensor) -> torch.Tensor:
     raise ValueError('need an ensemble axis')
   if _route(x) == 'cpu':
     return pairwise_spread_sum_plain(x)
-  return _launch_spread(x.contiguous().reshape(x.shape[0], -1)).reshape(
-      x.shape[1:])
+  return _launch_stats(x.contiguous().reshape(x.shape[0], -1),
+                       None).reshape(x.shape[1:])
 
 
 def pairwise_cross_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

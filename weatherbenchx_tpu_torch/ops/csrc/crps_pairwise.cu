@@ -1,21 +1,20 @@
 // Ensemble statistics for the CRPS family: CUDA C++ for Hopper (sm_90a).
 //
-// Replaces, in weatherbenchx_tpu/ops/crps_pairwise.py:
-//   * _fused_kernel (via _fused_stats_impl -> pl.pallas_call): one pass
-//     over an (M, N) ensemble and an (N) target gives
-//       spread_sum = sum_{i != j} |x_i - x_j|,  skill_sum = sum_i |x_i - y|,
-//       mean = sum_i x_i / M,                   sq_dev_sum = sum_i (x_i - mean)^2
-//     (sq_dev_sum two-pass: the one-pass moment form cancels in float32
-//     when |mean| >> std, e.g. temperatures near 288 K);
-//   * _spread_kernel / _spread_kernel_sort (via _pairwise_spread_sum_impl):
-//     spread_sum alone. Here that is the same kernel with the skill and
-//     moment outputs compiled out.
+// The shared-memory form of the fused and spread-only kernels, for
+// ensembles of more than 64 members (register_stats.cuh holds the register
+// form for 2..64, which ops/crps_pairwise.py:spread_form picks first).
+// Replaces, in weatherbenchx_tpu/ops/crps_pairwise.py, _fused_kernel (via
+// _fused_stats_impl -> pl.pallas_call) and _spread_kernel /
+// _spread_kernel_sort (via _pairwise_spread_sum_impl): spread_sum =
+// sum_{i != j} |x_i - x_j|, and with the target y skill_sum = sum_i
+// |x_i - y|, mean and the two-pass sq_dev_sum = sum_i (x_i - mean)^2.
 //
-// What bounds it on the H100: at the main-path shape (M = 50 members over
-// 4 x 721 x 1440 = 4.15 M gridpoints, float32) the kernel reads 830 MB of
-// ensemble plus the target once (~0.25 ms at 3.35 TB/s) and does
-// M(M-1)/2 = 1,225 |x_i - x_j| pairs per gridpoint (~10 Gop, ~0.15 ms of
-// float32 issue). Neither dominates by much, so the design keeps both low:
+// What bounds it on the H100: the pair loop. At M members it does
+// M(M-1)/2 pairs per gridpoint, each two FP32 adds (the difference, then
+// the add of its absolute value), and FADD runs at 128 per clock per SM
+// with no FMA pairing: at M = 50 over 4.15 M gridpoints that is 10.2 G
+// adds, ~0.30 ms at 1.98 GHz, as long as reading the 830 MB ensemble at
+// 3.35 TB/s, and growing as M^2 past it. The design:
 //   * one thread per gridpoint, so every member row is read from device
 //     memory exactly once, coalesced (consecutive threads, consecutive
 //     gridpoints);
@@ -34,16 +33,14 @@
 // pl.pallas_call): out = sum_{i,j} |x_i - y_j| for two ensembles x (Mx, N)
 // and y (My, N), the two-ensemble CRPS skill. At its path's shape (50 vs
 // 10 members over 4.15 M gridpoints, float32) it reads 1.0 GB once
-// (~0.3 ms at 3.35 TB/s) and does 500 pairs per gridpoint (~2 Gop), so
-// memory bounds it. One thread per gridpoint again: the smaller ensemble's
-// column is staged in shared memory, and the larger one's rows stream past
-// it from device memory, kRowGroup members at a time in registers, each
-// row read exactly once, coalesced. The TPU kernel's group tiling has no
-// counterpart here.
+// (~0.3 ms at 3.35 TB/s) and does 500 pairs per gridpoint (1,000 adds,
+// ~0.12 ms of FADD time), so memory bounds it. One thread per gridpoint
+// again: the smaller ensemble's column is staged in shared memory, and the
+// larger one's rows stream past it from device memory, kRowGroup members
+// at a time in registers, each row read exactly once, coalesced. The TPU
+// kernel's group tiling has no counterpart here.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -54,14 +51,8 @@ constexpr int kRowGroup = 4;
 constexpr size_t kMaxSharedBytes = 232448;
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using wbx::load;
+using wbx::store;
 
 template <typename T, bool kFused>
 __global__ void ensemble_stats_kernel(const T* __restrict__ x,
@@ -246,31 +237,32 @@ int launch_cross(const void* x, const void* y, void* out, int64_t mx,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. All pointers are device pointers to
-// contiguous arrays: x (m, n), y and the outputs (n). Returns a cudaError_t
-// (0 on success) after the launch; the launch is asynchronous on `stream`.
-extern "C" int wbx_fused_ensemble_stats(const void* x, const void* y,
-                                        void* spread, void* skill, void* mean,
-                                        void* sq_dev, int64_t m, int64_t n,
-                                        int dtype, int device, void* stream) {
-  if (dtype == 0)
+// dtype: 0 = float32, 1 = bfloat16; fused: 0 writes the spread alone, and
+// y and the last three outputs may then be null. All pointers are device
+// pointers to contiguous arrays: x (m, n), y and the outputs (n). Returns a
+// cudaError_t (0 on success) after the launch; the launch is asynchronous
+// on `stream`.
+extern "C" int wbx_ensemble_stats_shared(const void* x, const void* y,
+                                         void* spread, void* skill,
+                                         void* mean, void* sq_dev, int64_t m,
+                                         int64_t n, int dtype, int fused,
+                                         int device, void* stream) {
+  if (x == nullptr || spread == nullptr ||
+      (fused && (y == nullptr || skill == nullptr || mean == nullptr ||
+                 sq_dev == nullptr)))
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && fused)
     return launch<float, true>(x, y, spread, skill, mean, sq_dev, m, n, device,
                                stream);
-  if (dtype == 1)
+  if (dtype == 0)
+    return launch<float, false>(x, y, spread, skill, mean, sq_dev, m, n,
+                                device, stream);
+  if (dtype == 1 && fused)
     return launch<__nv_bfloat16, true>(x, y, spread, skill, mean, sq_dev, m, n,
                                        device, stream);
-  return cudaErrorInvalidValue;
-}
-
-extern "C" int wbx_pairwise_spread_sum(const void* x, void* spread, int64_t m,
-                                       int64_t n, int dtype, int device,
-                                       void* stream) {
-  if (dtype == 0)
-    return launch<float, false>(x, nullptr, spread, nullptr, nullptr, nullptr,
-                                m, n, device, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(x, nullptr, spread, nullptr, nullptr,
-                                        nullptr, m, n, device, stream);
+    return launch<__nv_bfloat16, false>(x, y, spread, skill, mean, sq_dev, m,
+                                        n, device, stream);
   return cudaErrorInvalidValue;
 }
 
