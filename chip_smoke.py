@@ -17,8 +17,11 @@ script exits nonzero:
    ensemble sizes and shapes, NaN members, |mean| >> std, float32 and
    bfloat16, 1-D input, and the main paths' own shapes; each route
    boundary (2, 63, 64 and 65 members); a NaN at every member position
-   and +-inf members at 21 and 49 members (the network route); and every
-   register kernel built, M = 2..64, in both dtypes.
+   (the network route); +-inf members at 2, 3, 10, 19, 20, 21, 49, 50, 64,
+   65 and 100 members, every route, against the plain version and the JAX
+   kernels' inf/NaN pattern (their sort body from 20 members, their pair
+   body below); and every register kernel built, M = 2..64, in both
+   dtypes.
 4. Main path at full width: ChunkEvaluator with fair CRPS, the unbiased
    spread/skill ratio and the unbiased ensemble-mean RMSE over 3 chunks of
    a 50-member 0.25-degree ensemble (50 x 1 x 4 x 721 x 1440 float32,
@@ -52,7 +55,8 @@ script exits nonzero:
    seconds per chunk, the stage timers and the peak device memory.
 7. The evaluation CLI (python -m weatherbenchx_tpu_torch.apps.run_evaluation
    --device cuda) on a small .npz store in a temporary directory: RMSE of
-   N(0, 1) against N(0, 1) is sqrt(2).
+   N(0, 1) against N(0, 1) is sqrt(2); again from .wbx and netCDF copies
+   of the stores, each equal to the .npz run bit for bit.
 8. The benchmark CLI (python -m
    weatherbenchx_tpu_torch.apps.run_benchmark_evaluation --device cuda) on
    64 x 32 .npz stores with ECMWF names: the deterministic recipe above
@@ -60,8 +64,25 @@ script exits nonzero:
    members against N(0, 1) (CRPS = 1/sqrt(pi) = 0.5642, unbiased
    spread/skill = 1, ensemble-mean RMSE = sqrt(1 + 1/8)), with the fused
    kernel launched at least once per chunk; tolerances are 6 standard
-   errors at the global bin's effective size.
-9. Timing with CUDA events: each kernel against its plain version at its
+   errors at the global bin's effective size. Both branches again from
+   zarr v2 blosc-lz4 copies of the stores (one field per cell), writing
+   zarr, wbx and netCDF outputs, each equal to its .npz run bit for bit,
+   the ensemble run with the .npz run's fused launches.
+9. The benchmark path of phase 6 from on-disk stores: phase 6's stores
+   written by the port's writers into a git-ignored directory of the
+   checkout (predictions zarr v2 consolidated, blosc-lz4 with byte shuffle,
+   one (init, lead, level) field per cell; targets zarr v3 sharded with
+   zstd; climatology .wbx), opened lazily through the CLI's construction
+   (the configs' path), the AggregationState equal to phase 6's by
+   torch.equal. Requires the native blockstore and zarr codec built and
+   called (their call counts and seconds are printed); prints the write
+   seconds and rates per container, the bytes on disk, the loaders'
+   one-time preparation (timed apart from seconds per chunk, which are
+   also printed with it counted in), the per-chunk stage timers with the
+   native decode's share of each load, one chunk of targets read with and
+   without the latitude flip, and seconds per chunk beside phase 6's
+   in-memory figures of the same run; deletes the stores.
+10. Timing with CUDA events: each kernel against its plain version at its
    path's shape (fused and spread at M = 50, spread at M = 10, cross 50 x
    10), beside its bound and beside a device-to-device copy of the 50-member
    ensemble (the card's streaming rate); one whole eval_chunk, and the
@@ -130,8 +151,11 @@ ENS_CLOSED_FORMS = {
 CLI_GRID = (121, 240)
 CLI_RMSE_TOL = 0.03
 # Member counts on the network route checked with a NaN at every member
-# position and with infinite members (odd: the median's weight is 0).
+# position (odd: the median's weight is 0).
 NAN_POSITION_MEMBERS = (21, 49)
+# Member counts checked with infinite members: both sides of the JAX
+# kernels' sort threshold (20) and of the register route's end (64).
+INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100)
 # The H100 SXM's HBM rate, and its float32 issue rate for operations that
 # are not FMAs (min, max, add, subtract): 128 per clock per SM x 132 SMs x
 # 1.98 GHz; the data sheet's 67 TFLOP/s counts an FMA as two. For the
@@ -280,35 +304,51 @@ def check_nan_positions(rng) -> None:
           'member positions poisons its own point only ok')
 
 
+def jax_infinite_spread(m: int, n_pos: int, n_neg: int) -> float:
+  """The JAX kernels' spread of m members, n_pos of them +inf and n_neg
+  -inf: their sort body (from 20 members) weights rank k by 2k - m - 1 and
+  leaves the zero weight out, so terms of both signs (NaN) appear once
+  2 n_pos > m + 1 or 2 n_neg > m + 1; their pair body (below 20) takes
+  |inf - inf| = NaN for two members at one infinity."""
+  nan = 2 * n_pos > m + 1 or 2 * n_neg > m + 1
+  if m < 20:
+    nan = nan or n_pos > 1 or n_neg > 1
+  return math.nan if nan else math.inf
+
+
 def check_infinities(rng) -> None:
-  """On the network route: +-inf members (one +inf; one -inf; one of each;
-  two +inf; more than half +inf; more than half -inf) give the plain
-  version's inf and NaN points: inf where the median is finite, NaN where
-  it is infinite."""
+  """Every route (network to 64 members, shared past it), both dtypes:
+  +-inf members in seven columns (one +inf; one -inf; one of each; two
+  +inf; m//2 + 1 +inf; m//2 + 1 -inf; m//2 + 2 +inf) give the plain
+  version's inf and NaN points, which are the JAX kernels'."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
-  for m in NAN_POSITION_MEMBERS:
-    if cp.spread_form(m) != 'network':
-      raise AssertionError(f'M={m} is not on the network route')
+  for m in INFINITY_MEMBERS:
     x = rng.standard_normal((m, 1000), dtype=np.float32)
-    x[0, 0] = np.inf
-    x[1, 1] = -np.inf
-    x[2, 2], x[3, 2] = np.inf, -np.inf
-    x[4:6, 3] = np.inf
-    x[:m // 2 + 1, 4] = np.inf
-    x[m - m // 2 - 1:, 5] = -np.inf
+    counts = [(1, 0), (0, 1), (1, 1), (2, 0), (m // 2 + 1, 0),
+              (0, m // 2 + 1), (m // 2 + 2, 0)]
+    want = []
+    for col, (n_pos, n_neg) in enumerate(counts):
+      n_pos = min(n_pos, m)
+      rows = rng.permutation(m)
+      x[rows[:n_pos], col] = np.inf
+      x[rows[n_pos:n_pos + n_neg], col] = -np.inf
+      want.append(jax_infinite_spread(m, n_pos, n_neg))
     y = rng.standard_normal(1000, dtype=np.float32)
     for dtype in (torch.float32, torch.bfloat16):
       dname = str(dtype).split('.')[-1]
       got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
                                 torch.from_numpy(y).to(DEVICE, dtype),
                                 f'infinities M={m}', dname)
-      head = got[4][:6].float().cpu().numpy()
-      if not (np.isposinf(head[:4]).all() and np.isnan(head[4:]).all()
-              and bool(torch.isfinite(got[4][6:]).all())):
-        raise AssertionError(f'M={m}: spread at the infinite points {head}')
-      log(f'kernel check M={m} (network) {dname}: +-inf members give the '
-          f'plain version\'s inf/NaN points {head.tolist()} ok')
+      head = got[4][:7].float().cpu().numpy()
+      if not (np.array_equal(np.isnan(head), np.isnan(want))
+              and np.array_equal(np.isposinf(head), np.isposinf(want))
+              and bool(torch.isfinite(got[4][7:]).all())):
+        raise AssertionError(f'M={m}: spread at the infinite points {head}, '
+                             f'the JAX kernels give {want}')
+      log(f'kernel check M={m} ({cp.spread_form(m)}) {dname}: +-inf members '
+          f'give the plain version\'s and the JAX kernels\' inf/NaN points '
+          f'{head.tolist()} ok')
 
 
 def check_every_register_kernel(rng) -> None:
@@ -759,7 +799,7 @@ def cli_phase(seed: int) -> None:
   space = {'latitude': np.linspace(-90, 90, CLI_GRID[0]),
            'longitude': np.arange(CLI_GRID[1]) * (360 / CLI_GRID[1])}
   with tempfile.TemporaryDirectory() as tmp:
-    p, t, out = (os.path.join(tmp, f) for f in ('p.npz', 't.npz', 'o.npz'))
+    p, t = os.path.join(tmp, 'p.npz'), os.path.join(tmp, 't.npz')
     io.save_dataset(p, {'2m_temperature': DimArray(
         rng.standard_normal((len(inits), 2) + CLI_GRID, dtype=np.float32),
         ('time', 'prediction_timedelta', 'latitude', 'longitude'),
@@ -767,26 +807,46 @@ def cli_phase(seed: int) -> None:
     io.save_dataset(t, {'2m_temperature': DimArray(
         rng.standard_normal((len(valid),) + CLI_GRID, dtype=np.float32),
         ('time', 'latitude', 'longitude'), {'time': valid, **space})})
-    cmd = [sys.executable, '-m', 'weatherbenchx_tpu_torch.apps.run_evaluation',
-           '--device', 'cuda', f'--prediction_path={p}',
-           f'--target_path={t}', f'--output_path={out}',
-           '--time_start=2020-01-01', '--time_stop=2020-01-05',
-           '--lead_time_stop=12', '--variables=2m_temperature',
-           '--time_chunk_size=2']
+
+    def run(suffix: str):
+      """The CLI over the stores in ``suffix``'s container, its output in
+      the same container; returns the RMSE."""
+      if suffix != '.npz':
+        for path in (p, t):
+          io.save_dataset(path[:-4] + suffix, io.load_dataset(path))
+      out = os.path.join(tmp, f'o{suffix}')
+      cmd = [sys.executable, '-m',
+             'weatherbenchx_tpu_torch.apps.run_evaluation', '--device', 'cuda',
+             f'--prediction_path={p[:-4]}{suffix}',
+             f'--target_path={t[:-4]}{suffix}', f'--output_path={out}',
+             '--time_start=2020-01-01', '--time_stop=2020-01-05',
+             '--lead_time_stop=12', '--variables=2m_temperature',
+             '--time_chunk_size=2']
+      proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            check=False)
+      if proc.returncode != 0:
+        raise AssertionError(f'CLI ({suffix}) failed ({proc.returncode}):\n'
+                             f'{(proc.stdout + proc.stderr)[-4000:]}')
+      return io.load_dataset(out)['rmse.2m_temperature']
+
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)),
-                          check=False)
-    if proc.returncode != 0:
-      raise AssertionError(f'CLI failed ({proc.returncode}):\n'
-                           f'{(proc.stdout + proc.stderr)[-4000:]}')
-    rmse = io.load_dataset(out)['rmse.2m_temperature']
+    rmse = run('.npz')
+    seconds = time.perf_counter() - t0
+    for suffix in ('.wbx', '.nc'):
+      other = run(suffix)
+      if not (other.dims == rmse.dims
+              and np.array_equal(other.values, rmse.values)):
+        raise AssertionError(f'CLI from {suffix} stores: {other.values} '
+                             f'differs from the .npz run {rmse.values}')
+      log(f'cli: from {suffix} stores with a {suffix} output, equal to the '
+          '.npz run bit for bit ok')
   far = float(np.abs(rmse.values - math.sqrt(2)).max())
   if rmse.shape != (2, 2) or not far <= CLI_RMSE_TOL:
     raise AssertionError(f'CLI rmse {rmse.values} (shape {rmse.shape}): '
                          f'{far:.4g} from sqrt(2), tol {CLI_RMSE_TOL}')
   log(f'cli: {len(inits)} inits x 2 leads x {CLI_GRID} in '
-      f'{time.perf_counter() - t0:.1f} s; rmse {rmse.values.ravel()} vs '
+      f'{seconds:.1f} s; rmse {rmse.values.ravel()} vs '
       f'sqrt(2) (max dev {far:.4g}, tol {CLI_RMSE_TOL}) ok')
 
 
@@ -920,23 +980,31 @@ def bench_stores(seed: int) -> dict:
           'inits': inits, 'leads': leads}
 
 
-def bench_pipeline(stores, registry):
-  """The benchmark CLI's own construction over the in-memory stores."""
-  from weatherbenchx_tpu_torch import time_chunks
+def bench_sources(stores, paths=None) -> dict:
+  """The CLI's configs of the three stores: in memory (``ds``), or the
+  on-disk stores at ``paths`` (``path``)."""
   from weatherbenchx_tpu_torch.apps import configs
+  out = {}
+  for key in ('predictions', 'targets', 'climatology'):
+    out[key] = ({'path': paths[key]} if paths else {'ds': stores[key]})
+  out['targets']['data_loader_kwargs'] = {
+      'preprocessing_fn': configs.sort_latitude}
+  return out
+
+
+def bench_pipeline(stores, registry, sources):
+  """The benchmark CLI's own construction over the stores' configs."""
+  from weatherbenchx_tpu_torch import time_chunks
   from weatherbenchx_tpu_torch.apps import run_benchmark_evaluation as cli
   from weatherbenchx_tpu_torch.parallel import pipeline
   variables, levels = bench_variables(), list(BENCH_LEVELS)
-  pred_cfg = {'ds': stores['predictions']}
-  tgt_cfg = {'ds': stores['targets'],
-             'data_loader_kwargs': {'preprocessing_fn': configs.sort_latitude}}
-  p_loader, t_loader = cli.build_loaders('hres', pred_cfg, tgt_cfg,
-                                         variables, levels)
-  climatology = cli.load_climatology({'ds': stores['climatology']},
-                                     variables, levels)
+  p_loader, t_loader = cli.build_loaders(
+      'hres', sources['predictions'], sources['targets'], variables, levels)
+  climatology = cli.load_climatology(sources['climatology'], variables,
+                                     levels)
   metrics = cli.build_metrics(variables, climatology, is_probabilistic=False)
-  aggregator = cli.build_aggregator(stores['targets']['land_sea_mask'],
-                                    temporal=False)
+  aggregator = cli.build_aggregator(
+      cli.open_store(sources['targets'])['land_sea_mask'], temporal=False)
   times = time_chunks.TimeChunks(stores['inits'], stores['leads'],
                                  init_time_chunk_size=1,
                                  lead_time_chunk_size=BENCH_LEADS)
@@ -946,9 +1014,16 @@ def bench_pipeline(stores, registry):
       metrics_registry=registry)
 
 
-def run_bench(stores, budget_bytes, card: str):
-  """One pipeline run under a resource budget (None: the default);
-  returns (pipeline, host state, seconds)."""
+def run_bench(stores, budget_bytes, card: str, sources=None,
+              label: str = 'benchmark path'):
+  """One pipeline run under a resource budget (None: the default) over
+  the stores' configs (``bench_sources``; default in memory); returns
+  (pipeline, host state, seconds, timings): the run's seconds and stage
+  timers, the construction's seconds (climatology opened and uploaded)
+  and the loaders' one-time preparation. The preparation is timed apart,
+  before the run, so seconds per chunk leave it out; ``s_per_chunk_with_
+  prepare`` counts it in, as a run that prepares on its first chunk
+  pays it."""
   import torch
   from weatherbenchx_tpu_torch import observability
   from weatherbenchx_tpu_torch.metrics import base
@@ -956,9 +1031,10 @@ def run_bench(stores, budget_bytes, card: str):
     os.environ.pop('WBX_RESOURCE_BYTES', None)
   else:
     os.environ['WBX_RESOURCE_BYTES'] = str(budget_bytes)
+  t0 = time.perf_counter()
   try:
     registry = observability.Metrics()
-    pipe = bench_pipeline(stores, registry)
+    pipe = bench_pipeline(stores, registry, sources or bench_sources(stores))
   finally:
     os.environ.pop('WBX_RESOURCE_BYTES', None)
   ev = pipe._evaluator
@@ -967,6 +1043,11 @@ def run_bench(stores, budget_bytes, card: str):
   if p1_ids & ev.host_gather_ids or not p1_ids <= set(ev.resources()):
     raise AssertionError('SEEPS p1 must stay resident')
   torch.cuda.synchronize()
+  setup = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  pipe.predictions_loader.maybe_prepare_dataset()
+  pipe.targets_loader.maybe_prepare_dataset()
+  prepare = time.perf_counter() - t0
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   state = pipe.run()
@@ -975,14 +1056,21 @@ def run_bench(stores, budget_bytes, card: str):
   peak = torch.cuda.max_memory_allocated()
   timers = {k: round(d.mean, 4) for k, d in registry.timings.items()}
   plan = 'default' if budget_bytes is None else f'{budget_bytes} B'
-  log(f'benchmark path [{plan} budget]: {len(ev.host_gather_ids)} of '
+  log(f'{label} [{plan} budget]: {len(ev.host_gather_ids)} of '
       f'{len(ev.resources()) + len(ev.host_gather_ids)} climatology arrays '
       f'host-gathered, {ev.resource_bytes / 2**30:.3f} GiB resident; '
+      f'construction (climatology opened and uploaded) {setup:.3f} s; '
+      f'loaders\' one-time preparation {prepare:.3f} s; '
       f'{seconds / BENCH_INITS:.3f} s per chunk ({BENCH_INITS} chunks, wall '
-      f'clock to a final synchronize); per-chunk means (s) '
+      f'clock to a final synchronize), {(prepare + seconds) / BENCH_INITS:.3f} '
+      f'with the preparation counted in; per-chunk means (s) '
       f'{json.dumps(timers)}; peak device memory {peak / 2**30:.2f} GiB; '
       f'card {card}')
-  return pipe, state, seconds
+  return pipe, state, seconds, {'s_per_chunk': seconds / BENCH_INITS,
+                                's_per_chunk_with_prepare':
+                                    (prepare + seconds) / BENCH_INITS,
+                                'construction_s': setup,
+                                'prepare_s': prepare, **timers}
 
 
 def bench_weights(aggregator):
@@ -1148,11 +1236,12 @@ def check_bench_values(values: dict, ref: dict, n_eff, masked_p1: dict
   return worst
 
 
-def benchmark_path(seed: int, card: str) -> dict:
+def benchmark_path(seed: int, card: str) -> tuple:
   """Phase 6: the deterministic benchmark path at full width, under the
   default budget (every climatology resident) and under a budget below
   the climatology's size (the largest arrays host-gathered); the two
-  states equal by torch.equal."""
+  states equal by torch.equal. Returns (seconds per chunk, the stores, the
+  resident run's state, its timings)."""
   import torch
   t0 = time.perf_counter()
   stores = bench_stores(seed)
@@ -1162,7 +1251,7 @@ def benchmark_path(seed: int, card: str) -> dict:
   log(f'benchmark path: made {len(bench_variables())} variables '
       f'({len(BENCH_LEVELS)} levels upper-air), {nbytes / 2**30:.2f} GiB of '
       f'host stores, in {time.perf_counter() - t0:.1f} s')
-  pipe, state, seconds = run_bench(stores, None, card)
+  pipe, state, seconds, timings = run_bench(stores, None, card)
   ev = pipe._evaluator
   if ev.host_gather_ids:
     raise AssertionError('the default budget should keep every climatology '
@@ -1178,7 +1267,7 @@ def benchmark_path(seed: int, card: str) -> dict:
   budget = ev.resource_bytes // 2
   del pipe, values, wb
   torch.cuda.empty_cache()
-  pipe2, state2, seconds2 = run_bench(stores, budget, card)
+  pipe2, state2, seconds2, _ = run_bench(stores, budget, card)
   demoted = len(pipe2._evaluator.host_gather_ids)
   if not demoted:
     raise AssertionError('a budget below the climatology demoted nothing')
@@ -1191,8 +1280,166 @@ def benchmark_path(seed: int, card: str) -> dict:
       f'{budget} B)')
   del pipe2
   torch.cuda.empty_cache()
-  return {'resident_s_per_chunk': seconds / BENCH_INITS,
-          'host_gather_s_per_chunk': seconds2 / BENCH_INITS}
+  return ({'resident_s_per_chunk': seconds / BENCH_INITS,
+           'host_gather_s_per_chunk': seconds2 / BENCH_INITS},
+          stores, state, timings)
+
+
+# Phase 9's stores on disk, written where git ignores them, and the room
+# they need: about 6 GB of float32 fields that barely compress, with
+# room to spare.
+DISK_STORE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              'build', 'chip_smoke_stores')
+DISK_STORE_NEEDS_BYTES = 12 * 2**30
+# The containers: WeatherBench 2's public stores are zarr v2 with
+# blosc-lz4 and byte shuffle, one (init, lead, level) field per cell.
+DISK_CONTAINERS = {
+    'predictions': ('predictions.zarr', {
+        'compressor': 'blosc', 'zarr_format': 2, 'chunks': {
+            'time': 1, 'prediction_timedelta': 1, 'level': 1}}),
+    'targets': ('targets.zarr', {
+        'compressor': 'zstd', 'zarr_format': 3,
+        'chunks': {'time': 1, 'level': 1}, 'shards': {'time': 7}}),
+    'climatology': ('climatology.wbx', None),
+}
+
+
+def tree_bytes(path: str) -> int:
+  if os.path.isfile(path):
+    return os.path.getsize(path)
+  return sum(os.path.getsize(os.path.join(root, f))
+             for root, _, files in os.walk(path) for f in files)
+
+
+def time_target_flip(stores, path: str, card: str) -> dict:
+  """The first chunk's targets read from the on-disk store by the loader,
+  with and without sort_latitude's latitude flip, in turns (flip, plain,
+  plain, flip), each read's native decode seconds beside it: the flip's
+  cost apart from the decode. The flipped chunk must equal the plain one
+  reversed along latitude."""
+  import torch
+  from weatherbenchx_tpu_torch import native, time_chunks
+  from weatherbenchx_tpu_torch.apps import configs
+  from weatherbenchx_tpu_torch.data import loaders
+  inits, leads = time_chunks.TimeChunks(
+      stores['inits'], stores['leads'], init_time_chunk_size=1,
+      lead_time_chunk_size=BENCH_LEADS)[0]
+  reads, chunks = {'flip': [], 'plain': []}, {}
+  for name in ('flip', 'plain', 'plain', 'flip'):
+    loader = loaders.TargetsFromDataset(
+        path=path, variables=bench_variables(),
+        sel_kwargs={'level': list(BENCH_LEVELS)},
+        preprocessing_fn=configs.sort_latitude if name == 'flip' else None)
+    loader.maybe_prepare_dataset()
+    native.reset_call_counts()
+    t0 = time.perf_counter()
+    chunks[name] = loader.load_chunk(inits, leads)
+    seconds = time.perf_counter() - t0
+    reads[name].append({'seconds': seconds,
+                        'decode_ranges_s': native.SECONDS['decode_ranges']})
+  for k, da in chunks['plain'].items():
+    if 'latitude' in da.dims and not torch.equal(
+        chunks['flip'][k].data,
+        da.data.flip(da.dims.index('latitude'))):
+      raise AssertionError(f'{k}: the flipped targets are not the plain '
+                           'ones reversed along latitude')
+  out = {name: {key: float(np.median([r[key] for r in rs]))
+                for key in rs[0]} for name, rs in reads.items()}
+  log(f'disk benchmark path: one chunk of targets read with the latitude '
+      f'flip {out["flip"]["seconds"]:.3f} s (native decode '
+      f'{out["flip"]["decode_ranges_s"]:.3f} s), without it '
+      f'{out["plain"]["seconds"]:.3f} s (decode '
+      f'{out["plain"]["decode_ranges_s"]:.3f} s); medians of 2 reads each, '
+      f'in turns; card {card}')
+  return out
+
+
+def disk_benchmark_path(stores, want_state, in_memory: dict,
+                        card: str) -> dict:
+  """Phase 9: phase 6's stores written to disk by the port's writers and
+  evaluated from there through the CLI's construction (lazy opens); the
+  state equal to phase 6's by torch.equal. Fails unless the native
+  blockstore and zarr codec are built and called."""
+  import shutil
+  import torch
+  from weatherbenchx_tpu_torch import io, native, zarr_io
+  if not (native.blockstore_available() and native.zarrcodec_available()):
+    raise AssertionError('the native blockstore and zarr codec must build '
+                         'on the card\'s machine (g++, zlib, zstd, lz4)')
+  shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  os.makedirs(DISK_STORE_DIR)
+  free = shutil.disk_usage(DISK_STORE_DIR).free
+  if free < DISK_STORE_NEEDS_BYTES:
+    raise AssertionError(f'{DISK_STORE_DIR}: {free} bytes free, the stores '
+                         f'need {DISK_STORE_NEEDS_BYTES}')
+  try:
+    native.reset_call_counts()
+    paths, writes = {}, {}
+    for key, (name, zarr_kwargs) in DISK_CONTAINERS.items():
+      path = paths[key] = os.path.join(DISK_STORE_DIR, name)
+      nbytes = sum(da.data.numel() * da.data.element_size()
+                   for da in stores[key].values())
+      t0 = time.perf_counter()
+      if zarr_kwargs is None:
+        io.save_dataset(path, stores[key])
+      else:
+        zarr_io.save_dataset_zarr(path, stores[key], **zarr_kwargs)
+      seconds = time.perf_counter() - t0
+      on_disk = tree_bytes(path)
+      writes[key] = {'seconds': seconds, 'GB_per_s': nbytes / seconds / 1e9,
+                     'array_bytes': nbytes, 'bytes_on_disk': on_disk}
+      log(f'disk benchmark path: wrote {key} ({name}, {nbytes} bytes of '
+          f'arrays, {on_disk} bytes on disk) in {seconds:.3f} s, '
+          f'{nbytes / seconds / 1e9:.3f} GB/s; card {card}')
+    write_calls = {k: (native.CALLS[k], native.BYTES[k]) for k in native.CALLS}
+    native.reset_call_counts()
+    _, state, _, timings = run_bench(
+        stores, None, card, bench_sources(stores, paths),
+        label='disk benchmark path')
+    run_calls = {k: (native.CALLS[k], native.BYTES[k]) for k in native.CALLS}
+    run_native_s = dict(native.SECONDS)
+    log(f'disk benchmark path: native (calls, array bytes) while writing '
+        f'{write_calls}; while evaluating {BENCH_INITS} chunks {run_calls}')
+    # Each loader thread calls its native reads one after another, so a
+    # function's seconds over the chunks split its loader's per-chunk mean
+    # into the native read and decode and the Python around it (axis plans,
+    # shard indexes, the scatter into the window; for the predictions also
+    # the statistics' host preparation). The construction's few calls (the
+    # land-sea mask) are counted in.
+    loads = {}
+    for timer, fn in (('load_targets_seconds', 'decode_ranges'),
+                      ('load_predictions_seconds', 'decode_cells')):
+      total, in_native = timings[timer], run_native_s[fn] / BENCH_INITS
+      loads[timer] = {'seconds': total, f'native_{fn}_s': in_native,
+                      'python_s': total - in_native}
+      log(f'disk benchmark path: {timer} {total:.3f} s per chunk, of which '
+          f'native {fn} {in_native:.3f} s and the Python around it '
+          f'{total - in_native:.3f} s; card {card}')
+    log(f'disk benchmark path: native seconds while evaluating '
+        f'{BENCH_INITS} chunks {json.dumps(run_native_s)}; card {card}')
+    if not (write_calls['pwrite_blocks'][0] and write_calls['encode_cells'][0]
+            and write_calls['encode_buffers'][0]
+            and run_calls['decode_cells'][0]
+            and run_calls['decode_ranges'][0]):
+      raise AssertionError('the native blockstore and zarr codec must carry '
+                           'the writes and the reads')
+    got, want = state.to_dataset(), want_state.to_dataset()
+    if sorted(got) != sorted(want) or not all(
+        torch.equal(got[k].data, want[k].data) for k in want):
+      raise AssertionError('the on-disk run\'s state differs from the '
+                           'in-memory run\'s')
+    log(f'disk benchmark path: state equal to phase 6\'s by torch.equal '
+        f'({len(want)} arrays); seconds per chunk {timings["s_per_chunk"]:.3f} '
+        f'on disk vs {in_memory["s_per_chunk"]:.3f} in memory (this run); '
+        f'one-time preparation {timings["prepare_s"]:.3f} vs '
+        f'{in_memory["prepare_s"]:.3f} s; card {card}')
+    flip = time_target_flip(stores, paths['targets'], card)
+  finally:
+    shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  return {'writes': writes, 'on_disk': timings, 'in_memory': in_memory,
+          'loads': loads, 'target_flip': flip,
+          'native_calls': {'write': write_calls, 'evaluate': run_calls},
+          'native_seconds': run_native_s}
 
 
 # The benchmark CLI phase: the demo recipe at 64 x 32 (1.6 M-gridpoint
@@ -1312,6 +1559,53 @@ def ensemble_sds(m: int) -> dict:
           'mean_rmse_sq': sq.std().item()}
 
 
+def kernel_launches(stdout: str) -> dict:
+  line = [l for l in stdout.splitlines() if l.startswith('Kernel launches: ')]
+  return json.loads(line[-1].removeprefix('Kernel launches: '))
+
+
+def bench_cli_from_zarr(tmp: str, paths: dict, det: dict, ens: dict) -> dict:
+  """Phase 8's CLI runs again from zarr v2 blosc-lz4 copies of the stores
+  (one field per cell, as WeatherBench 2's public stores), the metrics
+  written as zarr, netCDF and wbx; each equal to its .npz run bit for bit.
+  Returns the ensemble run's kernel launches."""
+  from weatherbenchx_tpu_torch import io, zarr_io
+  zpaths = {}
+  for key, path in paths.items():
+    zpaths[key] = path[:-4] + '.zarr'
+    zarr_io.save_dataset_zarr(
+        zpaths[key], io.load_dataset(path), compressor='blosc',
+        chunks={'time': 1, 'prediction_timedelta': 1, 'level': 1,
+                'number': 1})
+  out = None
+  for prediction, fmt, want in (('hres', 'zarr', det), ('hres', 'nc', det),
+                                ('ens', 'wbx', ens)):
+    args = [f'--prediction={prediction}',
+            f'--prediction_path={zpaths[prediction]}',
+            '--variables=geopotential,2m_temperature',
+            f'--output_dir={tmp}/{prediction}_{fmt}',
+            f'--output_format={fmt}']
+    if prediction == 'hres':
+      args += [f'--target_path={zpaths["era5"]}',
+               f'--climatology_path={zpaths["clim"]}']
+    else:
+      args += [f'--target_path={zpaths["ens_era5"]}']
+    stdout = run_bench_cli(args)
+    if prediction == 'ens':
+      out = stdout
+    got = io.load_dataset(f'{tmp}/{prediction}_{fmt}/{prediction}_vs_era5_'
+                          f'64x32_2020-init12h.{fmt}')
+    if sorted(got) != sorted(want) or not all(
+        got[k].dims == want[k].dims
+        and np.array_equal(got[k].values, want[k].values, equal_nan=True)
+        for k in want):
+      raise AssertionError(f'benchmark CLI {prediction} from zarr ({fmt} '
+                           'output) differs from its .npz run')
+    log(f'benchmark cli: {prediction} from zarr v2 blosc stores, {fmt} '
+        'output, equal to the .npz run bit for bit ok')
+  return kernel_launches(out)
+
+
 def benchmark_cli_phase(seed: int) -> dict:
   """Phase 8: python -m ...run_benchmark_evaluation --device cuda on .npz
   stores, deterministic (RMSE = sqrt(2), ACC = 1/2) and --prediction=ens
@@ -1338,8 +1632,11 @@ def benchmark_cli_phase(seed: int) -> dict:
                          f'--output_dir={tmp}/ens'])
     ens = io.load_dataset(f'{tmp}/ens/ens_vs_era5_64x32_2020-init12h.npz')
     ens_s = time.perf_counter() - t0
-  line = [l for l in out.splitlines() if l.startswith('Kernel launches: ')]
-  launches = json.loads(line[-1].removeprefix('Kernel launches: '))
+    launches = kernel_launches(out)
+    zarr_launches = bench_cli_from_zarr(tmp, paths, det, ens)
+  if zarr_launches != launches:
+    raise AssertionError(f'the ensemble run from zarr launched '
+                         f'{zarr_launches}, from .npz {launches}')
   n_chunks = BENCH_CLI_INITS  # one init per chunk, its 4 leads in one
   if launches['fused_ensemble_stats'] < n_chunks:
     raise AssertionError(f'expected >= {n_chunks} fused launches (one per '
@@ -1426,7 +1723,7 @@ def bound(nbytes: int, ops: int) -> tuple:
 
 
 def time_kernels(x, y, yt, card: str) -> dict:
-  """Phase 9's kernel timings at the paths' shapes, float32: fused and
+  """Phase 10's kernel timings at the paths' shapes, float32: fused and
   spread at M = 50, spread at M = 10 (the ensemble path's analysis), cross
   50 x 10, each against its plain version, TIMING_REPS calls per sample
   for both; and, in the kernels' turns, a device-to-device copy of x
@@ -1480,7 +1777,7 @@ def copy_share(res: dict, nbytes: int, ms: float, copy_bytes: int) -> float:
 
 
 def timing(ev, chunks, stores, card: str) -> dict:
-  """Phase 9: the kernels (time_kernels) at their paths' shapes; one
+  """Phase 10: the kernels (time_kernels) at their paths' shapes; one
   eval_chunk; the ensemble pipeline's seconds per chunk."""
   from weatherbenchx_tpu_torch import observability
   from weatherbenchx_tpu_torch.aggregation import AggregationState
@@ -1600,15 +1897,19 @@ def main() -> int:
   log('phase 4 main path: ok')
   stores, ens_launches = ensemble_path(args.seed)
   log('phase 5 ensemble path: ok')
-  bench = benchmark_path(args.seed, card)
+  bench, bstores, bstate, in_memory = benchmark_path(args.seed, card)
   log('phase 6 benchmark path: ok')
   cli_phase(args.seed)
   log('phase 7 cli: ok')
   benchmark_cli_phase(args.seed)
   log('phase 8 benchmark cli: ok')
+  disk = disk_benchmark_path(bstores, bstate, in_memory, card)
+  del bstores, bstate
+  log('phase 9 disk benchmark path: ok')
   res = timing(ev, chunks, stores, card)
-  log('phase 9 timing: done')
+  log('phase 10 timing: done')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
+  log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
 
   n = math.prod(GRID)
   print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,

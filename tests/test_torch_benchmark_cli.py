@@ -22,7 +22,10 @@ from weatherbenchx_tpu import darray as j_darray
 from weatherbenchx_tpu import io as j_io
 from weatherbenchx_tpu.apps import run_benchmark_evaluation as j_cli
 from weatherbenchx_tpu_torch import io
+from weatherbenchx_tpu_torch import native
+from weatherbenchx_tpu_torch import zarr_io
 from weatherbenchx_tpu_torch.apps import run_benchmark_evaluation as cli
+from weatherbenchx_tpu_torch.apps import run_evaluation
 
 torch.set_num_threads(1)
 
@@ -218,19 +221,105 @@ def test_checkpoints_and_retries_leave_the_result_unchanged(stores, tmp_path):
     np.testing.assert_array_equal(plain[k].values, ckpt[k].values, err_msg=k)
 
 
+# The stores rewritten by the port's writers, and the output format each
+# run writes: .wbx and netCDF; zarr v2 with blosc-lz4 and byte shuffle, one
+# (init, lead, level) field per cell, as WeatherBench 2's public stores;
+# zarr v3 sharded with zstd.
+CONTAINERS = {
+    'wbx': ('.wbx', {}, 'wbx'),
+    'nc': ('.nc', {}, 'nc'),
+    'zarr2_blosc': ('.zarr', {'compressor': 'blosc', 'chunks': {
+        'time': 1, 'prediction_timedelta': 1, 'level': 1, 'number': 1}},
+                    'zarr'),
+    'zarr3_sharded_zstd': ('.3.zarr', {
+        'compressor': 'zstd', 'zarr_format': 3,
+        'chunks': {'time': 1, 'prediction_timedelta': 1, 'level': 1},
+        'shards': {'time': 4}}, 'npz'),
+}
+
+
+@pytest.fixture(scope='module')
+def container_stores(stores):
+  out = {}
+  for name, (suffix, zarr_kwargs, _) in CONTAINERS.items():
+    out[name] = {}
+    for key, path in stores.items():
+      new = path[:-len('.npz')] + suffix
+      ds = io.load_dataset(path)
+      if zarr_kwargs:
+        zarr_io.save_dataset_zarr(new, ds, **zarr_kwargs)
+      else:
+        io.save_dataset(new, ds)
+      out[name][key] = new
+  return out
+
+
+def _output(out_dir: str) -> dict:
+  (name,) = os.listdir(out_dir)
+  return io.load_dataset(os.path.join(out_dir, name))
+
+
+@pytest.mark.parametrize('container', list(CONTAINERS))
+@pytest.mark.parametrize('prediction', ['hres', 'ens'])
+def test_cli_from_every_container_equals_the_npz_run(
+    stores, container_stores, tmp_path, prediction, container):
+  """The benchmark CLI from each container's stores, writing its metrics in
+  another container, equals its run from the .npz stores bit for bit (the
+  codecs are lossless and the windows read the same data)."""
+  _, _, fmt = CONTAINERS[container]
+  variables = ['--variables=geopotential,2m_temperature'
+               + (',total_precipitation_24hr' if prediction == 'hres' else '')]
+  cli.main(_argv(stores, prediction, f'{tmp_path}/npz') + variables
+           + ['--device=cpu'])
+  cli.main(_argv(container_stores[container], prediction,
+                 f'{tmp_path}/{container}', [f'--output_format={fmt}'])
+           + variables + ['--device=cpu'])
+  got, want = _output(f'{tmp_path}/{container}'), _output(f'{tmp_path}/npz')
+  assert sorted(got) == sorted(want)
+  for k in want:
+    assert got[k].dims == want[k].dims, k
+    for d in want[k].dims:
+      np.testing.assert_array_equal(got[k].coord_values(d),
+                                    want[k].coord_values(d))
+    np.testing.assert_array_equal(got[k].values, want[k].values, err_msg=k)
+
+
+@pytest.mark.parametrize('container', list(CONTAINERS))
+def test_cli_from_every_container_matches_the_jax_cli(
+    stores, container_stores, tmp_path, container):
+  """Both CLIs read the port-written stores of each container."""
+  got, want = _run_both(container_stores[container], tmp_path, 'hres',
+                        variables='geopotential,u_component_of_wind,'
+                        'v_component_of_wind,total_precipitation_24hr')
+  _assert_outputs_match(got, want)
+
+
 @pytest.mark.parametrize('flag,item', [
-    ('--output_format=zarr', 'A8'), ('--output_format=nc', 'A8'),
     ('--unaggregated_zarr', 'A11'), ('--chunks_per_dispatch=2', 'A7')])
 def test_unported_options_raise(stores, tmp_path, flag, item):
   with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
     cli.main(_argv(stores, 'hres', str(tmp_path)) + [flag, '--device=cpu'])
 
 
+class _Opened(Exception):
+  pass
+
+
 def test_registry_paths_and_missing_gpu_raise(stores, tmp_path, monkeypatch):
-  # A registry entry's gs:// store reaches fileio, which is local only.
-  with pytest.raises(NotImplementedError, match='ROADMAP A8'):
+  # A registry entry's gs:// store goes to the zarr reader, which opens it
+  # through fsspec; the reader is stubbed, so no remote host is contacted.
+  opened = []
+
+  def open_zarr(path):
+    opened.append(path)
+    raise _Opened(path)
+
+  monkeypatch.setattr(zarr_io, 'open_dataset_zarr', open_zarr)
+  with pytest.raises(_Opened):
     cli.main(['--prediction=hres', f'--output_dir={tmp_path}',
               '--variables=geopotential', '--device=cpu'])
+  assert opened and opened[0].startswith('gs://weatherbench2/')
+  monkeypatch.undo()
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
   with pytest.raises(RuntimeError, match='no CUDA device'):
     cli.main(_argv(stores, 'hres', str(tmp_path)))
@@ -238,3 +327,24 @@ def test_registry_paths_and_missing_gpu_raise(stores, tmp_path, monkeypatch):
   with pytest.raises(SystemExit, match='Unknown prediction config'):
     cli.main(['--prediction=nomodel', f'--output_dir={tmp_path}',
               '--device=cpu'])
+
+
+@pytest.mark.parametrize('which', ['benchmark', 'evaluation'])
+@pytest.mark.parametrize('library', ['blockstore', 'zarrcodec'])
+def test_gpu_runs_need_the_native_io(stores, tmp_path, monkeypatch, which,
+                                     library):
+  """On a GPU a native I/O library that did not build is an error, not the
+  pure-Python path; on the CPU that path stays."""
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+  monkeypatch.setattr(native, f'{library}_available', lambda: False)
+  if which == 'benchmark':
+    main, argv = cli.main, _argv(stores, 'hres', str(tmp_path))
+  else:
+    main = run_evaluation.main
+    argv = [f'--prediction_path={stores["hres"]}',
+            f'--target_path={stores["era5"]}',
+            f'--output_path={tmp_path / "out.npz"}']
+  with pytest.raises(RuntimeError, match=f'native I/O .*{library}'):
+    main(argv + ['--device=cuda'])
+  assert not os.listdir(tmp_path)
+  assert run_evaluation.resolve_device('cpu') == torch.device('cpu')

@@ -547,23 +547,22 @@ def test_diagonal_take_matches_jax():
 
 
 def test_loaders_read_npz_paths_and_open_dataset_auto(tmp_path):
-  path = str(tmp_path / 'era5.npz')
-  io.save_dataset(path, _target_store(darray))
-  got = loaders.PersistenceFromDataset(path=path).load_chunk(
-      LOADER_INITS, LOADER_LEADS)
+  """The loaders read each container by path (lazily where it opens so)
+  to the chunks of the in-memory store; netCDF reads whole; GRIB needs
+  xarray, as in the JAX package without it."""
   want = loaders.PersistenceFromDataset(ds=_target_store(darray)).load_chunk(
       LOADER_INITS, LOADER_LEADS)
-  _assert_loaded_equal(got, want)
-  assert sorted(io.open_dataset_auto(path)) == ['z']
-  for store, what in (('a.wbx', '.wbx'), ('a.zarr', 'zarr'),
-                      ('gs://bucket/a.zarr', 'zarr'), ('a.nc', 'netCDF'),
-                      ('a.grib2', 'netCDF')):
-    with pytest.raises(NotImplementedError, match='ROADMAP A8') as e:
-      io.open_dataset_auto(str(tmp_path / store) if '://' not in store
-                           else store)
-    assert what in str(e.value)
-  with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-    io.open_dataset_auto('gs://bucket/a.npz')
+  for name, lazy in (('era5.npz', True), ('era5.wbx', True),
+                     ('era5.zarr', True), ('era5.nc', False)):
+    path = str(tmp_path / name)
+    io.save_dataset(path, _target_store(darray))
+    got = loaders.PersistenceFromDataset(path=path).load_chunk(
+        LOADER_INITS, LOADER_LEADS)
+    _assert_loaded_equal(got, want)
+    opened = io.open_dataset_auto(path)
+    assert sorted(opened) == ['z'] and opened['z'].is_lazy == lazy, name
+  with pytest.raises(ImportError, match='xarray'):
+    io.open_dataset_auto(str(tmp_path / 'a.grib2'))
 
 
 def test_scalar_over_tensor_divides_once():

@@ -301,24 +301,32 @@ def test_sort_network_sorts_random_inputs(m):
 def _emulate_network_spread(x):
   """The network kernel's arithmetic at each point, in float32 numpy: the
   NaN flag from the loaded values, ``sort_network`` with fmin/fmax, the
-  shift by the median x_(m//2), 2 Σ_k (2k − m − 1)(x_(k) − c) in k order."""
+  shift by the median x_(m//2) where it is finite (else 0),
+  2 Σ_k (2k − m − 1)(x_(k) − c) in k order without the median's zero
+  weight, and below JAX_SORT_MEMBERS NaN for two members at one
+  infinity."""
   m = x.shape[0]
   nan = np.isnan(x).any(0)
   v = _apply_network(x.astype(np.float32), m)
-  c = v[m // 2]
+  c = np.where(np.isfinite(v[m // 2]), v[m // 2], np.float32(0))
   acc = np.zeros_like(c)
   with np.errstate(invalid='ignore'):
     for k in range(m):
-      acc = acc + np.float32(2 * k + 1 - m) * (v[k] - c)
+      if 2 * k + 1 != m:
+        acc = acc + np.float32(2 * k + 1 - m) * (v[k] - c)
   out = np.float32(2) * acc
+  if m < crps_pairwise.JAX_SORT_MEMBERS:
+    nan |= (v[1] == -np.inf) | (v[m - 2] == np.inf)
   out[nan] = np.nan
   return out
 
 
 def _emulate_shared_spread(x):
-  """The shared-memory form's pair loop (past 64 members), in float32:
-  rows i0..i0+3 held in four accumulators, the pairs within them, then
-  every later row streamed past them; the four summed and doubled."""
+  """The shared-memory form (past 64 members), in float32: rows i0..i0+3
+  held in four accumulators, the pairs within them, then every later row
+  streamed past them; the four summed and doubled. Where a member is
+  infinite and none NaN, the counts of +inf and -inf members give the
+  result (``infinite_spread`` in csrc/common.cuh), not |inf − inf|."""
   m = x.shape[0]
   acc = np.zeros((4,) + x.shape[1:], np.float32)
   with np.errstate(invalid='ignore'):
@@ -330,7 +338,14 @@ def _emulate_shared_spread(x):
       for j in range(i0 + 4, m):
         for r in rows:
           acc[r] += np.abs(x[i0 + r] - x[j])
-  return np.float32(2) * (((acc[0] + acc[1]) + acc[2]) + acc[3])
+  out = np.float32(2) * (((acc[0] + acc[1]) + acc[2]) + acc[3])
+  n_pos, n_neg = (x == np.inf).sum(0), (x == -np.inf).sum(0)
+  nan = (2 * n_pos > m + 1) | (2 * n_neg > m + 1)
+  if m < crps_pairwise.JAX_SORT_MEMBERS:
+    nan |= (n_pos > 1) | (n_neg > 1)
+  infinite = ~np.isnan(x).any(0) & (n_pos + n_neg > 0)
+  out[infinite] = np.where(nan, np.nan, np.inf).astype(np.float32)[infinite]
+  return out
 
 
 @pytest.mark.parametrize('m,offset,scale', [
@@ -376,48 +391,90 @@ def test_network_emulation_nan_at_every_member_position(m):
   np.testing.assert_allclose(got[m:], jax_[m:], rtol=RTOL, atol=ATOL)
 
 
+# Member counts of the infinity checks: both sides of the JAX package's
+# sort threshold (20), odd and even counts, and both sides of the register
+# route's end (64).
+INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100)
+
+
 def _infinite_members(m):
-  """(m, 6) columns: one +inf; one -inf; one of each; two +inf (median
-  finite); more than half +inf (median +inf); more than half -inf."""
-  x = np.random.default_rng(m).standard_normal((m, 6)).astype(np.float32)
-  x[0, 0] = np.inf
-  x[1, 1] = -np.inf
-  x[2, 2], x[3, 2] = np.inf, -np.inf
-  x[4:6, 3] = np.inf
-  x[:m // 2 + 1, 4] = np.inf
-  x[m - m // 2 - 1:, 5] = -np.inf
+  """(m, 7) columns by their numbers of +inf and -inf members, at rows
+  drawn at random: one +inf; one -inf; one of each; two +inf; m//2 + 1
+  +inf; m//2 + 1 -inf (the median infinite); m//2 + 2 +inf, where the JAX
+  sort body's weights give terms of both signs. Counts are capped at m."""
+  rng = np.random.default_rng(m)
+  x = rng.standard_normal((m, 7)).astype(np.float32)
+  counts = [(1, 0), (0, 1), (1, 1), (2, 0), (m // 2 + 1, 0),
+            (0, m // 2 + 1), (m // 2 + 2, 0)]
+  for col, (n_pos, n_neg) in enumerate(counts):
+    rows = rng.permutation(m)
+    n_pos = min(n_pos, m)
+    x[rows[:n_pos], col] = np.inf
+    x[rows[n_pos:n_pos + n_neg], col] = -np.inf
   return x
+
+
+def _assert_same_spread(got, want, label):
+  """Equal inf and NaN points, finite values within the file's
+  tolerances."""
+  for f in (np.isnan, np.isposinf, np.isneginf):
+    np.testing.assert_array_equal(f(got), f(want), err_msg=label)
+  ok = np.isfinite(want)
+  np.testing.assert_allclose(got[ok], want[ok], rtol=RTOL, atol=ATOL,
+                             err_msg=label)
+
+
+@pytest.mark.parametrize('m', INFINITY_MEMBERS)
+def test_infinite_members_give_the_jax_kernels_result(m):
+  """The plain versions (spread and fused), the emulations of the network
+  and shared kernels and the JAX kernel (interpret) agree on every inf and
+  NaN point of the seven columns, whichever JAX body runs at m."""
+  x = _infinite_members(m)
+  y = np.random.default_rng(m + 1).standard_normal(7).astype(np.float32)
+  jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
+                                               interpret=True))
+  plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  fused = crps_pairwise.fused_ensemble_stats_plain(
+      torch.from_numpy(x), torch.from_numpy(y))[0].numpy()
+  _assert_same_spread(plain, jax_, 'plain')
+  _assert_same_spread(fused, jax_, 'fused plain')
+  _assert_same_spread(_emulate_shared_spread(x), jax_, 'shared')
+  if m in crps_pairwise.REGISTER_MEMBERS:
+    _assert_same_spread(_emulate_network_spread(x), jax_, 'network')
+  assert np.isnan(jax_[6]) and np.isinf(jax_[:3]).all()
 
 
 @pytest.mark.parametrize('m', [21, 49])
 def test_network_emulation_infinities_follow_the_plain_version(m):
-  """Both sort, shift by the median and weight in k order, so they agree
-  on every inf and NaN: inf where the median is finite, NaN where it is
-  infinite (inf − inf)."""
+  """From 20 members on, the JAX sort body's inf and NaN points: inf while
+  the weights of the infinite members' ranks share one sign, a median
+  infinite included (its weight is 0 at odd m), NaN at m//2 + 2 of +inf."""
   x = _infinite_members(m)
   got = _emulate_network_spread(x)
   plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
+                                               interpret=True))
   np.testing.assert_array_equal(got, plain)
-  np.testing.assert_array_equal(got, [np.inf] * 4 + [np.nan] * 2)
+  np.testing.assert_array_equal(got, jax_)
+  np.testing.assert_array_equal(got, [np.inf] * 6 + [np.nan])
 
 
 @pytest.mark.parametrize('m', [10, 21, 65])
 def test_pair_forms_give_nan_for_two_infinities_of_one_sign(m):
-  """The pair forms (the port's shared-memory form past 64 members, the
-  JAX package's body below 20) take |inf − inf| = NaN where the sort forms
-  give inf; and the JAX sort form, which neither shifts by the median nor
-  weights the median's zero coefficient, gives inf where the port's gives
-  NaN. Only the finite-median, one-infinity-per-sign columns agree."""
+  """Below 20 members the JAX package's pair body takes |inf − inf| = NaN
+  for two members at one infinity, and every form of the port gives it
+  too; from 20 on its sort body gives inf there, and so does the port's
+  shared-memory pair form, whose counts of infinite members, not its
+  |inf − inf|, decide."""
   x = _infinite_members(m)
   plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
   pairs = _emulate_shared_spread(x)
-  np.testing.assert_array_equal(pairs, [np.inf] * 3 + [np.nan] * 3)
-  np.testing.assert_array_equal(plain, [np.inf] * 4 + [np.nan] * 2)
-  np.testing.assert_array_equal(_emulate_network_spread(x), plain)
   jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
                                                interpret=True))
-  want_jax = pairs if m < 20 else np.full(6, np.inf, np.float32)
-  np.testing.assert_array_equal(jax_, want_jax)
+  want = ([np.inf] * 3 + [np.nan] * 4 if m < 20
+          else [np.inf] * 6 + [np.nan])
+  for out in (plain, pairs, jax_, _emulate_network_spread(x)):
+    np.testing.assert_array_equal(out, want)
 
 
 @pytest.mark.parametrize('m', [2, 65, 66, 67, 100])
@@ -434,14 +491,20 @@ def test_shared_emulation_matches_plain(m):
 @pytest.mark.parametrize('m', [2, 3, 4])
 def test_network_emulation_infinities_at_few_members(m):
   """The fewest members, where the median is the larger of two: one +inf
-  gives NaN (inf − inf) in both the network and the plain version."""
+  or one -inf gives inf, as the JAX pair body's |inf − x| does (the shift
+  is 0 where the median is infinite), in the network, the plain version
+  and the JAX kernel alike."""
   x = np.random.default_rng(m).standard_normal((m, 4)).astype(np.float32)
   x[0, 0] = np.inf
   x[m - 1, 1] = -np.inf
   x[:, 2] = np.nan
   got = _emulate_network_spread(x)
   plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
+  jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
+                                               interpret=True))
   np.testing.assert_array_equal(got, plain)
+  _assert_same_spread(got, jax_, f'm={m}')
+  assert np.isposinf(got[:2]).all() and np.isnan(got[2])
   assert np.isfinite(got[3])
 
 

@@ -91,6 +91,76 @@ def test_every_register_kernel_matches_plain(cuda, dtype, tol):
       assert torch.isnan(g[0]), m
 
 
+def _infinite_members(m):
+  """(m, 7) columns by their numbers of +inf and -inf members: one +inf;
+  one -inf; one of each; two +inf; m//2 + 1 +inf; m//2 + 1 -inf; m//2 + 2
+  +inf (tests/test_torch_crps_pairwise.py holds these patterns to the JAX
+  kernels)."""
+  rng = np.random.default_rng(m)
+  x = rng.standard_normal((m, 7)).astype(np.float32)
+  counts = [(1, 0), (0, 1), (1, 1), (2, 0), (m // 2 + 1, 0),
+            (0, m // 2 + 1), (m // 2 + 2, 0)]
+  for col, (n_pos, n_neg) in enumerate(counts):
+    rows = rng.permutation(m)
+    n_pos = min(n_pos, m)
+    x[rows[:n_pos], col] = np.inf
+    x[rows[n_pos:n_pos + n_neg], col] = -np.inf
+  return x
+
+
+@pytest.mark.parametrize('m', [2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_infinite_members_match_plain(cuda, m, dtype):
+  """Every kernel form gives the plain version's inf and NaN points, the
+  JAX kernels' pattern at m (the sort body from 20 members, the pair body
+  below)."""
+  x = torch.from_numpy(_infinite_members(m)).to(cuda, dtype)
+  y = torch.zeros(7, device=cuda, dtype=dtype)
+  got = crps_pairwise._launch_stats(x, y)[0], crps_pairwise._launch_stats(
+      x, None)
+  want = crps_pairwise.pairwise_spread_sum_plain(x)
+  torch.cuda.synchronize()
+  for g in got:
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+      assert torch.equal(f(g), f(want)), (m, g, want)
+  assert torch.isnan(want[6]) and torch.isposinf(want[:3]).all()
+
+
+def test_native_io_builds_and_a_lazy_zarr_window_lands_on_the_card(
+    cuda, tmp_path):
+  """The native blockstore and zarr codec build on the card's machine; a
+  chunk read lazily from a blosc zarr store and a sharded zstd v3 store
+  through the loaders reaches the card equal to the in-memory store's."""
+  from weatherbenchx_tpu_torch import native, zarr_io
+  from weatherbenchx_tpu_torch.darray import DimArray
+  from weatherbenchx_tpu_torch.data import loaders
+  assert native.blockstore_available() and native.zarrcodec_available()
+  rng = np.random.default_rng(5)
+  valid = (np.datetime64('2020-01-01', 'ns')
+           + np.arange(16) * np.timedelta64(6, 'h'))
+  ds = {'t2m': DimArray(
+      rng.standard_normal((16, 2, 33, 64)).astype(np.float32),
+      ('time', 'level', 'latitude', 'longitude'),
+      {'time': valid, 'level': np.array([500, 850]),
+       'latitude': np.linspace(90, -90, 33),
+       'longitude': np.arange(64) * 5.625})}
+  inits = valid[:4]
+  leads = np.array([0, 6], 'timedelta64[h]').astype('timedelta64[ns]')
+  want = loaders.TargetsFromDataset(ds=ds).load_chunk(inits, leads)['t2m']
+  for name, kwargs in (('v2.zarr', {'compressor': 'blosc'}),
+                       ('v3.zarr', {'compressor': 'zstd', 'zarr_format': 3,
+                                    'shards': {'time': 8}})):
+    path = str(tmp_path / name)
+    zarr_io.save_dataset_zarr(path, ds, chunks={'time': 1, 'level': 1},
+                              **kwargs)
+    native.reset_call_counts()
+    chunk = loaders.TargetsFromDataset(path=path).load_chunk(inits, leads)
+    assert native.CALLS['decode_ranges' if 'shards' in kwargs
+                        else 'decode_cells'] > 0
+    on_card = chunk['t2m'].data.to(cuda)
+    assert torch.equal(on_card.cpu(), want.data)
+
+
 def test_non_contiguous_input_and_empty_rest(cuda):
   x = torch.randn(6, 7, 5, device=cuda)
   xt = x.transpose(1, 2)  # the wrapper makes it contiguous

@@ -1,11 +1,15 @@
 """The port's host I/O and bookkeeping against the JAX package, on the CPU.
 
-The ``.npz`` container in both directions, ``AggregationState`` save/load,
-the zero-filled outer join of ``combining_sum``, the atomic local file
-I/O and ``time_chunks``.
+Every container (``.npz``, ``.wbx``, netCDF, zarr) in both directions, the
+same bytes from both packages, the lazy ``open_dataset``, fsspec
+``memory://`` round trips (no test here reaches a remote host),
+``AggregationState`` save/load, the zero-filled outer join of
+``combining_sum``, the atomic file I/O and ``time_chunks``.
 """
 
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -13,6 +17,7 @@ import torch
 
 from weatherbenchx_tpu import aggregation as j_aggregation
 from weatherbenchx_tpu import darray as j_darray
+from weatherbenchx_tpu import fileio as j_fileio
 from weatherbenchx_tpu import io as j_io
 from weatherbenchx_tpu import time_chunks as j_time_chunks
 from weatherbenchx_tpu_torch import aggregation
@@ -97,16 +102,108 @@ def test_bfloat16_is_written_widened():
   np.testing.assert_array_equal(got.values, [1.5, -2.25])
 
 
-@pytest.mark.parametrize('suffix', ['.wbx', '.zarr', '.nc'])
-def test_unported_containers_raise(tmp_path, suffix):
+CONTAINERS = ['.npz', '.wbx', '.nc', '.zarr']
+
+
+def _files(path: str) -> dict:
+  """{name relative to path: bytes} of a file, or of every file under a
+  directory."""
+  if not os.path.isdir(path):
+    with open(path, 'rb') as f:
+      return {'': f.read()}
+  out = {}
+  for root, _, names in os.walk(path):
+    for name in names:
+      full = os.path.join(root, name)
+      with open(full, 'rb') as f:
+        out[os.path.relpath(full, path)] = f.read()
+  return out
+
+
+@pytest.mark.parametrize('suffix', CONTAINERS)
+def test_containers_are_byte_identical_and_read_alike(tmp_path, suffix):
+  """Both packages write the same bytes (every file of a zarr store), and
+  each reads the other's file to the same arrays and coords."""
+  port, jax_ = str(tmp_path / f'port{suffix}'), str(tmp_path / f'jax{suffix}')
+  io.save_dataset(port, _dataset(darray))
+  j_io.save_dataset(jax_, _dataset(j_darray))
+  assert _files(port) == _files(jax_)
+  want = j_io.load_dataset(jax_)
+  _assert_datasets_equal(io.load_dataset(jax_), want)
+  _assert_datasets_equal(j_io.load_dataset(port), want)
+  if suffix in ('.npz', '.wbx'):  # lossless for every dtype here
+    _assert_datasets_equal(io.load_dataset(port), _dataset(darray))
+
+
+@pytest.mark.parametrize('suffix', ['.npz', '.wbx'])
+def test_open_dataset_is_lazy_and_reads_windows(tmp_path, suffix):
   path = str(tmp_path / f'ds{suffix}')
-  with pytest.raises(NotImplementedError, match='not ported'):
-    io.save_dataset(path, _dataset(darray))
-  with pytest.raises(NotImplementedError, match='not ported'):
-    io.load_dataset(path)
-  with pytest.raises(NotImplementedError, match='not ported'):
-    fileio.save_dataset_atomic(path, _dataset(darray))
-  assert os.listdir(tmp_path) == []
+  io.save_dataset(path, _dataset(darray))
+  opened = io.open_dataset(path)
+  j_opened = j_io.open_dataset(path)
+  t2m = opened['t2m']
+  assert t2m.is_lazy and t2m.shape == (2, 3, 3) and t2m.dtype == torch.float32
+  assert not any(c.values.__class__.__name__ == 'LazyArray'
+                 for c in t2m.coords.values())
+  window = t2m.isel(init_time=1).sel(region=['tropics', 'global'])
+  assert window.is_lazy and window.shape == (3, 2)
+  want = j_opened['t2m'].isel(init_time=1).sel(region=['tropics', 'global'])
+  np.testing.assert_array_equal(window.values, np.asarray(want.data))
+  taken = t2m.take('lead_time', np.array([[2, 0], [1, 1]]), ('a', 'b'))
+  assert not taken.is_lazy and taken.dims == ('init_time', 'a', 'b', 'region')
+  np.testing.assert_array_equal(
+      taken.values, np.asarray(j_opened['t2m'].take(
+          'lead_time', np.array([[2, 0], [1, 1]]), ('a', 'b')).data))
+  _assert_datasets_equal(
+      {k: v.copy(data=v.data) for k, v in opened.items()}, _dataset(darray))
+
+
+@pytest.mark.parametrize('suffix', CONTAINERS)
+def test_remote_round_trips_through_fsspec_memory(tmp_path, suffix):
+  """A memory:// URL (fsspec, in this process) for each container; the
+  JAX package reads the port's object to the same dataset."""
+  url = f'memory://{tmp_path.name}/ds{suffix}'
+  fileio.save_dataset_atomic(url, _dataset(darray))
+  assert fileio.exists(url)
+  got = fileio.load_dataset_any(url)
+  _assert_datasets_equal(got, j_fileio.load_dataset_any(url))
+  if suffix in ('.npz', '.wbx'):  # remote .wbx is the npz container's bytes
+    _assert_datasets_equal(got, _dataset(darray))
+  if suffix == '.nc':  # remote netCDF opens through xarray alone
+    with pytest.raises(ImportError, match='xarray'):
+      io.open_dataset_auto(url)
+  else:
+    assert sorted(io.open_dataset_auto(url)) == sorted(got)
+
+
+def test_remote_bytes_and_directories_through_fsspec_memory(tmp_path):
+  root = f'memory://{tmp_path.name}'
+  fileio.makedirs(f'{root}/d')
+  fileio.write_text_atomic(f'{root}/d/m.json', '{"a": 1}')
+  fileio.write_bytes(f'{root}/d/b.bin', bytes(range(10)))
+  assert fileio.read_text(f'{root}/d/m.json') == '{"a": 1}'
+  assert fileio.read_byte_range(f'{root}/d/b.bin', 3, 4) == bytes([3, 4, 5, 6])
+  assert fileio.read_byte_range(f'{root}/d/b.bin', -2, 2) == bytes([8, 9])
+  assert fileio.listdir(f'{root}/d') == j_fileio.listdir(f'{root}/d') == [
+      'b.bin', 'm.json']
+  assert fileio.isdir(f'{root}/d') and not fileio.isdir(f'{root}/d/b.bin')
+  assert fileio.is_remote(root) and not fileio.is_remote('file:///tmp/x.npz')
+
+
+def test_optional_packages_load_only_where_they_are_used():
+  """Importing every I/O module imports none of scipy, pyarrow, fsspec."""
+  code = ('import sys\n'
+          'from weatherbenchx_tpu_torch import io, fileio, zarr_io, '
+          'netcdf_io, codecs, lazy, native, hdf5_mini, cf\n'
+          'from weatherbenchx_tpu_torch.data import loaders\n'
+          'from weatherbenchx_tpu_torch.apps import run_benchmark_evaluation\n'
+          "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+          "('scipy', 'pyarrow', 'fsspec', 'h5py', 'xarray'))\n"
+          'assert not bad, bad\n')
+  proc = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                        text=True, timeout=120, check=False,
+                        cwd=os.path.dirname(os.path.dirname(__file__)))
+  assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def _state(mod, seed, lead_hours=(0, 6)):
@@ -175,16 +272,6 @@ def test_atomic_writes_leave_no_temporaries(tmp_path):
   assert fileio.read_text(str(tmp_path / 'm.json')) == '{"a": 1}'
   assert fileio.exists(path)
   _assert_datasets_equal(fileio.load_dataset_any(path), _dataset(darray))
-
-
-def test_remote_paths_raise():
-  for fn, args in ((fileio.exists, ()), (fileio.read_text, ()),
-                   (fileio.write_text_atomic, ('x',)),
-                   (fileio.save_dataset_atomic, (_dataset(darray),)),
-                   (fileio.load_dataset_any, ())):
-    with pytest.raises(NotImplementedError, match='remote'):
-      fn('gs://bucket/file.npz', *args)
-  assert not fileio.is_remote('file:///tmp/x.npz')
 
 
 def _init_times():

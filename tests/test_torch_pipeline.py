@@ -31,10 +31,12 @@ from weatherbenchx_tpu.parallel import pipeline as j_pipeline
 from weatherbenchx_tpu_torch import aggregation
 from weatherbenchx_tpu_torch import binning
 from weatherbenchx_tpu_torch import darray
+from weatherbenchx_tpu_torch import fileio
 from weatherbenchx_tpu_torch import io
 from weatherbenchx_tpu_torch import observability
 from weatherbenchx_tpu_torch import time_chunks
 from weatherbenchx_tpu_torch import weighting
+from weatherbenchx_tpu_torch import zarr_io
 from weatherbenchx_tpu_torch.apps import run_evaluation
 from weatherbenchx_tpu_torch.data import loaders
 from weatherbenchx_tpu_torch.metrics import deterministic
@@ -470,6 +472,81 @@ def test_cli_matches_the_jax_cli(tmp_path, capsys):
                                rtol=RTOL, atol=ATOL, err_msg=k)
   state = aggregation.AggregationState.load(f'{tmp_path}/state.npz')
   assert state.sum_weights['SquaredError']['2m_temperature'].shape == (2, 2)
+
+
+def _port_copy(path: str, suffix: str, **zarr_kwargs) -> str:
+  """The .npz store at path rewritten by the port's writers as suffix."""
+  out = path[:-len('.npz')] + suffix
+  ds = io.load_dataset(path)
+  if zarr_kwargs:
+    zarr_io.save_dataset_zarr(out, ds, **zarr_kwargs)
+  else:
+    io.save_dataset(out, ds)
+  return out
+
+
+CLI_CONTAINERS = {
+    'wbx': ('.wbx', {}), 'nc': ('.nc', {}),
+    'zarr2_blosc': ('.zarr', {'compressor': 'blosc',
+                              'chunks': {'time': 1}}),
+    'zarr3_sharded_zstd': ('.3.zarr', {'compressor': 'zstd', 'zarr_format': 3,
+                                       'chunks': {'time': 1},
+                                       'shards': {'time': 4}}),
+}
+
+
+@pytest.mark.parametrize('container', list(CLI_CONTAINERS))
+def test_cli_from_every_container_matches_its_npz_run(tmp_path, container):
+  """The evaluation CLI from each container, with its output in the same
+  container, equals its .npz run bit for bit; the JAX CLI from the same
+  stores agrees within the file's tolerances."""
+  p, t = _cli_stores(tmp_path)
+  suffix, zarr_kwargs = CLI_CONTAINERS[container]
+  cp, ct = (_port_copy(x, suffix, **zarr_kwargs) for x in (p, t))
+  common = ['--time_start=2020-01-01', '--time_stop=2020-01-03',
+            '--lead_time_stop=12', '--variables=2m_temperature',
+            '--time_chunk_size=2']
+  out = f'{tmp_path}/out{suffix}'
+  run_evaluation.main(common + [f'--prediction_path={p}', f'--target_path={t}',
+                                f'--output_path={tmp_path}/npz.npz',
+                                '--device=cpu'])
+  run_evaluation.main(common + [f'--prediction_path={cp}',
+                                f'--target_path={ct}', f'--output_path={out}',
+                                '--device=cpu'])
+  j_run_evaluation.main(common + [f'--prediction_path={cp}',
+                                  f'--target_path={ct}',
+                                  f'--output_path={tmp_path}/jax.npz'])
+  got, want = io.load_dataset(out), io.load_dataset(f'{tmp_path}/npz.npz')
+  jax_ = j_io.load_dataset(f'{tmp_path}/jax.npz')
+  assert sorted(got) == sorted(want) == sorted(jax_)
+  for k in want:
+    assert got[k].dims == want[k].dims
+    assert torch.equal(got[k].data, want[k].data), k
+    np.testing.assert_allclose(got[k].values, np.asarray(jax_[k].values),
+                               rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+def test_checkpoints_are_wbx_locally_and_npz_remotely(tmp_path):
+  """Bucket files are .wbx block containers on a local path and the npz
+  container's bytes on a remote one (fsspec memory://); a crashed run
+  resumes from either bit-identical to an uninterrupted one."""
+  full = _pipe().run()
+  for ckpt in (str(tmp_path / 'ck'), f'memory://{tmp_path.name}/ck'):
+    crashing = _pipe(ckpt)
+    crashing.targets_loader = _CrashAt(
+        INIT_TIMES[1], LEAD_TIMES[1], ds=_stores(darray, 1)[1],
+        rename_dimensions=None, process_chunk_fn=_mask_fn(darray))
+    with pytest.raises(RuntimeError, match='preemption'):
+      crashing.run()
+    manifest = json.loads(fileio.read_text(ckpt + '.manifest.json'))
+    for b in manifest['buckets']:
+      assert b['path'].endswith('.wbx')
+      magic = fileio.read_byte_range(b['path'], 0, 8)
+      if fileio.is_remote(ckpt):
+        assert magic[:4] == b'PK\x03\x04', magic  # a zip: the npz container
+      else:
+        assert magic == b'WBXBLK01', magic
+    _assert_states_equal(_pipe(ckpt).run(), full)
 
 
 def test_cli_cuda_device_raises_without_a_gpu(tmp_path, monkeypatch):

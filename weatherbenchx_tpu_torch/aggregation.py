@@ -214,7 +214,7 @@ class AggregationState:
     return cls(sum_ws, sum_w)
 
   def save(self, path: str) -> None:
-    """Writes the state with ``io.save_dataset`` (the ``.npz`` container)."""
+    """Writes the state with ``io.save_dataset`` (the container by suffix)."""
     io_lib.save_dataset(path, self.to_dataset())
 
   @classmethod

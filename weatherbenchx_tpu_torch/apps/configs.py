@@ -6,11 +6,9 @@ keyed ``{model}_{resolution}_{year}`` with the public WeatherBench-2 GCS
 dataset paths, per-entry default variable lists and per-model loader
 quirks, plus the ECMWF-style evaluation regions.
 
-The port reads only local ``.npz`` stores so far: a registry's ``gs://``
-path reaches ``fileio``, which raises for remote paths (ROADMAP A8). The
-registry structure, not the store format, is the contract the CLI
-consumes, so local stores plug in through ``--prediction_path`` and its
-siblings.
+A registry entry's ``gs://`` zarr store opens lazily through fsspec
+(gcsfs and a network are the caller's); local stores of any container
+plug in through ``--prediction_path`` and its siblings.
 """
 
 from typing import Any, Mapping

@@ -2,7 +2,8 @@
 
 The port of ``weatherbenchx_tpu/apps/run_benchmark_evaluation.py``: the
 same flags, registry lookup and metric sets, plus ``--device`` (default
-``cuda``; without a GPU that raises, it never falls back to the CPU).
+``cuda``; without a GPU, or on a GPU without the native I/O libraries,
+that raises: ``run_evaluation.resolve_device``).
 
 * Deterministic forecasts: RMSE, MSE, bias, ACC and prediction activity
   against the latitude-sorted climatology, wind-vector RMSE for each u/v
@@ -15,11 +16,13 @@ same flags, registry lookup and metric sets, plus ``--device`` (default
   a ``land_sea_mask``), area weights, masked aggregation; ``--temporal``
   keeps init_time.
 
-Not ported yet, and raising: ``--output_format`` other than npz and every
-store other than a local ``.npz`` (ROADMAP A8), ``--unaggregated_zarr``
-(ROADMAP A11) and ``--chunks_per_dispatch`` > 1 (ROADMAP A7). The JAX
-CLI's ``--compilation_cache_dir`` has no counterpart: nothing is compiled
-per chunk shape.
+Stores open lazily through ``io.open_dataset_auto``: ``.npz``, ``.wbx``,
+zarr v2 and v3 (local, or an fsspec URL such as the registry's ``gs://``
+paths) and netCDF; ``--output_format`` writes npz, zarr, wbx or nc. Not
+ported yet, and raising: ``--unaggregated_zarr`` (ROADMAP A11) and
+``--chunks_per_dispatch`` > 1 (ROADMAP A7). The JAX CLI's
+``--compilation_cache_dir`` has no counterpart: nothing is compiled per
+chunk shape.
 
 The construction is split into functions (``build_loaders``,
 ``load_climatology``, ``build_metrics``, ``build_aggregator``) that
@@ -39,7 +42,6 @@ import os
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
-import torch
 
 from weatherbenchx_tpu_torch import aggregation, binning, weighting
 from weatherbenchx_tpu_torch import io as io_lib
@@ -87,9 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--output_dir', required=True)
   p.add_argument('--output_format', default='npz',
                  choices=['npz', 'zarr', 'wbx', 'nc'],
-                 help='Metrics container; only npz is ported so far')
+                 help='Metrics container')
   p.add_argument('--prediction_path', default=None,
-                 help='Override the registry path (e.g. a local .npz)')
+                 help='Override the registry path (a local or fsspec '
+                      '.npz, .wbx, .zarr or netCDF store)')
   p.add_argument('--target_path', default=None)
   p.add_argument('--climatology_path', default=None)
   p.add_argument('--checkpoint_every', type=int, default=0)
@@ -119,8 +122,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args) -> None:
   unported = []
-  if args.output_format != 'npz':
-    unported.append(f'--output_format={args.output_format} (ROADMAP A8)')
   if args.unaggregated_zarr:
     unported.append('--unaggregated_zarr (ROADMAP A11)')
   if args.chunks_per_dispatch > 1:
@@ -322,11 +323,7 @@ def build_aggregator(land_sea_mask: Optional[DimArray], temporal: bool,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
   args = build_parser().parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError(
-        f'--device={args.device}: no CUDA device is available (pass '
-        '--device=cpu to evaluate on the CPU)')
+  device = run_evaluation.resolve_device(args.device)
   _check_ported(args)
 
   pred_cfg, tgt_cfg, clim_cfg, is_probabilistic = resolve_configs(args)

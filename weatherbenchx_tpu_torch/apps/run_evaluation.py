@@ -2,10 +2,16 @@
 
 The port of ``weatherbenchx_tpu/apps/run_evaluation.py``: the same flags
 and metric/aggregation setup, plus ``--device`` (default ``cuda``; without
-a GPU that raises, it never falls back to the CPU). The JAX CLI's
+a GPU that raises, it never falls back to the CPU, and on a GPU the native
+I/O libraries must build: the pure-Python codecs serve only CPU runs, as
+``resolve_device`` says). The JAX CLI's
 ``--compilation_cache_dir`` and ``--chunks_per_dispatch`` have no
 counterpart here: nothing is compiled per chunk shape, and each chunk is
 one eager evaluation.
+
+Stores open lazily by ``io.open_dataset_auto`` (``.npz``, ``.wbx``, zarr v2
+and v3 local or through fsspec, netCDF), and the outputs take the container
+their suffix names.
 
 Example:
   python -m weatherbenchx_tpu_torch.apps.run_evaluation \
@@ -20,7 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from weatherbenchx_tpu_torch import aggregation, binning, weighting
+from weatherbenchx_tpu_torch import aggregation, binning, native, weighting
 from weatherbenchx_tpu_torch import time_chunks as time_chunks_lib
 from weatherbenchx_tpu_torch.data import loaders
 from weatherbenchx_tpu_torch.metrics import deterministic
@@ -40,9 +46,10 @@ DEFAULT_VARIABLES = [
 def build_parser() -> argparse.ArgumentParser:
   p = argparse.ArgumentParser(description=__doc__)
   p.add_argument('--prediction_path', required=True,
-                 help='Forecasts to evaluate (.npz container)')
+                 help='Forecasts to evaluate: a .npz, .wbx, .zarr (v2 or '
+                      'v3, local or an fsspec URL) or netCDF store')
   p.add_argument('--target_path', required=True,
-                 help='Ground truth (.npz container)')
+                 help='Ground truth, a store of the same kinds')
   p.add_argument('--time_start', default='2020-01-01',
                  help='ISO 8601 start of evaluation inits (inclusive)')
   p.add_argument('--time_stop', default='2020-12-31',
@@ -64,9 +71,11 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--reduce_dims', default='init_time,latitude,longitude',
                  help='Comma-delimited dims to reduce over')
   p.add_argument('--output_path', required=True,
-                 help='File for metric results (.npz)')
+                 help='File for metric results; the container by suffix '
+                      '(.npz, .wbx, .zarr, .nc)')
   p.add_argument('--aggregation_state_output_path', default=None,
-                 help='Optional file for the final AggregationState (.npz)')
+                 help='Optional file for the final AggregationState, the '
+                      'container by suffix')
   p.add_argument('--checkpoint_path', default=None,
                  help='Optional running-state checkpoint path (resume)')
   p.add_argument('--checkpoint_every', type=int, default=0)
@@ -85,6 +94,29 @@ def build_parser() -> argparse.ArgumentParser:
   return p
 
 
+def resolve_device(name: str) -> torch.device:
+  """The evaluation device named by ``--device``. A GPU must exist, and on
+  it the native blockstore and zarr codec must build: the pure-Python
+  codecs are the fallback of a machine without a toolchain evaluating on
+  the CPU, never a quiet slower path beside a GPU."""
+  device = torch.device(name)
+  if device.type != 'cuda':
+    return device
+  if not torch.cuda.is_available():
+    raise RuntimeError(
+        f'--device={name}: no CUDA device is available (pass '
+        '--device=cpu to evaluate on the CPU)')
+  missing = [lib for lib, ok in (
+      ('blockstore', native.blockstore_available()),
+      ('zarrcodec', native.zarrcodec_available())) if not ok]
+  if missing:
+    raise RuntimeError(
+        f'--device={name}: the native I/O libraries {missing} did not build '
+        '(they need g++, zlib, libzstd.so.1 and liblz4.so.1; the log above '
+        'says why)')
+  return device
+
+
 def retry_policy_from_args(args) -> Optional[pipeline_lib.RetryPolicy]:
   if not args.load_retries and not args.skip_failed_chunks:
     return None
@@ -95,11 +127,7 @@ def retry_policy_from_args(args) -> Optional[pipeline_lib.RetryPolicy]:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
   args = build_parser().parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda' and not torch.cuda.is_available():
-    raise RuntimeError(
-        f'--device={args.device}: no CUDA device is available (pass '
-        '--device=cpu to evaluate on the CPU)')
+  device = resolve_device(args.device)
 
   init_times = np.arange(
       args.time_start, args.time_stop,

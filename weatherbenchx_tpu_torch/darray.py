@@ -1,7 +1,12 @@
 """DimArray: a named-axis array over ``torch.Tensor`` data.
 
-The PyTorch counterpart of ``weatherbenchx_tpu.darray``. Data is always a
-``torch.Tensor`` (numpy input becomes a CPU tensor); coordinates are either
+The PyTorch counterpart of ``weatherbenchx_tpu.darray``. Data is a
+``torch.Tensor`` (numpy input becomes a CPU tensor) or, for a store opened
+lazily, a ``lazy.LazyArray`` view on the host, as in the JAX package:
+``isel``, ``sel`` and ``take`` compose on the view and read no more than
+they select (``take`` reads the gathered rows), ``shape``, ``ndim`` and
+``dtype`` come from the view, and everything else materialises it, once,
+into a CPU tensor through ``data``. Coordinates are either
 host numpy arrays (latitudes, datetimes, labels) or tensors (validity
 masks that live beside the data on the device). Binary operations align
 their operands by dimension NAME, xarray style, and put every operand on
@@ -24,6 +29,8 @@ from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+
+from weatherbenchx_tpu_torch import lazy
 
 # ---------------------------------------------------------------------------
 # Helpers
@@ -50,8 +57,13 @@ def as_tensor(value: Any, device: torch.device | str | None = None
   arr = np.asarray(value)
   if arr.dtype.kind in 'OUSMm':
     raise TypeError(f'DimArray data cannot hold dtype {arr.dtype}')
-  if not arr.flags.c_contiguous:  # e.g. reversed views; torch takes no
-    arr = arr.copy()                # negative strides
+  if not arr.dtype.isnative:  # e.g. a big-endian zarr v3 store
+    arr = arr.astype(arr.dtype.newbyteorder('='))
+  if not (arr.flags.c_contiguous and arr.flags.writeable):
+    # Reversed views (torch takes no negative strides) and read-only
+    # buffers (e.g. bytes a reader decoded in place), which a tensor
+    # must not share.
+    arr = arr.copy()
   return torch.as_tensor(arr, device=device)
 
 
@@ -148,9 +160,10 @@ def _merge_coords(
 
 
 class DimArray:
-  """Named-axis array over tensor data with host or device coords."""
+  """Named-axis array over tensor (or lazy host) data with host or device
+  coords."""
 
-  __slots__ = ('data', 'dims', 'coords')
+  __slots__ = ('_data', 'dims', 'coords')
 
   def __init__(
       self,
@@ -161,11 +174,12 @@ class DimArray:
     if isinstance(dims, str):
       dims = (dims,)
     dims = tuple(dims)
-    data = as_tensor(data)
-    if data.dim() != len(dims):
+    if not lazy.is_lazy(data):
+      data = as_tensor(data)
+    if len(data.shape) != len(dims):
       raise ValueError(
-          f'data has {data.dim()} axes but dims={dims} has {len(dims)}')
-    self.data = data
+          f'data has {len(data.shape)} axes but dims={dims} has {len(dims)}')
+    self._data = data
     self.dims = dims
     cdict: dict[str, Coord] = {}
     for name, c in (coords or {}).items():
@@ -183,8 +197,20 @@ class DimArray:
   # -- basic properties -----------------------------------------------------
 
   @property
+  def data(self) -> torch.Tensor:
+    """The data as a tensor; a lazy view is read here, once, into a CPU
+    tensor that the array keeps."""
+    if lazy.is_lazy(self._data):
+      self._data = as_tensor(self._data.read())
+    return self._data
+
+  @property
+  def is_lazy(self) -> bool:
+    return lazy.is_lazy(self._data)
+
+  @property
   def shape(self) -> tuple[int, ...]:
-    return tuple(self.data.shape)
+    return tuple(self._data.shape)
 
   @property
   def ndim(self) -> int:
@@ -192,11 +218,12 @@ class DimArray:
 
   @property
   def dtype(self) -> torch.dtype:
-    return self.data.dtype
+    return (torch_dtype(self._data.dtype) if self.is_lazy
+            else self._data.dtype)
 
   @property
   def device(self) -> torch.device:
-    return self.data.device
+    return torch.device('cpu') if self.is_lazy else self._data.device
 
   @property
   def sizes(self) -> dict[str, int]:
@@ -216,7 +243,7 @@ class DimArray:
   def __repr__(self):
     lines = [f'DimArray {self.sizes} {self.dtype} on {self.device}']
     lines += [f'  {k}: {v}' for k, v in self.coords.items()]
-    lines.append(repr(self.data))
+    lines.append(repr(self._data))
     return '\n'.join(lines)
 
   def coord_values(self, name: str) -> np.ndarray:
@@ -231,7 +258,7 @@ class DimArray:
   # -- construction helpers ---------------------------------------------------
 
   def copy(self, data=None, coords=None) -> DimArray:
-    return DimArray(self.data if data is None else data, self.dims,
+    return DimArray(self._data if data is None else data, self.dims,
                     self.coords if coords is None else coords)
 
   def assign_coords(self, **coords) -> DimArray:
@@ -241,12 +268,12 @@ class DimArray:
         new.pop(name, None)
       else:
         new[name] = _as_coord(name, c, self.dims)
-    return DimArray(self.data, self.dims, new)
+    return DimArray(self._data, self.dims, new)
 
   def drop_coords(self, names) -> DimArray:
     if isinstance(names, str):
       names = [names]
-    return DimArray(self.data, self.dims,
+    return DimArray(self._data, self.dims,
                     {k: v for k, v in self.coords.items() if k not in names})
 
   def rename(self, mapping: Mapping[str, str] | None = None, **kw
@@ -257,7 +284,7 @@ class DimArray:
         mapping.get(name, name): Coord(
             tuple(mapping.get(d, d) for d in c.dims), c.values)
         for name, c in self.coords.items()}
-    return DimArray(self.data, dims, coords)
+    return DimArray(self._data, dims, coords)
 
   # -- dtype / NaN ------------------------------------------------------------
 
@@ -448,11 +475,17 @@ class DimArray:
     scalar = isinstance(idx, (int, np.integer))
     if scalar:
       idx = int(idx)
+    elif isinstance(idx, slice) and (idx.step or 1) < 0:
+      # torch slices step forward only
+      idx = np.ascontiguousarray(np.arange(self.shape[ax])[idx])
     elif not isinstance(idx, slice):
       idx = np.ascontiguousarray(idx)  # torch takes no negative strides
-    t_idx = (torch.as_tensor(idx, device=self.data.device)
-             if isinstance(idx, np.ndarray) else idx)
-    new_data = self.data[(slice(None),) * ax + (t_idx,)]
+    if self.is_lazy:  # composes on the view; reads nothing
+      new_data = self._data[(slice(None),) * ax + (idx,)]
+    else:
+      t_idx = (torch.as_tensor(idx, device=self._data.device)
+               if isinstance(idx, np.ndarray) else idx)
+      new_data = self._data[(slice(None),) * ax + (t_idx,)]
     new_dims = self.dims[:ax] + self.dims[ax + 1:] if scalar else self.dims
     new_coords = {}
     for name, c in self.coords.items():
@@ -506,7 +539,10 @@ class DimArray:
     flat = idx.reshape(-1).astype(np.int64)
 
     def gather(values, axis):
-      if isinstance(values, torch.Tensor):
+      if lazy.is_lazy(values):
+        # The windowed read: only the gathered rows come off disk.
+        out = as_tensor(values[(slice(None),) * axis + (flat,)].read())
+      elif isinstance(values, torch.Tensor):
         out = values.index_select(axis, torch.as_tensor(flat,
                                                         device=values.device))
       else:
@@ -522,7 +558,7 @@ class DimArray:
       cax = c.dims.index(dim)
       coords[name] = Coord(c.dims[:cax] + new_dims + c.dims[cax + 1:],
                            gather(c.values, cax))
-    return DimArray(gather(self.data, ax),
+    return DimArray(gather(self._data, ax),
                     self.dims[:ax] + new_dims + self.dims[ax + 1:], coords)
 
   def sortby(self, name: str, ascending: bool = True) -> DimArray:

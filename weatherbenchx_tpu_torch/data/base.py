@@ -5,7 +5,8 @@ chunks as ``dict[var, DimArray]`` with canonical dims
 (init_time/lead_time/valid_time/latitude/longitude[/number]) on the HOST:
 CPU tensors and numpy coords. The pipeline moves them to its device. The
 load pipeline per chunk: source load → process_chunk_fn → compute →
-optional NaN mask coord.
+optional NaN mask coord. For a store opened lazily the compute step is the
+per-chunk windowed read: only the chunk's selection comes off disk.
 
 Interpolation against a reference chunk, padding of the sparse ``index``
 dim and values-as-coords belong to the sparse path, which is not ported
@@ -86,7 +87,9 @@ class DataLoader(abc.ABC):
     if self._process_chunk_fn is not None:
       chunk = self._process_chunk_fn(chunk)
     if self._compute:
-      # Contiguous data, so the device copy is one block per variable.
+      # Lazy views are read here, the chunk's window alone (the reference's
+      # per-chunk .compute(), data_loaders/base.py:146-153), into CPU
+      # tensors; contiguous, so the device copy is one block per variable.
       chunk = {k: da.copy(data=da.data.contiguous())
                for k, da in chunk.items()}
     if self._add_nan_mask:

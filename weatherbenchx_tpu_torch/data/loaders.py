@@ -1,15 +1,20 @@
 """Gridded dataset loaders.
 
 The port of ``weatherbenchx_tpu/data/loaders.py``, over two sources: an
-in-memory ``dict[var, DimArray]`` dataset (``ds=``) or a path opened by
-``io.open_dataset_auto`` (the ``.npz`` container, read whole). Chunks
-come out on the host: CPU tensors and numpy coords.
+in-memory ``dict[var, DimArray]`` dataset (``ds=``) or a path opened
+lazily by ``io.open_dataset_auto`` (``.npz``, ``.wbx``, zarr v2/v3 local or
+through fsspec; netCDF is read whole). The one-time preparation
+(preprocessing, renames, ``sel``/``isel``) composes on the lazy views and
+reads only coordinates; each chunk's selection is read in the compute
+step of ``data/base.py``. Chunks come out on the host: CPU tensors and
+numpy coords.
 
 Canonical dim names follow the ECMWF convention after renaming:
 ``init_time``/``lead_time`` for forecasts, ``valid_time`` for analyses,
 ``latitude``/``longitude`` for space, ``number`` for ensemble members.
 
-The JAX package's lazy and xarray-backed stores are not ported yet.
+The JAX package's xarray-backed stores wait for xarray on the port's
+machines.
 """
 
 import threading
@@ -57,7 +62,7 @@ def rename_dataset(
 
 
 class DatasetBackedLoader(base.DataLoader):
-  """Shared source handling: an in-memory dataset or an ``.npz`` path."""
+  """Shared source handling: an in-memory dataset or a store path."""
 
   def __init__(
       self,

@@ -46,6 +46,13 @@ _MIN_BLOCK_POINTS = 32
 REGISTER_MAX_MEMBERS = 64
 REGISTER_MEMBERS = range(2, REGISTER_MAX_MEMBERS + 1)
 
+# The member count from which the JAX package's spread kernel takes its sort
+# body, below it its pair body (weatherbenchx_tpu/ops/crps_pairwise.py:90).
+# The two differ on infinite members, and every form here gives what the
+# JAX kernel gives at M: a semantic constant, not a speed knob (the kernels'
+# kJaxSortMembers, csrc/common.cuh).
+JAX_SORT_MEMBERS = 20
+
 LAUNCHES = {'fused_ensemble_stats': 0, 'pairwise_spread_sum': 0,
             'pairwise_cross_sum': 0}
 
@@ -108,13 +115,27 @@ def pairwise_spread_sum_plain(x: torch.Tensor) -> torch.Tensor:
   by their median: the weighted terms then stay of the spread's size, not
   of |mean|'s. torch.sort puts NaN last, where the weight M − 1 > 0 keeps
   it in the sum.
+
+  Infinite members give the JAX kernel's inf or NaN at every M: the shift
+  is 0 where the median is infinite, and the median's zero weight at odd M
+  is left out (its sort body, from ``JAX_SORT_MEMBERS`` members); below
+  that, two members at one infinity give NaN (its pair body's
+  |inf − inf|).
   """
   m = x.shape[0]
   s = torch.sort(x.to(_compute_dtype(x.dtype)), dim=0).values
-  s = s - s[m // 2]
+  median = s[m // 2]
+  s = s - torch.where(torch.isfinite(median), median, 0)
   coeff = (2 * torch.arange(1, m + 1, device=x.device, dtype=s.dtype)
            - m - 1).reshape((m,) + (1,) * (x.dim() - 1))
-  return (2 * (coeff * s).sum(0)).to(x.dtype)
+  terms = coeff * s
+  if m % 2:
+    terms[m // 2] = 0
+  out = 2 * terms.sum(0)
+  if 2 <= m < JAX_SORT_MEMBERS:
+    out = torch.where((s[1] == -torch.inf) | (s[m - 2] == torch.inf),
+                      torch.nan, out)
+  return out.to(x.dtype)
 
 
 def fused_ensemble_stats_plain(x: torch.Tensor, y: torch.Tensor) -> tuple:

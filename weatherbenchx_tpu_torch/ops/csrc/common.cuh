@@ -18,4 +18,27 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+__device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ float infinity() { return __int_as_float(0x7f800000); }
+
+// The member count from which the JAX package's spread kernel takes its sort
+// body (weatherbenchx_tpu/ops/crps_pairwise.py:_spread_form); below it, its
+// pair body. The two differ on infinite members, and the kernels follow
+// whichever the JAX kernel runs at M: a semantic constant, not a speed knob
+// (ops/crps_pairwise.py:JAX_SORT_MEMBERS).
+constexpr int kJaxSortMembers = 20;
+
+// The spread sum of m members of which n_pos are +inf, n_neg are -inf and
+// none is NaN, as the JAX package's kernels give it: inf or NaN. The sort
+// body weights rank k (1-based) by 2k - m - 1 and leaves the zero weight
+// out; -inf fills ranks 1..n_neg and +inf ranks m - n_pos + 1..m, so terms
+// of both signs (NaN) appear once 2 n_neg > m + 1 or 2 n_pos > m + 1. The
+// pair body (m < kJaxSortMembers) takes |inf - inf| = NaN for two members
+// at one infinity.
+__device__ __forceinline__ float infinite_spread(int m, int n_pos, int n_neg) {
+  bool nan = 2 * n_pos > m + 1 || 2 * n_neg > m + 1;
+  if (m < kJaxSortMembers) nan = nan || n_pos > 1 || n_neg > 1;
+  return nan ? quiet_nan() : infinity();
+}
+
 }  // namespace wbx

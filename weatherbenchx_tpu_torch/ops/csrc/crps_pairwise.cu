@@ -26,8 +26,10 @@
 //     kRowGroup.
 // The pair form needs no sort, and it propagates NaN by plain arithmetic:
 // a NaN member poisons only its own gridpoint (no fminf/fmaxf, which drop
-// NaN). Accumulation is float32; bfloat16 input is widened on load and the
-// outputs are stored in the input dtype.
+// NaN). Infinite members are counted on load, and the counts, not the pair
+// loop's |inf - inf|, give the JAX kernels' inf or NaN (infinite_spread in
+// common.cuh). Accumulation is float32; bfloat16 input is widened on load
+// and the outputs are stored in the input dtype.
 //
 // Also replaces _cross_kernel (via _pairwise_cross_sum_impl ->
 // pl.pallas_call): out = sum_{i,j} |x_i - y_j| for two ensembles x (Mx, N)
@@ -69,10 +71,16 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
   float* col = tile + threadIdx.x;
 
   float sum = 0.f;
+  bool nan = false;
+  int n_pos = 0;
+  int n_neg = 0;
   for (int i = 0; i < m; ++i) {
     const float v = load(x + static_cast<int64_t>(i) * n + g);
     col[i * stride] = v;
     sum += v;
+    nan = nan || v != v;
+    n_pos += v == wbx::infinity();
+    n_neg += v == -wbx::infinity();
   }
 
   // sum_{i<j} |x_i - x_j|, kRowGroup members at a time held in registers.
@@ -100,7 +108,11 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
   float half_spread = 0.f;
 #pragma unroll
   for (int r = 0; r < kRowGroup; ++r) half_spread += acc[r];
-  store(spread_out + g, 2.f * half_spread);
+  // Infinite members: |inf - inf| must not decide the result; the counts
+  // give the JAX kernels' inf or NaN. A NaN member keeps the loop's NaN.
+  store(spread_out + g,
+        !nan && n_pos + n_neg > 0 ? wbx::infinite_spread(m, n_pos, n_neg)
+                                  : 2.f * half_spread);
 
   if constexpr (kFused) {
     const float yv = load(y + g);

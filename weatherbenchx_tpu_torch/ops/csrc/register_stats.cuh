@@ -33,10 +33,12 @@
 //     from the loaded values before the network permutes them, and sq_dev
 //     (mean first) gets a NaN through the mean. A NaN member poisons only
 //     its own gridpoint, at every member position;
-//   * +-inf: the network sorts them exactly, and the shift by the median
-//     and the weighted sum in k order are those of the plain version
-//     (pairwise_spread_sum_plain), so the two agree on which points are
-//     inf or NaN.
+//   * +-inf: the network sorts them exactly; the shift is the median only
+//     where it is finite (else 0) and the median's zero weight at odd M is
+//     left out, as in the plain version (pairwise_spread_sum_plain), so
+//     that from kJaxSortMembers on the inf and NaN points are those of the
+//     JAX sort body; below it the kernel also gives NaN for two members at
+//     one infinity, as the JAX pair body's |inf - inf| does.
 // Accumulation is float32; bfloat16 input is widened on load and the
 // outputs are stored in the input dtype.
 
@@ -107,13 +109,19 @@ __global__ void __launch_bounds__(kRegisterThreads)
   for (int i = 0; i < M; ++i) nan |= (v[i] != v[i]);
   sort_network<M>(v);
   // 2 sum_k (2k - M - 1) (x_(k) - c), k = 1..M, shifted by the median
-  // c = x_(M/2 + 1): every term is >= 0, so nothing cancels.
-  const float c = v[M / 2];
+  // c = x_(M/2 + 1): every term is >= 0, so nothing cancels. An infinite
+  // median shifts by 0 instead (inf - inf would be NaN).
+  const float median = v[M / 2];
+  const float c = isfinite(median) ? median : 0.f;
   float acc = 0.f;
 #pragma unroll
-  for (int k = 0; k < M; ++k)
-    acc += static_cast<float>(2 * k + 1 - M) * (v[k] - c);
-  store(spread_out + g, nan ? __int_as_float(0x7fc00000) : 2.f * acc);
+  for (int k = 0; k < M; ++k) {
+    if (2 * k + 1 != M)  // the median's weight at odd M is 0: 0 * inf is NaN
+      acc += static_cast<float>(2 * k + 1 - M) * (v[k] - c);
+  }
+  if constexpr (M < kJaxSortMembers)
+    nan = nan || v[1] == -infinity() || v[M - 2] == infinity();
+  store(spread_out + g, nan ? quiet_nan() : 2.f * acc);
 }
 
 template <typename T, bool kFused, int M>

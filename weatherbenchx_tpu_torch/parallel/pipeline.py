@@ -14,10 +14,12 @@ The port of ``weatherbenchx_tpu/parallel/pipeline.py:52-204, 262-652,
 * at the end, the buckets on the host in float64, combined by the
   zero-filled outer join of ``aggregation.combining_sum`` (preserved
   chunked dims concatenate);
-* atomic ``.npz`` writes of the metric values, the state and checkpoints.
-  Checkpoints alternate two generations of bucket files under an atomic
-  manifest, and record each leaf's live dtype, so a resumed run restores
-  the float32 sums exactly and ends bit-identical to an uninterrupted one.
+* atomic writes of the metric values and the state (the container by
+  suffix) and of checkpoints: ``.wbx`` bucket files locally, the portable
+  npz container's bytes on a remote path. Checkpoints alternate two
+  generations of bucket files under an atomic manifest, and record each
+  leaf's live dtype, so a resumed run restores the float32 sums exactly and
+  ends bit-identical to an uninterrupted one.
 
 Not ported: the device mesh and multi-process (``mesh``, ``dim_to_axis``,
 ``distributed``), ``chunks_per_dispatch`` and ``chunk_stats_sink`` are
@@ -259,7 +261,10 @@ class EvaluationPipeline:
     gen = 1 - self._ckpt_gen
     manifest = {'next_chunk': next_chunk, 'generation': gen, 'buckets': []}
     for k, (key, state) in enumerate(sorted(buckets.items())):
-      path = f'{self.checkpoint_path}.g{gen}.bucket{k}.npz'
+      # .wbx: thread-parallel raw block writes (the native blockstore);
+      # checkpoints are the pipeline's hottest host I/O. On a remote path
+      # save_dataset_atomic writes portable npz bytes through fsspec.
+      path = f'{self.checkpoint_path}.g{gen}.bucket{k}.wbx'
       fileio.save_dataset_atomic(path, state.to_host().to_dataset())
       # Live (pre-float64) dtypes, so resume restores exactly.
       dtypes = {name: str(da.dtype).removeprefix('torch.')
