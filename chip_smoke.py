@@ -20,8 +20,11 @@ script exits nonzero:
    (the network route); +-inf members at 2, 3, 10, 19, 20, 21, 49, 50, 64,
    65 and 100 members, every route, against the plain version and the JAX
    kernels' inf/NaN pattern (their sort body from 20 members, their pair
-   body below); and every register kernel built, M = 2..64, in both
-   dtypes.
+   body below); every register kernel built, M = 2..64, in both dtypes;
+   and 1,816, 1,817 and 4,000 members through the metrics (one, two and
+   three shared-memory tiles: the fused pass, the spread and the
+   two-ensemble skill against the float64 broadcast, each launch counted),
+   with +-inf and NaN members on both sides of a tile's edge.
 4. Main path at full width: ChunkEvaluator with fair CRPS, the unbiased
    spread/skill ratio and the unbiased ensemble-mean RMSE over 3 chunks of
    a 50-member 0.25-degree ensemble (50 x 1 x 4 x 721 x 1440 float32,
@@ -87,6 +90,26 @@ script exits nonzero:
    10), beside its bound and beside a device-to-device copy of the 50-member
    ensemble (the card's streaming rate); one whole eval_chunk, and the
    pipeline's seconds per chunk.
+11. The metric families at full width (1 init x 4 leads x 721 x 1440,
+   float32, from the seed), each through ChunkEvaluator.eval_chunk and
+   metric_values over the 17 regions and their land parts (34 bins), area
+   weights, masked: the fractions skill score (3 x 3 pixels, longitude
+   wrapping) of two iid Bernoulli(1/2) fields, the rank histogram of a
+   50-member iid ensemble (51 ranks), the relative economic value of an
+   8-member probability against a boolean target (8 thresholds x 8
+   cost/loss ratios); and RMSE and CSI (through ContinuousToBinary) binned
+   by land/sea x 30-degree latitude bands x the hour of the lead time at
+   once. Every value within 1e-5 (relative to |value|; the relative
+   economic value, which crosses zero, to max(|value|, 1)) of a float64
+   recomputation from the same inputs without the port's statistics,
+   weights or bins (weatherbenchx_tpu_torch/bench_families.py); FSS
+   near 0.9 and every rank near 1/51 within 6 standard errors; the same
+   chunk evaluated twice equal by torch.equal; every tensor on the card;
+   no kernel launch counted (these families are jnp in the JAX package,
+   torch ops here). Prints per family the median and IQR of 12 eval_accum
+   steps by CUDA events, the card's busy time within one step and its
+   three longest kernels by torch.profiler, the host-fed eval_chunk and
+   the peak device memory.
 
 The last three lines are a JSON object describing the three kernels, the
 card's name and power limit, and {"ok": true, "device": {...}}.
@@ -253,6 +276,7 @@ def check_kernels(seed: int) -> dict:
   check_infinities(rng)
   check_every_register_kernel(rng)
   main_path_err['cross'] = check_cross_kernel(rng)
+  check_member_tiles(rng)
   return main_path_err
 
 
@@ -438,6 +462,87 @@ def check_cross_kernel(rng) -> float:
           f'nan={nan_at is not None} offset={offset}: max rel err {rel:.3g} '
           f'(tol {KERNEL_RTOL[dname]}) ok')
   return path_err
+
+
+def pair_sum_f64(a, b):
+  """sum_{i,j} |a_i - b_j| per point by the float64 broadcast, 16 points at
+  a time: the definition, written out here."""
+  import torch
+  return torch.cat([(a[:, None, lo:lo + 16] - b[None, :, lo:lo + 16]).abs()
+                    .sum((0, 1)) for lo in range(0, a.shape[1], 16)])
+
+
+def check_member_tiles(rng) -> None:
+  """Ensembles past one shared-memory tile (1,816 members: 227 KB at the
+  smallest block) are walked tile by tile inside the kernels. Through the
+  metrics, at 1,816, 1,817 and 4,000 members (one, two, three tiles): the
+  fused pass, the spread outside a pass and the two-ensemble skill (both
+  ensembles past a tile) against the float64 broadcast, one launch counted
+  for each; then +-inf and NaN members in the first tile, the second and
+  on either side of the edge, against the plain versions."""
+  import torch
+  from weatherbenchx_tpu_torch.darray import DimArray
+  from weatherbenchx_tpu_torch.metrics import base, probabilistic
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  n = 96
+  for m, tiles in ((1816, 1), (1817, 2), (4000, 3)):
+    if cp.member_tiles(m) != tiles:
+      raise AssertionError(f'{m} members: {cp.member_tiles(m)} tiles')
+    x = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
+    y = torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
+    yt = torch.from_numpy(rng.standard_normal((m + 3, n), dtype=np.float32))
+    x[m - 5, 7] = float('nan')
+    preds = {'v': DimArray(x.to(DEVICE), ('number', 'point'))}
+    tgts = {'v': DimArray(y.to(DEVICE), ('point',))}
+    ens_tgts = {'v': DimArray(yt.to(DEVICE), ('number', 'point'))}
+    cp.reset_launch_counts()
+    with base.computation_cache():
+      got = {
+          'fused skill': probabilistic.CRPSSkill().compute(preds, tgts)['v'],
+          'fused spread': probabilistic.CRPSSpread().compute(preds, tgts)['v'],
+          'fused variance': probabilistic.EnsembleVariance().compute(
+              preds, tgts)['v'],
+      }
+    got['spread'] = probabilistic.CRPSSpread().compute(preds, tgts)['v']
+    got['cross'] = probabilistic.CRPSSkill().compute(preds, ens_tgts)['v']
+    torch.cuda.synchronize()
+    if cp.LAUNCHES != {'fused_ensemble_stats': 1, 'pairwise_spread_sum': 1,
+                       'pairwise_cross_sum': 1}:
+      raise AssertionError(f'M={m}: launches {cp.LAUNCHES}, want one each')
+    xd, yd, ytd = (t.to(DEVICE, torch.float64) for t in (x, y, yt))
+    spread = pair_sum_f64(xd, xd) / (m * (m - 1))
+    want = {'fused skill': (xd - yd).abs().mean(0), 'fused spread': spread,
+            'fused variance': xd.var(0, correction=1), 'spread': spread,
+            'cross': pair_sum_f64(xd, ytd) / (m * (m + 3))}
+    worst = 0.0
+    for name, da in got.items():
+      if da.device.type != DEVICE or da.dtype != torch.float32:
+        raise AssertionError(f'M={m} {name}: {da.device} {da.dtype}')
+      same_nan, rel, _ = rel_err(da.data, want[name])
+      if not same_nan or not bool(torch.isnan(da.data[7])):
+        raise AssertionError(f'M={m} {name}: NaN pattern differs')
+      if rel > KERNEL_RTOL['float32']:
+        raise AssertionError(f'M={m} {name}: rel err vs float64 {rel:.3g} > '
+                             f'{KERNEL_RTOL["float32"]}')
+      worst = max(worst, rel)
+    log(f'member tiles check M={m} ({tiles} tile(s), cross against '
+        f'{m + 3}): fused pass, spread and cross launched once each, max '
+        f'rel err vs the float64 broadcast {worst:.3g} (tol '
+        f'{KERNEL_RTOL["float32"]}) ok')
+  m = 1817 + 370
+  x = rng.standard_normal((m, n), dtype=np.float32)
+  x[3, 0] = x[2000, 1] = np.inf
+  x[1815, 2] = x[1816, 2] = -np.inf
+  x[5, 3], x[2100, 3] = np.inf, -np.inf
+  x[m - 1, 4] = np.nan
+  y = rng.standard_normal(n, dtype=np.float32)
+  for dtype in (torch.float32, torch.bfloat16):
+    dname = str(dtype).split('.')[-1]
+    stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
+                        torch.from_numpy(y).to(DEVICE, dtype),
+                        f'member tiles M={m}', dname)
+    log(f'member tiles check M={m} {dname}: +-inf and NaN members across '
+        'two tiles give the plain version\'s points ok')
 
 
 def build_report(build_log: str) -> None:
@@ -1865,6 +1970,144 @@ def kernels_line(main_launches, ens_launches, main_err, res, n) -> dict:
   }]}
 
 
+# Phase 11, the metric families: the three families of the JAX package's
+# benchmark that have no kernel of their own (FSS, rank histogram, relative
+# economic value), as it defines them, on the production aggregator (the 17
+# regions and their land parts, area weights, masked), and a drive of three
+# binnings at once (weatherbenchx_tpu_torch/bench_families.py holds the
+# cases and their float64 references). One init x 4 leads x 721 x 1440,
+# float32, from the seed.
+FAMILY_GRID = (1, 4, 721, 1440)
+# Against float64: relative to |value|, the relative economic value (which
+# crosses zero) to max(|value|, 1).
+FAMILY_F64_RTOL = 1e-5
+FAMILY_SIGMAS = 6.0  # closed forms: standard errors at a bin's Kish size
+# The 51 ranks' means against 1: each is its own float32 contraction over a
+# region's points, so they sum to 1 within float32 roundoff only (the
+# float64 reference within 1e-12).
+RANK_SUM_TOL = 1e-6
+
+
+def device_time(fn) -> tuple:
+  """(ms the card was busy, [(kernel, ms), ...] the three longest) during
+  one call of fn, by torch.profiler's kernel records; (None, []) where it
+  records no device time."""
+  import torch
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    fn()
+    torch.cuda.synchronize()
+  # Kernel records only: an operator's record repeats its kernels' time.
+  rows = [(e.key, e.self_device_time_total / 1e3) for e in p.key_averages()
+          if e.device_type == DeviceType.CUDA]
+  rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+  if not rows:
+    return None, []
+  return sum(ms for _, ms in rows), rows[:3]
+
+
+def family_phase(seed: int, card: str) -> dict:
+  """Phase 11: each family through ChunkEvaluator.eval_chunk and
+  metric_values on the card; values against float64, the same chunk twice
+  to the same bits, no kernel launch counted, tensors on the card; step
+  times by CUDA events, the host-fed eval_chunk and peak memory."""
+  import torch
+  from weatherbenchx_tpu_torch import aggregation, bench_families
+  from weatherbenchx_tpu_torch.aggregation import AggregationState
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  grid = FAMILY_GRID
+  weights = bench_families.family_weights(grid, DEVICE)
+  cp.reset_launch_counts()
+  report = {}
+  for name in bench_families.FAMILIES:
+    t0 = time.perf_counter()
+    metrics, aggregator, preds, tgts = bench_families.family_case(
+        name, seed, grid)
+    made = time.perf_counter() - t0
+    ev = evaluator.ChunkEvaluator(metrics, aggregator, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ev.eval_chunk(preds, tgts)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    again = ev.eval_chunk(preds, tgts)
+    arrays = state.to_dataset()
+    for key, da in arrays.items():
+      if da.device.type != DEVICE:
+        raise AssertionError(f'families {name}: {key} on {da.device}')
+      if not torch.equal(da.data, again.to_dataset()[key].data):
+        raise AssertionError(f'families {name}: {key} differs between two '
+                             'evaluations of one chunk')
+    values = state.metric_values(metrics)
+    if any(da.device.type != DEVICE for da in values.values()):
+      raise AssertionError(f'families {name}: values not on {DEVICE}')
+    ref = bench_families.family_reference(name, preds, tgts, weights)
+    checked = bench_families.check_family_values(
+        name, values, ref, weights, rtol=FAMILY_F64_RTOL,
+        sigmas=FAMILY_SIGMAS, rank_sum_tol=RANK_SUM_TOL)
+    for metric, (err, note) in checked.items():
+      measure = ('max(|value|, 1)' if metric in bench_families.RELATIVE_FLOOR
+                 else '|value|')
+      log(f'families {metric}: {note}, max rel err vs float64 {err:.3g} '
+          f'(tol {FAMILY_F64_RTOL}, relative to {measure}) ok')
+    rel = {metric: err for metric, (err, _) in checked.items()}
+    pair = ev.prepare_pair(preds, tgts)
+    steps = time_cuda({
+        'eval_accum': lambda: ev.eval_accum(pair, AggregationState.zero()),
+    }, rounds=12)
+    fed = time_cuda({'eval_chunk': lambda: ev.eval_chunk(preds, tgts)},
+                    rounds=3)
+    med, q1, q3, count = steps['eval_accum']
+    busy, longest = device_time(
+        lambda: ev.eval_accum(pair, AggregationState.zero()))
+    busy_note = 'device time not measured' if busy is None else (
+        f'card busy {busy:.4f} ms of a step ({busy / med:.1%} of the '
+        'median), longest kernels ' + ', '.join(
+            f'{k[:60]} {ms:.3f} ms' for k, ms in longest))
+    # The operands' cache key: the coords the binnings read enter it by
+    # content, hashed once per coord object (cold), then found (warm).
+    stat = pair[0][bench_families.VARIABLE]
+    aggregation._CONTENT_FINGERPRINTS.clear()
+    t0 = time.perf_counter()
+    aggregator.layout_key(stat)
+    key_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(100):
+      aggregator.layout_key(stat)
+    key_warm = (time.perf_counter() - t0) / 100
+    n_stats = sum(len(v) for v in state.sum_weights.values())
+    log(f'families {name}: {n_stats} statistic arrays, inputs made in '
+        f'{made:.2f} s; '
+        f'eval_accum (chunk on the card) median {med:.4f} ms, IQR '
+        f'[{q1:.4f}, {q3:.4f}] ms over {count} runs; {busy_note}; '
+        f'eval_chunk (host chunk '
+        f'in) median {fed["eval_chunk"][0]:.4f} ms over '
+        f'{fed["eval_chunk"][3]} runs, first call {first * 1e3:.1f} ms; '
+        f'peak device memory {peak / 2**30:.3f} GiB; layout key (host) '
+        f'{key_cold * 1e6:.0f} us cold, {key_warm * 1e6:.0f} us warm, reading '
+        f'{sorted({c for b in aggregator.bin_by for c in b.host_coords})}; '
+        f'two evaluations equal '
+        f'by torch.equal; grid {tuple(grid)}, float32; card {card}')
+    report[name] = {'eval_accum_ms': med, 'eval_accum_iqr_ms': [q1, q3],
+                    'device_busy_ms': busy,
+                    'eval_chunk_ms': fed['eval_chunk'][0],
+                    'first_eval_chunk_ms': first * 1e3,
+                    'peak_gib': peak / 2**30,
+                    'layout_key_us': [key_cold * 1e6, key_warm * 1e6],
+                    'max_rel_err': rel}
+    del ev, pair, stat, preds, tgts, state, again, values, ref
+    torch.cuda.empty_cache()
+  if any(cp.LAUNCHES.values()):
+    raise AssertionError('the metric families have no kernel of their own, '
+                         f'yet launches were counted: {cp.LAUNCHES}')
+  return report
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -1908,8 +2151,12 @@ def main() -> int:
   log('phase 9 disk benchmark path: ok')
   res = timing(ev, chunks, stores, card)
   log('phase 10 timing: done')
+  del ev, chunks, stores
+  families = family_phase(args.seed, card)
+  log('phase 11 metric families: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
+  log(f'metric families: {json.dumps(families)}; card {card}')
 
   n = math.prod(GRID)
   print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,

@@ -40,7 +40,10 @@ def _rel(got, want):
                                     (50, (1, 129)), (400, (40,)),
                                     (10, (3, 70)), (16, (3, 70)),
                                     (63, (2, 99)), (64, (2, 99)),
-                                    (65, (2, 99))])
+                                    (65, (2, 99)),
+                                    # four accumulators to 256 members,
+                                    # the two-level sum past them
+                                    (256, (2, 40)), (257, (2, 40))])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_kernels_match_plain(cuda, m, rest, dtype, tol):
@@ -177,8 +180,9 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
                                                   device=cuda))
   with pytest.raises(ValueError, match='at least 2'):
     crps_pairwise.pairwise_spread_sum(torch.zeros(1, 4, device=cuda))
-  with pytest.raises(ValueError, match='shared memory'):
-    crps_pairwise.pairwise_spread_sum(torch.zeros(2000, 4, device=cuda))
+  with pytest.raises(ValueError, match='at most'):
+    crps_pairwise.pairwise_spread_sum(torch.zeros(
+        crps_pairwise.MAX_MEMBERS + 1, 2, device=cuda))
   with pytest.raises(ValueError, match='different devices'):
     crps_pairwise.fused_ensemble_stats(torch.zeros(3, 4, device=cuda),
                                        torch.zeros(4))
@@ -187,8 +191,10 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 @pytest.mark.parametrize('mx,my,rest', [
     (1, 1, (5,)), (3, 5, (33,)), (8, 2, (2, 3, 65)), (50, 10, (1, 129)),
     (50, 50, (2, 300)),
+    (64, 128, (70,)), (64, 129, (70,)),  # 8,192 pairs, and the tiled form
     (500, 600, (70,)),   # staged 500 rows: 64-thread blocks, 128 KB
     (2000, 3, (40,)),    # a large streamed ensemble needs no shared memory
+    (1900, 2000, (40,)),  # staged 1,900 rows: two tiles of shared memory
 ])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
@@ -222,9 +228,10 @@ def test_cross_kernel_one_dimensional_and_rejects(cuda):
   got = crps_pairwise.pairwise_cross_sum(x, y)
   assert got.shape == ()
   assert _rel(got, crps_pairwise.pairwise_cross_sum_plain(x, y)) <= 1e-5
-  with pytest.raises(ValueError, match='shared memory'):
-    crps_pairwise.pairwise_cross_sum(torch.zeros(2000, 4, device=cuda),
-                                     torch.zeros(1900, 4, device=cuda))
+  with pytest.raises(ValueError, match='at most'):
+    crps_pairwise.pairwise_cross_sum(
+        torch.zeros(crps_pairwise.MAX_MEMBERS + 1, 2, device=cuda),
+        torch.zeros(3, 2, device=cuda))
   with pytest.raises(TypeError, match='float32 or bfloat16'):
     crps_pairwise.pairwise_cross_sum(x.double(), y.double())
 
@@ -352,3 +359,196 @@ def test_probabilistic_cli_launches_the_fused_kernel(cuda, tmp_path):
   crps = out['crps.2m_temperature']
   glob = crps.values[:, list(crps.coord_values('region')).index('global')]
   assert np.isfinite(glob).all() and abs(glob.mean() - 0.5642) < 0.05
+
+
+# -- ensembles past one shared-memory tile, and the metric families on the card --
+
+
+def _tiled_inputs(cuda, m, n=80):
+  from weatherbenchx_tpu_torch.darray import DimArray
+  rng = np.random.default_rng(m)
+  x = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+  y = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+  yt = torch.from_numpy(rng.standard_normal((m + 2, n)).astype(np.float32))
+  x[m // 3, 5] = float('nan')
+  das = ({'v': DimArray(x.to(cuda), ('number', 'point'))},
+         {'v': DimArray(y.to(cuda), ('point',))},
+         {'v': DimArray(yt.to(cuda), ('number', 'point'))})
+  return das, tuple(t.to(cuda, torch.float64) for t in (x, y, yt))
+
+
+def _pair_sum_f64(a, b):
+  """sum_{i,j} |a_i - b_j| per point by the float64 broadcast, a quarter of
+  the points at a time."""
+  return torch.cat([
+      (a[:, None, lo:lo + 20] - b[None, :, lo:lo + 20]).abs().sum((0, 1))
+      for lo in range(0, a.shape[1], 20)])
+
+
+@pytest.mark.parametrize('m', [1816, 1817, 4000])
+@pytest.mark.parametrize('route', ['fused', 'spread', 'cross'])
+def test_ensembles_past_one_tile_launch_the_kernels(cuda, route, m):
+  """1,816 members fill one tile of shared memory; from 1,817 the kernels
+  walk the ensemble tile by tile (4,000: three tiles). Through the metrics,
+  every size launches its kernel and gives the float64 broadcast's values
+  within 1e-5."""
+  from weatherbenchx_tpu_torch.metrics import base, probabilistic
+  assert crps_pairwise.member_tiles(m) == {1816: 1, 1817: 2, 4000: 3}[m]
+  (preds, tgts, ens_tgts), (xd, yd, ytd) = _tiled_inputs(cuda, m)
+  crps_pairwise.reset_launch_counts()
+  if route == 'fused':
+    with base.computation_cache():
+      got = {'skill': probabilistic.CRPSSkill().compute(preds, tgts)['v'],
+             'spread': probabilistic.CRPSSpread().compute(preds, tgts)['v'],
+             'umse': probabilistic.UnbiasedEnsembleMeanSquaredError().compute(
+                 preds, tgts)['v']}
+    mean = xd.mean(0)
+    want = {'skill': (xd - yd).abs().mean(0),
+            'spread': _pair_sum_f64(xd, xd) / (m * (m - 1)),
+            'umse': (mean - yd) ** 2 - xd.var(0, correction=1) / m}
+    launched = {'fused_ensemble_stats': 1}
+  elif route == 'spread':
+    got = {'spread': probabilistic.CRPSSpread().compute(preds, tgts)['v'],
+           'unfair': probabilistic.CRPSSpread(fair=False).compute(
+               preds, tgts)['v']}
+    total = _pair_sum_f64(xd, xd)
+    want = {'spread': total / (m * (m - 1)), 'unfair': total / (m * m)}
+    launched = {'pairwise_spread_sum': 2}
+  else:
+    got = {'cross': probabilistic.CRPSSkill().compute(preds, ens_tgts)['v'],
+           'swapped': probabilistic.CRPSSkill().compute(ens_tgts, preds)['v']}
+    total = _pair_sum_f64(xd, ytd)
+    want = {'cross': total / (m * (m + 2)), 'swapped': total / (m * (m + 2))}
+    launched = {'pairwise_cross_sum': 2}
+  torch.cuda.synchronize()
+  assert {k: v for k, v in crps_pairwise.LAUNCHES.items() if v} == launched
+  for name, da in got.items():
+    assert da.device.type == 'cuda' and da.dtype == torch.float32
+    assert _rel(da.data, want[name]) <= 1e-5, name
+    assert torch.isnan(da.data[5]) and torch.isnan(da.data).sum() == 1
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_tiled_kernels_match_plain_with_infinities(cuda, dtype, tol):
+  """Two tiles and a ragged second one: +-inf and NaN members in the first
+  tile, the second and the streamed rows give the plain version's points."""
+  m, n = 1817 + 370, 70
+  rng = np.random.default_rng(3)
+  x = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
+  y = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+  x[3, 0] = x[2000, 1] = float('inf')
+  x[1815, 2] = x[1816, 2] = float('-inf')
+  x[5, 3], x[2100, 3] = float('inf'), float('-inf')
+  x[2186, 4] = float('nan')
+  xd, yd = x.to(cuda, dtype), y.to(cuda, dtype)
+  got = crps_pairwise.fused_ensemble_stats(xd, yd) + (
+      crps_pairwise.pairwise_spread_sum(xd),)
+  want = crps_pairwise.fused_ensemble_stats_plain(xd, yd) + (
+      crps_pairwise.pairwise_spread_sum_plain(xd),)
+  for g, w in zip(got, want):
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert torch.equal(torch.isinf(g), torch.isinf(w))
+    finite = torch.isfinite(w)
+    assert _rel(g[finite], w[finite]) <= tol
+
+
+_FAMILY_GRID = (1, 4, 73, 144)
+
+
+def _family_states(name, device):
+  """The family's state and values on ``device``, through the evaluator."""
+  from weatherbenchx_tpu_torch import bench_families
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  metrics, aggregator, preds, tgts = bench_families.family_case(
+      name, 3, _FAMILY_GRID)
+  ev = evaluator.ChunkEvaluator(metrics, aggregator, device=device)
+  state = ev.eval_chunk(preds, tgts)
+  return state, ev.eval_chunk(preds, tgts), state.metric_values(metrics)
+
+
+@pytest.mark.parametrize('name', ['fss', 'rank_histogram', 'rev', 'binnings'])
+def test_family_on_the_card_matches_the_cpu(cuda, name):
+  crps_pairwise.reset_launch_counts()
+  state, again, values = _family_states(name, 'cuda')
+  _, _, want = _family_states(name, 'cpu')
+  assert not any(crps_pairwise.LAUNCHES.values())
+  for key, da in state.to_dataset().items():
+    assert da.device.type == 'cuda', key
+    assert torch.equal(da.data, again.to_dataset()[key].data), key
+  assert set(values) == set(want)
+  for key, da in values.items():
+    assert da.dims == want[key].dims
+    assert _rel(da.data.cpu(), want[key].data) <= 1e-5, key
+
+
+def test_rank_histogram_is_deterministic_on_the_card(cuda):
+  from weatherbenchx_tpu_torch.darray import DimArray
+  from weatherbenchx_tpu_torch.metrics import probabilistic
+  rng = np.random.default_rng(4)
+  x = torch.from_numpy(rng.standard_normal((50, 4, 181, 360)).astype(
+      np.float32)).to(cuda)
+  y = torch.from_numpy(rng.standard_normal((4, 181, 360)).astype(
+      np.float32)).to(cuda)
+  y[0, 0, 0] = float('nan')
+  p = {'v': DimArray(x, ('number', 'lead_time', 'latitude', 'longitude'))}
+  t = {'v': DimArray(y, ('lead_time', 'latitude', 'longitude'))}
+  first = probabilistic.RankHistogram().compute(p, t)['v']
+  second = probabilistic.RankHistogram().compute(p, t)['v']
+  assert first.device.type == 'cuda' and first.sizes['rank'] == 51
+  both_nan = torch.isnan(first.data) & torch.isnan(second.data)
+  assert torch.equal(first.data[~both_nan], second.data[~both_nan])
+  assert int(both_nan.sum()) == 51
+  counts = torch.nansum(first.data, dim=(0, 1, 2))
+  assert counts.sum().item() == 4 * 181 * 360 - 1
+  want = torch.bincount((x < y).sum(0).reshape(-1)[1:], minlength=51)
+  assert torch.equal(counts.long(), want)
+
+
+@pytest.mark.parametrize('skipna', [False, True])
+def test_quantile_on_the_card(cuda, skipna):
+  """Past 16,777,216 elements, on a CUDA tensor, against numpy's 'linear'
+  method on a sample of columns."""
+  from weatherbenchx_tpu_torch.darray import DimArray
+  m, n = 10, 2_000_000
+  rng = np.random.default_rng(5)
+  x = rng.standard_normal((m, n)).astype(np.float32)
+  x[3, ::11] = np.nan
+  x[:, 22] = np.nan
+  q = [0.0, 0.1, 0.5, 0.9, 1.0]
+  got = DimArray(torch.from_numpy(x).to(cuda), ('number', 'point')).quantile(
+      q, 'number', skipna=skipna)
+  assert got.device.type == 'cuda' and got.dims == ('quantile', 'point')
+  assert got.dtype == torch.float32
+  cols = np.arange(0, n, 997)
+  fn = np.nanquantile if skipna else np.quantile
+  with np.errstate(all='ignore'):
+    want = fn(x[:, cols].astype(np.float64), q, axis=0, method='linear')
+  np.testing.assert_allclose(got.data[:, cols].cpu().numpy(), want, rtol=0,
+                             atol=1e-5, equal_nan=True)
+
+
+def test_fair_ensemble_rps_takes_the_fused_kernel(cuda):
+  """Inside a compute pass the fair ranked probability score's inner
+  statistic, the unbiased ensemble-mean squared error, launches the fused
+  kernel on the CDF indicators; the value is the plain form's."""
+  from weatherbenchx_tpu_torch.darray import DimArray
+  from weatherbenchx_tpu_torch.metrics import base, probabilistic
+  rng = np.random.default_rng(6)
+  x = rng.standard_normal((12, 3, 500)).astype(np.float32)
+  y = rng.standard_normal((3, 500)).astype(np.float32)
+
+  def run(device):
+    p = {'v': DimArray(torch.from_numpy(x).to(device),
+                       ('number', 'lead_time', 'point'))}
+    t = {'v': DimArray(torch.from_numpy(y).to(device),
+                       ('lead_time', 'point'))}
+    stat = probabilistic.EnsembleRankedProbabilityScore(
+        [-1.0, 0.0, 1.0], [-1.0, 0.0, 1.0], 'bin', 'three')
+    with base.computation_cache():
+      return stat.compute(p, t)['v']
+  crps_pairwise.reset_launch_counts()
+  got = run('cuda')
+  torch.cuda.synchronize()
+  assert crps_pairwise.LAUNCHES['fused_ensemble_stats'] >= 1
+  assert _rel(got.data.cpu(), run('cpu').data) <= 1e-5

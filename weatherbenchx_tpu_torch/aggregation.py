@@ -1,7 +1,8 @@
 """Aggregation: the monoid (Σ weighted statistics, Σ weights) and Aggregator.
 
-The port of ``weatherbenchx_tpu/aggregation.py:67-240, 303-312, 369-614,
-651-666``.
+The port of ``weatherbenchx_tpu/aggregation.py``, without its TPU routing
+(the ``WBX_AGG_BATCH`` switch and the regime gate of
+``aggregate_statistics``): one contraction per statistic.
 Every metric is a function of weighted means of per-chunk statistics, so
 evaluation over many chunks reduces to summing ``(Σ w·s, Σ w)`` pairs — a
 commutative monoid — then applying each metric's finalizer to the means.
@@ -13,7 +14,9 @@ state serializes with the JAX package's ``#``-separated key schema.
 
 import dataclasses
 import functools
-from typing import Any, Collection, Hashable, Iterable, Mapping, Sequence
+import weakref
+from typing import (Any, Callable, Collection, Hashable, Iterable, Mapping,
+                    MutableMapping, Sequence)
 
 import numpy as np
 import torch
@@ -169,13 +172,34 @@ class AggregationState:
             for metric_name, per_var in metric_values.items()
             for var_name, da in per_var.items()}
 
-  def map(self, func) -> 'AggregationState':
-    """Applies ``func`` to every DimArray of the state."""
+  def sum_along_dims(self, dims: Collection[str]) -> 'AggregationState':
+    """Second-stage reduction over preserved dims (e.g. init_time); a
+    variable that lacks a dim is left as it is over that dim."""
+    return self.map(lambda x: x.sum(tuple(d for d in dims if d in x.dims)))
+
+  def dot(self, *arrays: DimArray,
+          dim: str | Sequence[str]) -> 'AggregationState':
+    """Contracts every array of the state with resampling or count
+    matrices (the core of the bootstrap)."""
+    return self.map(lambda x: darray.dot(x, *arrays, dim=dim))
+
+  @classmethod
+  def map_multi(cls, func: Callable[..., DimArray],
+                *agg_states: 'AggregationState') -> 'AggregationState':
+    """Applies ``func`` across the parallel DimArrays of several states."""
+    if any(a.sum_weighted_statistics is None for a in agg_states):
+      raise ValueError('Cannot map a zero AggregationState.')
+    return cls(
+        tree.map_structure(
+            func, *[a.sum_weighted_statistics for a in agg_states]),
+        tree.map_structure(func, *[a.sum_weights for a in agg_states]))
+
+  def map(self, func: Callable[[DimArray], DimArray]) -> 'AggregationState':
+    """Applies ``func`` to every DimArray of the state; the zero state
+    maps to itself."""
     if self.sum_weighted_statistics is None:
       return self
-    return AggregationState(
-        tree.map_structure(func, self.sum_weighted_statistics),
-        tree.map_structure(func, self.sum_weights))
+    return self.map_multi(func, self)
 
   def to_host(self) -> 'AggregationState':
     """The state on the host: float64 CPU tensors, numpy coords."""
@@ -223,8 +247,36 @@ class AggregationState:
     return cls.from_dataset(io_lib.load_dataset(path))
 
 
-def _coord_fingerprint(c: Coord) -> tuple:
+# Content fingerprints of the coords that binnings read, by the identity of
+# the values object: {id: (weak reference, fingerprint)}. The statistics of
+# one chunk carry the same coord objects, so a coord is copied from the
+# device and hashed once per chunk, not once per statistic.
+_CONTENT_FINGERPRINTS: dict = {}
+_CONTENT_FINGERPRINTS_KEPT = 256
+
+
+def _content_fingerprint(v) -> tuple:
+  hit = _CONTENT_FINGERPRINTS.get(id(v))
+  if hit is not None and hit[0]() is v:
+    return hit[1]
+  host = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+  fingerprint = (str(host.dtype), host.shape,
+                 hash(np.ascontiguousarray(host).tobytes()))
+  if len(_CONTENT_FINGERPRINTS) >= _CONTENT_FINGERPRINTS_KEPT:
+    for key in [k for k, (ref, _) in list(_CONTENT_FINGERPRINTS.items())
+                if ref() is None]:
+      del _CONTENT_FINGERPRINTS[key]
+    while len(_CONTENT_FINGERPRINTS) >= _CONTENT_FINGERPRINTS_KEPT:
+      _CONTENT_FINGERPRINTS.pop(next(iter(_CONTENT_FINGERPRINTS)))
+  _CONTENT_FINGERPRINTS[id(v)] = (weakref.ref(v), fingerprint)
+  return fingerprint
+
+
+def _coord_fingerprint(c: Coord, by_content: bool) -> tuple:
   v = c.values
+  if by_content:
+    return _content_fingerprint(
+        v if isinstance(v, (torch.Tensor, np.ndarray)) else np.asarray(v))
   if isinstance(v, torch.Tensor):
     return ('tensor', tuple(v.shape), str(v.dtype))
   v = np.asarray(v)
@@ -233,20 +285,25 @@ def _coord_fingerprint(c: Coord) -> tuple:
   return ('id', id(v))
 
 
-def _layout_key(stat: DimArray) -> tuple:
+def _layout_key(stat: DimArray, read_coords: Collection[str] = ()) -> tuple:
   """Hashable key of the operands a statistic needs: dims, shape, dtype and
-  the host coords that weightings and binnings read.
+  the coords that weightings and binnings read.
 
-  Time coords (datetime/timedelta) are left out: no weighting or binning
-  of this package reads them, and init times differ from chunk to chunk.
-  Device coords (e.g. validity masks) enter by shape and dtype only.
+  ``read_coords`` names the coords a binning reads by value
+  (``Binning.host_coords``): they enter by content whatever their type and
+  size. Of the others, time coords (datetime/timedelta) are left out (init
+  times differ from chunk to chunk), device coords (e.g. validity masks)
+  enter by shape and dtype only, and large host coords by identity.
   """
   coords_key = tuple(sorted(
-      (str(n), tuple(c.dims), _coord_fingerprint(c))
+      (str(n), tuple(c.dims), _coord_fingerprint(c, n in read_coords))
       for n, c in stat.coords.items()
-      if not (isinstance(c.values, np.ndarray)
-              and c.values.dtype.kind in 'Mm')))
+      if n in read_coords or not (isinstance(c.values, np.ndarray)
+                                  and c.values.dtype.kind in 'Mm')))
   return (tuple(stat.dims), tuple(stat.shape), str(stat.dtype), coords_key)
+
+
+_UNSET = object()  # "build the operands here", as distinct from None (drop)
 
 
 @dataclasses.dataclass
@@ -285,6 +342,22 @@ class Aggregator:
       operands.append(bin_mask)
     return operands
 
+  def layout_key(self, stat: DimArray) -> tuple:
+    """The key under which ``stat``'s operands may be shared and cached:
+    ``_layout_key`` with the coords this aggregator's binnings read."""
+    read = {name for b in self.bin_by or [] for name in b.host_coords}
+    return _layout_key(stat, read)
+
+  def aggregation_fn(self, stat: DimArray, operands=_UNSET) -> DimArray | None:
+    """The contraction: einsum(stat, *weights, *bin_masks) over the reduce
+    dims; None for a variable that must be dropped."""
+    if operands is _UNSET:
+      operands = self.aggregation_operands(stat)
+    if operands is None or not set(self.reduce_dims).issubset(stat.dims):
+      return None
+    return darray.dot(stat, *operands, dim=tuple(
+        d for d in stat.dims if d in set(self.reduce_dims)))
+
   def _promote(self, stat: DimArray) -> DimArray:
     # A bool statistic would sum to a count in the contraction but must
     # aggregate to a weighted mean: promote it first (xr.dot promotes too).
@@ -310,40 +383,93 @@ class Aggregator:
                        f'{stat.sizes}')
     return stat, mask.astype(stat.dtype)
 
+  def aggregate_stat_var(self, stat: DimArray,
+                         operands=_UNSET) -> AggregationState | None:
+    """Aggregates one statistic DimArray of one variable; None for a
+    variable that must be dropped."""
+    stat = self._promote(stat)
+    if operands is _UNSET:
+      operands = self.aggregation_operands(stat)
+    if operands is None or not set(self.reduce_dims).issubset(stat.dims):
+      return None
+    stat, maskf = self._prepare_masked(stat)
+    return AggregationState(self.aggregation_fn(stat, operands),
+                            self.aggregation_fn(maskf, operands))
+
+  def aggregate_stat_vars(
+      self, stats: Mapping[Hashable, DimArray],
+      operands: Mapping[Hashable, list | None] | None = None,
+  ) -> AggregationState:
+    """Aggregates one statistic's variables; ``operands`` may give some
+    variables' pre-built operands (None drops the variable)."""
+    per_var = {
+        var: self.aggregate_stat_var(stat, (operands or {}).get(var, _UNSET))
+        for var, stat in stats.items() if stat is not None}
+    per_var = {v: s for v, s in per_var.items() if s is not None}
+    return AggregationState(
+        {v: s.sum_weighted_statistics for v, s in per_var.items()},
+        {v: s.sum_weights for v, s in per_var.items()})
+
+  def prepare_operands(
+      self,
+      statistics: Mapping[str, Mapping[Hashable, DimArray]],
+      layout_cache: MutableMapping | None = None,
+      device: torch.device | str | None = None,
+  ) -> dict:
+    """``{stat_name: {var: [DimArray...] | None}}``: each statistic's
+    weights and bin masks, built on the host from its layout alone (values
+    are not read) after the bool → float32 promotion that aggregation
+    applies, and moved to ``device`` if one is given.
+
+    Statistics of one layout (``layout_key``) get the SAME operand
+    objects, so a caller holds one copy of e.g. the 0.25 degree x 34-bin
+    region masks, not one per statistic. ``layout_cache`` is that sharing
+    made to last: a mapping the caller keeps (the evaluator's, across
+    chunks); entries are added to it and never evicted here.
+    """
+    cache = {} if layout_cache is None else layout_cache
+    out: dict = {}
+    for name, per_var in statistics.items():
+      out[name] = {}
+      for var, stat in per_var.items():
+        if stat is None:
+          continue
+        stat = self._promote(stat)
+        key = self.layout_key(stat)
+        if key not in cache:
+          ops = self.aggregation_operands(stat)
+          if ops is not None and device is not None:
+            ops = [op.copy(data=op.data.to(device)) for op in ops]
+          cache[key] = ops
+        out[name][var] = cache[key]
+    return out
+
   def aggregate_statistics(
       self,
       statistics: Mapping[str, Mapping[Hashable, DimArray]],
       operands: Mapping[str, Mapping[Hashable, list | None]] | None = None,
   ) -> AggregationState:
-    """Aggregates all (statistic, variable) arrays of a chunk.
+    """Aggregates all (statistic, variable) arrays of a chunk, one
+    contraction per statistic and one per weights indicator.
 
     ``operands``: optional pre-built ``{stat_name: {var: [DimArray...] |
-    None}}`` (the evaluator's device-resident weights and bin masks);
-    missing entries are built here, once per layout of this call.
+    None}}`` from ``prepare_operands`` (the evaluator's device-resident
+    weights and bin masks); missing entries are built here, once per
+    layout of this call.
     """
-    reduce_set = set(self.reduce_dims)
-    op_memo: dict = {}
-    sums: dict = {name: {} for name in statistics}
-    weights: dict = {name: {} for name in statistics}
+    given = operands or {}
+    missing = {
+        name: {var: stat for var, stat in stats.items()
+               if stat is not None and var not in (given.get(name) or {})}
+        for name, stats in statistics.items()}
+    built = self.prepare_operands(missing)
+    sums: dict = {}
+    weights: dict = {}
     for name, stats in statistics.items():
-      for var, stat in stats.items():
-        if stat is None:
-          continue
-        stat = self._promote(stat)
-        given = (operands or {}).get(name) or {}
-        if var in given:
-          ops = given[var]
-        else:
-          key = _layout_key(stat)
-          if key not in op_memo:
-            op_memo[key] = self.aggregation_operands(stat)
-          ops = op_memo[key]
-        if ops is None or not reduce_set.issubset(stat.dims):
-          continue
-        stat0, maskf = self._prepare_masked(stat)
-        dims = tuple(d for d in stat0.dims if d in reduce_set)
-        sums[name][var] = darray.dot(stat0, *ops, dim=dims)
-        weights[name][var] = darray.dot(maskf, *ops, dim=dims)
+      state = self.aggregate_stat_vars(
+          stats, {**built[name], **(given.get(name) or {})})
+      sums[name] = state.sum_weighted_statistics
+      weights[name] = state.sum_weights
     return AggregationState(sum_weighted_statistics=sums,
                             sum_weights=weights)
 

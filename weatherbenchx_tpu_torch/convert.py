@@ -29,10 +29,19 @@ def _tensor(values: Any, device) -> torch.Tensor:
 
 
 def dimarray_from_reference(obj: Any, device=None) -> DimArray:
-  """A port DimArray with ``obj``'s data on ``device``; coords stay numpy."""
+  """A port DimArray with ``obj``'s data on ``device``; coords stay numpy,
+  whatever their type: string bin labels, datetime64 and timedelta64 times,
+  a climatology's ``quantile`` levels."""
   coords = {str(name): Coord(tuple(c.dims), np.asarray(c.values))
             for name, c in obj.coords.items()}
   return DimArray(_tensor(obj.data, device), tuple(obj.dims), coords)
+
+
+def dataset_from_reference(dataset: Any, device=None) -> dict:
+  """A port dataset ``{name: DimArray}`` from one of the JAX package, e.g.
+  a climatology (with its ``quantile`` dim, where it has one)."""
+  return {name: dimarray_from_reference(da, device)
+          for name, da in dataset.items()}
 
 
 def state_from_reference(state: Any, device=None) -> AggregationState:

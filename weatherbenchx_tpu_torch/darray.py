@@ -17,6 +17,13 @@ The host-side coordinate machinery (``Coord``, ``broadcast_dims``,
 from the JAX package rather than imported: every module of that package
 imports jax, which the port must not.
 
+Every ``DimArray`` method and module function of the JAX package's
+``darray`` has its counterpart here under the same name, apart from its
+TPU routing (``dot_regime``) and its xarray and pytree glue. Where torch
+differs from ``jnp`` the method says so: ``quantile`` sorts (``torch.quantile``
+has refused large inputs), ``%`` is ``torch.remainder`` (the divisor's sign),
+the NaN-skipping ``std``/``var``/``min``/``max`` are built here.
+
 A "dataset" is a ``dict[str, DimArray]``.
 """
 
@@ -230,6 +237,10 @@ class DimArray:
     return dict(zip(self.dims, self.shape))
 
   @property
+  def size(self) -> int:
+    return int(np.prod(self.shape)) if self.shape else 1
+
+  @property
   def values(self) -> np.ndarray:
     """Host numpy copy of the data (bfloat16 widens to float32)."""
     d = self.data.detach().cpu()
@@ -301,6 +312,12 @@ class DimArray:
   def notnull(self) -> DimArray:
     return self.copy(data=~self.isnull().data)
 
+  def fillna(self, value) -> DimArray:
+    d = self.data
+    if not (d.is_floating_point() or d.is_complex()):
+      return self
+    return self.copy(data=torch.where(torch.isnan(d), value, d))
+
   def where(self, cond, other=float('nan')) -> DimArray:
     """Keep values where cond is True, else ``other`` (xarray semantics)."""
     cond_da = cond if isinstance(cond, DimArray) else DimArray(cond)
@@ -308,9 +325,15 @@ class DimArray:
       other_da = other
     else:
       other_t = as_tensor(other)
-      if other_t.dim() == 0 and self.data.is_floating_point():
-        # A scalar fill keeps the data's dtype (a Python float is float64).
-        other_t = other_t.to(self.dtype)
+      if other_t.dim() == 0:
+        # A scalar fill keeps floating data's dtype (a Python float is
+        # float64); a float fill of bool or integer data (NaN into an
+        # indicator) gives the default float dtype, as jnp's weak scalar
+        # does without x64.
+        if self.data.is_floating_point():
+          other_t = other_t.to(self.dtype)
+        elif other_t.is_floating_point():
+          other_t = other_t.to(torch.get_default_dtype())
       other_da = DimArray(other_t)
     _check_shared_sizes((self.dims, self.shape),
                         (cond_da.dims, cond_da.shape),
@@ -322,6 +345,11 @@ class DimArray:
                        _expand_to(o, other_da.dims, out_dims))
     return DimArray(data, out_dims,
                     _merge_coords(out_dims, self.coords, cond_da.coords))
+
+  def clip(self, min=None, max=None) -> DimArray:
+    if min is None and max is None:
+      return self
+    return self.copy(data=torch.clamp(self.data, min=min, max=max))
 
   # -- arithmetic -------------------------------------------------------------
 
@@ -358,19 +386,21 @@ class DimArray:
       return self.copy(data=torch.div(o, self.data))
     return self._binary_op(o, operator.truediv, True)
   def __pow__(self, o): return self._binary_op(o, operator.pow)
+  # jnp.mod takes the divisor's sign: torch.remainder, not torch.fmod.
+  def __mod__(self, o): return self._binary_op(o, _tensor_args(torch.remainder))
   def __gt__(self, o): return self._binary_op(o, operator.gt)
   def __ge__(self, o): return self._binary_op(o, operator.ge)
   def __lt__(self, o): return self._binary_op(o, operator.lt)
   def __le__(self, o): return self._binary_op(o, operator.le)
   def __eq__(self, o): return self._binary_op(o, operator.eq)  # type: ignore
   def __ne__(self, o): return self._binary_op(o, operator.ne)  # type: ignore
-  def __and__(self, o): return self._binary_op(o, _logical(torch.logical_and))
+  def __and__(self, o): return self._binary_op(o, _tensor_args(torch.logical_and))
   def __rand__(self, o):
-    return self._binary_op(o, _logical(torch.logical_and), True)
-  def __or__(self, o): return self._binary_op(o, _logical(torch.logical_or))
+    return self._binary_op(o, _tensor_args(torch.logical_and), True)
+  def __or__(self, o): return self._binary_op(o, _tensor_args(torch.logical_or))
   def __ror__(self, o):
-    return self._binary_op(o, _logical(torch.logical_or), True)
-  def __xor__(self, o): return self._binary_op(o, _logical(torch.logical_xor))
+    return self._binary_op(o, _tensor_args(torch.logical_or), True)
+  def __xor__(self, o): return self._binary_op(o, _tensor_args(torch.logical_xor))
 
   def __neg__(self): return self.copy(data=-self.data)
   def __abs__(self): return self.copy(data=self.data.abs())
@@ -405,17 +435,127 @@ class DimArray:
     def fn(x, ax):
       if not skipna:
         return torch.var(x, dim=ax, correction=ddof)
+      # torch has no nanvar: the two-pass form over the non-NaN members,
+      # NaN where fewer than ddof + 1 of them remain (as jnp.nanvar).
       ok = ~torch.isnan(x)
       n = ok.sum(dim=ax, keepdim=True)
       mean = torch.nansum(x, dim=ax, keepdim=True) / n
       sq = torch.where(ok, (x - mean) ** 2, 0).sum(dim=ax, keepdim=True)
-      out = sq / (n - ddof)
+      out = torch.where(n > ddof, sq / (n - ddof), torch.nan)
       return out.reshape(()) if ax is None else out.squeeze(ax)
     return self._reduce(fn, dim)
+
+  def std(self, dim=None, skipna=False, ddof=0) -> DimArray:
+    v = self.var(dim, skipna=skipna, ddof=ddof)
+    return v if v is self else v.copy(data=torch.sqrt(v.data))
+
+  def _extremum(self, dim, skipna: bool, largest: bool) -> DimArray:
+    """min or max over dims. ``amin``/``amax`` take several dims and
+    propagate NaN as ``jnp.min`` does; skipna skips NaN members and gives
+    NaN only where every member is NaN (``jnp.nanmin``)."""
+    reduce = torch.amax if largest else torch.amin
+
+    def fn(x, ax):
+      ax = () if ax is None else ax  # () reduces every dim
+      if not (skipna and x.is_floating_point()):
+        return reduce(x, dim=ax)
+      nan = torch.isnan(x)
+      fill = -torch.inf if largest else torch.inf
+      out = reduce(torch.where(nan, fill, x), dim=ax)
+      return torch.where(nan.all(dim=ax) if ax else nan.all(), torch.nan, out)
+    return self._reduce(fn, dim)
+
+  def min(self, dim=None, skipna=False) -> DimArray:
+    return self._extremum(dim, skipna, largest=False)
+
+  def max(self, dim=None, skipna=False) -> DimArray:
+    return self._extremum(dim, skipna, largest=True)
+
+  def any(self, dim=None) -> DimArray:
+    return self._reduce(
+        lambda x, ax: x.any() if ax is None else torch.any(x, dim=ax), dim)
+
+  def all(self, dim=None) -> DimArray:
+    return self._reduce(
+        lambda x, ax: x.all() if ax is None else torch.all(x, dim=ax), dim)
 
   def count(self, dim=None) -> DimArray:
     """Count of non-NaN values over dims."""
     return self.notnull()._reduce(lambda x, ax: x.sum(dim=ax), dim)
+
+  def cumsum(self, dim: str) -> DimArray:
+    return self.copy(data=torch.cumsum(self.data, dim=self.dims.index(dim)))
+
+  def quantile(self, q, dim: str, skipna: bool = False,
+               quantile_dim: str = 'quantile') -> DimArray:
+    """Quantiles along a dim (numpy's 'linear' interpolation, like xarray).
+
+    By one ``torch.sort`` along the dim and an interpolation between the
+    two neighbouring order statistics: ``torch.quantile`` has a history of
+    refusing inputs past 16,777,216 elements, and a full-width ensemble
+    has 207,653,760.
+    The quantile axis comes first, as ``jnp.quantile`` puts it. ``q`` is
+    taken as float64 and the result keeps the data's dtype. A NaN member
+    gives NaN at its point; with skipna the quantile is over the non-NaN
+    members of each point (torch sorts NaN last), NaN where there is none.
+    """
+    q_arr = np.atleast_1d(np.asarray(q, dtype=np.float64))
+    ax = self.dims.index(dim)
+    x = self.data
+    if not x.is_floating_point():
+      x = x.to(torch.get_default_dtype())
+    s = torch.sort(x.movedim(ax, 0), dim=0).values
+    n = s.shape[0]
+    if skipna:
+      count = (~torch.isnan(s)).sum(0, keepdim=True)  # (1, *rest)
+      pos = (torch.as_tensor(q_arr, device=s.device).reshape(
+          (-1,) + (1,) * (s.dim() - 1)) * (count - 1).clamp(min=0))
+      low = pos.floor()
+      high_weight = (pos - low).to(s.dtype)
+      low = low.long()
+      high = torch.minimum(low + 1, (count - 1).clamp(min=0))
+      data = (torch.take_along_dim(s, low, 0) * (1 - high_weight)
+              + torch.take_along_dim(s, high, 0) * high_weight)
+      data = torch.where(count > 0, data, torch.nan)
+    else:
+      pos = q_arr * (n - 1)
+      low = np.floor(pos)
+      high_weight = torch.as_tensor(pos - low, device=s.device).to(
+          s.dtype).reshape((-1,) + (1,) * (s.dim() - 1))
+      low = torch.as_tensor(low.astype(np.int64), device=s.device)
+      high = (low + 1).clamp(max=n - 1)
+      data = (s.index_select(0, low) * (1 - high_weight)
+              + s.index_select(0, high) * high_weight)
+      data = torch.where(torch.isnan(s[-1]), torch.nan, data)
+    out_dims = (quantile_dim,) + self.dims[:ax] + self.dims[ax + 1:]
+    coords = {k: c for k, c in self.coords.items() if dim not in c.dims}
+    coords[quantile_dim] = Coord((quantile_dim,), q_arr)
+    return DimArray(data, out_dims, coords)
+
+  def diff(self, dim: str, n: int = 1) -> DimArray:
+    """n-th difference along a dim; coords keep the upper labels."""
+    ax = self.dims.index(dim)
+    coords = {}
+    for k, c in self.coords.items():
+      if dim in c.dims:
+        sl = (slice(None),) * c.dims.index(dim) + (slice(n, None),)
+        coords[k] = Coord(c.dims, c.values[sl])
+      else:
+        coords[k] = c
+    return DimArray(torch.diff(self.data, n=n, dim=ax), self.dims, coords)
+
+  def stack_to_new_dim(self, dims_to_stack: Sequence[str],
+                       new_dim: str) -> DimArray:
+    """Stacks dims into one new trailing range-valued dimension."""
+    dims_to_stack = tuple(dims_to_stack)
+    rest = [d for d in self.dims if d not in dims_to_stack]
+    out = self.transpose(*(rest + list(dims_to_stack)))
+    new_size = int(np.prod([self.sizes[d] for d in dims_to_stack]))
+    data = out.data.reshape(tuple(self.sizes[d] for d in rest) + (new_size,))
+    coords = {k: c for k, c in self.coords.items()
+              if not (set(c.dims) & set(dims_to_stack))}
+    coords[new_dim] = Coord((new_dim,), np.arange(new_size))
+    return DimArray(data, tuple(rest) + (new_dim,), coords)
 
   # -- shape manipulation -------------------------------------------------------
 
@@ -452,6 +592,16 @@ class DimArray:
       dims.insert(axis, name)
       axis += 1
     return DimArray(data, tuple(dims), self.coords)
+
+  def squeeze(self, dim: str | None = None) -> DimArray:
+    """Drops ``dim`` (or every size-1 dim) by ``isel`` at 0, so a coord
+    laid out over it loses that dim too."""
+    drop = ([d for d, s in self.sizes.items() if s == 1] if dim is None
+            else [dim])
+    out = self
+    for d in drop:
+      out = out.isel({d: 0})
+    return out
 
   def broadcast_like(self, other: DimArray) -> DimArray:
     out_dims = broadcast_dims(other.dims, self.dims)
@@ -572,12 +722,18 @@ class DimArray:
     return self.isel({c.dims[0]: order})
 
 
-def _logical(fn):
+def _tensor_args(fn):
+  """``fn`` of two tensors as a binary op that also takes a Python scalar
+  on either side (a scalar beside floating data takes the data's dtype)."""
   def op(a, b):
+    def lift(v, like):
+      dtype = (like.dtype if like.is_floating_point()
+               and not isinstance(v, bool) else None)
+      return torch.as_tensor(v, dtype=dtype, device=like.device)
     if not isinstance(a, torch.Tensor):
-      a = torch.as_tensor(a, device=b.device)
+      a = lift(a, b)
     if not isinstance(b, torch.Tensor):
-      b = torch.as_tensor(b, device=a.device)
+      b = lift(b, a)
     return fn(a, b)
   return op
 
@@ -662,20 +818,122 @@ def _label_indices(coord: np.ndarray, labels, method: str | None):
 # ---------------------------------------------------------------------------
 
 
-def sqrt(x: DimArray) -> DimArray:
-  return x.copy(data=torch.sqrt(x.data))
+def _unary(fn) -> Callable:
+  def f(x):
+    if isinstance(x, DimArray):
+      return x.copy(data=fn(x.data))
+    return fn(as_tensor(x))
+  return f
+
+
+sqrt = _unary(torch.sqrt)
+exp = _unary(torch.exp)
+log = _unary(torch.log)
+log1p = _unary(torch.log1p)
+abs_ = _unary(torch.abs)
+# torch.sign(NaN) is 0; jnp.sign keeps the NaN.
+sign = _unary(lambda x: torch.where(torch.isnan(x), x, torch.sign(x))
+              if x.is_floating_point() else torch.sign(x))
+floor = _unary(torch.floor)
+ceil = _unary(torch.ceil)
+
+
+def where(cond: DimArray, x, y) -> DimArray:
+  """Elementwise select with dim-name broadcasting (xr.where semantics)."""
+  xd = x if isinstance(x, DimArray) else DimArray(as_tensor(x))
+  return xd.where(cond, y)
+
+
+def maximum(a: DimArray, b) -> DimArray:
+  """Elementwise maximum; NaN propagates, as in ``jnp.maximum``."""
+  return a._binary_op(b, _tensor_args(torch.maximum))
+
+
+def minimum(a: DimArray, b) -> DimArray:
+  """Elementwise minimum; NaN propagates, as in ``jnp.minimum``."""
+  return a._binary_op(b, _tensor_args(torch.minimum))
+
+
+def full_like(x: DimArray, fill, dtype=None) -> DimArray:
+  return x.copy(data=torch.full(
+      x.shape, fill, dtype=torch_dtype(dtype) if dtype is not None else x.dtype,
+      device=x.device))
 
 
 def ones_like(x: DimArray, dtype=None) -> DimArray:
-  return x.copy(data=torch.ones(
-      x.shape, dtype=torch_dtype(dtype) if dtype is not None else x.dtype,
-      device=x.device))
+  return full_like(x, 1, dtype)
 
 
 def zeros_like(x: DimArray, dtype=None) -> DimArray:
-  return x.copy(data=torch.zeros(
-      x.shape, dtype=torch_dtype(dtype) if dtype is not None else x.dtype,
-      device=x.device))
+  return full_like(x, 0, dtype)
+
+
+def _concat_values(parts: Sequence[Any], axis: int):
+  """Concatenated coord values: numpy while every part is a host value,
+  else a tensor on the parts' device."""
+  if all(_is_host_value(p) for p in parts):
+    return np.concatenate([np.asarray(p) for p in parts], axis=axis)
+  return torch.cat(_on_one_device(*[as_tensor(p) for p in parts]), dim=axis)
+
+
+def concat(arrays: Sequence[DimArray], dim: str) -> DimArray:
+  """Concatenates along a (possibly new) named dimension.
+
+  Parts are matched by dim name (transposed to the first part's order),
+  as ``xr.concat`` does. A coord over ``dim`` is concatenated; a coord off
+  ``dim`` that differs between the parts gains ``dim`` (xr.concat's
+  ``coords='different'``), one that is the same in every part is kept once.
+  """
+  arrays = list(arrays)
+  if dim not in arrays[0].dims:
+    arrays = [a.expand_dims(dim) for a in arrays]
+  order = arrays[0].dims
+  arrays = [a.transpose(*order) for a in arrays]
+  ax = order.index(dim)
+  data = torch.cat(_on_one_device(*[a.data for a in arrays]), dim=ax)
+  coords: dict[str, Coord] = {}
+  for name, c in arrays[0].coords.items():
+    parts = [a.coords.get(name) for a in arrays]
+    if dim in c.dims:
+      if all(p is not None for p in parts):
+        coords[name] = Coord(c.dims, _concat_values(
+            [p.values for p in parts], c.dims.index(dim)))
+      continue
+    if any(p is None for p in parts):
+      coords[name] = c
+      continue
+    vals = [p.values for p in parts]
+    if all(p.dims == c.dims for p in parts) and _coord_parts_identical(vals):
+      coords[name] = c
+      continue
+    # Each part's coord covers all of that part's slices along dim.
+    expand = (np.broadcast_to if all(_is_host_value(v) for v in vals)
+              else lambda v, shape: as_tensor(v).expand(shape))
+    coords[name] = Coord((dim,) + c.dims, _concat_values(
+        [expand(v, (a.sizes[dim],) + tuple(np.shape(v)))
+         for v, a in zip(vals, arrays)], 0))
+  return DimArray(data, order, coords)
+
+
+def _coord_parts_identical(vals: Sequence[Any]) -> bool:
+  """Whether per-part coord values are certainly all the same: one object,
+  or equal host values. Tensors are not compared (that would wait for the
+  device): distinct tensor objects count as different."""
+  first = vals[0]
+  if all(v is first for v in vals):
+    return True
+  if not all(_is_host_value(v) for v in vals):
+    return False
+  first = np.asarray(first)
+  for v in vals[1:]:
+    v = np.asarray(v)
+    if v.shape != first.shape or v.dtype != first.dtype:
+      return False
+    if not (np.array_equal(v, first)
+            or (v.dtype.kind == 'f'
+                and np.array_equal(v, first, equal_nan=True))):
+      return False
+  return True
 
 
 def comparison_safe_threshold(thresholds: DimArray, data_dtype,
@@ -737,4 +995,71 @@ def dot(*arrays: DimArray, dim: Sequence[str] | str) -> DimArray:
   spec += '->' + ''.join(letters[d] for d in out_dims)
   data = torch.einsum(spec, *operands)
   return DimArray(data, out_dims,
+                  _merge_coords(out_dims, *[a.coords for a in arrays]))
+
+
+def dot_batched(stats: Sequence[DimArray], *operands: DimArray,
+                dim: Sequence[str] | str) -> list[DimArray]:
+  """Contracts several same-layout arrays against shared operands at once.
+
+  The results of ``[dot(s, *operands, dim=dim) for s in stats]`` (the rows
+  of a contraction are independent) from one contraction over the
+  statistics stacked on a new leading axis.
+  """
+  stats = list(stats)
+  if not stats:
+    return []
+  first = stats[0]
+  for s in stats[1:]:
+    if s.dims != first.dims or s.shape != first.shape:
+      raise ValueError('dot_batched requires identical dims/shape: '
+                       f'{s.dims}{s.shape} vs {first.dims}{first.shape}')
+  if len(stats) == 1:
+    return [dot(first, *operands, dim=dim)]
+  batch_dim = '__stack__'
+  if batch_dim in first.dims:
+    raise ValueError(f'{batch_dim!r} is reserved for the stacking axis')
+  stacked = DimArray(
+      torch.stack(_on_one_device(*[s.data for s in stats])),
+      (batch_dim,) + first.dims,
+      {k: c for k, c in first.coords.items()
+       if set(c.dims).issubset(first.dims)})
+  outb = dot(stacked, *operands, dim=dim)
+  ax = outb.dims.index(batch_dim)
+  out_dims = tuple(d for d in outb.dims if d != batch_dim)
+  # Each entry's own coords are merged as dot() would merge them.
+  return [DimArray(outb.data.select(ax, i), out_dims,
+                   _merge_coords(out_dims, s.coords,
+                                 *[a.coords for a in operands]))
+          for i, s in enumerate(stats)]
+
+
+def apply_ufunc(
+    fn: Callable,
+    *arrays: DimArray,
+    input_core_dims: Sequence[Sequence[str]] | None = None,
+    output_core_dims: Sequence[Sequence[str]] = ((),),
+) -> DimArray:
+  """Applies a raw-tensor function over broadcast dims with core dims last.
+
+  A minimal ``xr.apply_ufunc(..., vectorize=False)``: inputs are transposed
+  so that their core dims are the trailing axes, batch dims are broadcast
+  by name, and ``fn`` maps core-dim tensors to a core-dim tensor. One
+  output only.
+  """
+  input_core_dims = input_core_dims or [()] * len(arrays)
+  batch_dims = broadcast_dims(*[
+      tuple(d for d in a.dims if d not in set(icd))
+      for a, icd in zip(arrays, input_core_dims)])
+  sizes: dict[str, int] = {}
+  for a in arrays:
+    sizes.update(a.sizes)
+  bshape = tuple(sizes[d] for d in batch_dims)
+  ops = []
+  for a, data, icd in zip(arrays, _on_one_device(*[a.data for a in arrays]),
+                          input_core_dims):
+    d = _expand_to(data, a.dims, tuple(batch_dims) + tuple(icd))
+    ops.append(d.expand(bshape + tuple(d.shape[len(batch_dims):])))
+  out_dims = tuple(batch_dims) + tuple(output_core_dims[0])
+  return DimArray(fn(*ops), out_dims,
                   _merge_coords(out_dims, *[a.coords for a in arrays]))

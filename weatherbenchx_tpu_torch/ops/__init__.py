@@ -1,1 +1,3 @@
-"""Hand-written CUDA kernels of the PyTorch port, with their plain versions."""
+"""Array operations of the PyTorch port: the hand-written CUDA kernels with
+their plain versions (``crps_pairwise``), and the neighborhood convolution
+in torch ops (``conv``)."""

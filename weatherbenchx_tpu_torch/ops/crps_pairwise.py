@@ -20,7 +20,8 @@ member count M alone (``spread_form``), both hand-written CUDA:
   ``sort_network(M)``; the spread is the weighted sum of order statistics
   that ``pairwise_spread_sum_plain`` computes;
 * ``shared`` (larger M): the members staged in shared memory and a pair
-  loop run over them.
+  loop run over them; past 256 members the pair sum is added in two
+  levels, and past ``TILE_MEMBERS`` the ensemble is walked tile by tile.
 
 ``_build`` compiles one network kernel per M of ``REGISTER_MEMBERS``, the
 networks written out as straight-line code from ``sort_network``.
@@ -34,10 +35,20 @@ import torch
 from weatherbenchx_tpu_torch.ops import _build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Shared memory one block may use on Hopper, and the fewest gridpoints a
-# block stages: the shared form needs M * 32 * 4 bytes at least.
-_MAX_SHARED_BYTES = 232448
-_MIN_BLOCK_POINTS = 32
+# The members one shared-memory tile holds: 227 KB (232,448 bytes, what a
+# block may use on Hopper) over 32 gridpoints of 4 bytes, the kernels'
+# smallest block. A larger ensemble (for the cross sum, a larger SMALLER
+# ensemble) is walked tile by tile inside the kernel, the later members
+# streamed from device memory: no size takes another route on the card.
+TILE_MEMBERS = 232448 // (32 * 4)
+# The most members the kernels' entry points take.
+MAX_MEMBERS = 1 << 20
+
+
+def member_tiles(m: int) -> int:
+  """How many shared-memory tiles the kernels walk for m staged members."""
+  return -(-m // TILE_MEMBERS)
+
 
 # The member counts whose kernels hold the ensemble in registers and sort
 # it. Every one sorts: on an H100 a register pair loop tied the network
@@ -178,10 +189,9 @@ def _check_kernel_input(x: torch.Tensor, min_members: int = 2) -> None:
   m = x.shape[0]
   if m < min_members:
     raise ValueError(f'need at least {min_members} ensemble members, got {m}')
-  if m * _MIN_BLOCK_POINTS * 4 > _MAX_SHARED_BYTES:
-    raise ValueError(
-        f'{m} members do not fit one block\'s shared memory '
-        f'({m} x {_MIN_BLOCK_POINTS} x 4 B > {_MAX_SHARED_BYTES} B)')
+  if m > MAX_MEMBERS:
+    raise ValueError(f'CUDA kernel takes at most {MAX_MEMBERS} ensemble '
+                     f'members, got {m}')
 
 
 def _raise_on_error(rc: int, name: str) -> None:
@@ -221,14 +231,13 @@ def _launch_stats(x: torch.Tensor, y):
 def _launch_cross(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
   """x (Mx, N), y (My, N), both contiguous on one CUDA device.
 
-  The kernel stages the smaller ensemble in shared memory, so only that
-  one has to fit there.
+  The kernel stages the smaller ensemble in shared memory and streams the
+  larger one past it.
   """
   mx, n = x.shape
   my = y.shape[0]
-  _check_kernel_input(x if mx <= my else y, min_members=1)
-  if not (x.is_contiguous() and y.is_contiguous()):
-    raise ValueError('CUDA kernel input must be contiguous')
+  _check_kernel_input(x, min_members=1)
+  _check_kernel_input(y, min_members=1)
   out = torch.empty((n,), dtype=x.dtype, device=x.device)
   if n:
     rc = _build.load_library().wbx_pairwise_cross_sum(

@@ -191,27 +191,16 @@ class ChunkEvaluator:
       self, statistics: Mapping[str, Mapping[Hashable, DimArray]]) -> dict:
     """Device-resident weights and bin masks for these statistics.
 
-    Built on the host once per statistic layout (``_layout_key``), uploaded
-    once, and cached across chunks. Returns ``{stat_name: {var: [DimArray]
-    | None}}`` for ``Aggregator.aggregate_statistics``.
+    ``Aggregator.prepare_operands`` over this evaluator's layout cache:
+    built on the host once per statistic layout, uploaded once, and kept
+    across chunks (the oldest layouts dropped past ``_OPERAND_CACHE_SIZE``).
+    Returns ``{stat_name: {var: [DimArray] | None}}`` for
+    ``Aggregator.aggregate_statistics``.
     """
-    out: dict = {}
-    for name, per_var in statistics.items():
-      out[name] = {}
-      for var, stat in per_var.items():
-        if stat is None:
-          continue
-        if stat.dtype == torch.bool:
-          stat = stat.astype(torch.float32)  # as aggregate_statistics does
-        key = aggregation_lib._layout_key(stat)
-        if key not in self._operand_cache:
-          ops = self.aggregator.aggregation_operands(stat)
-          if ops is not None:
-            ops = [op.copy(data=op.data.to(self.device)) for op in ops]
-          if len(self._operand_cache) >= _OPERAND_CACHE_SIZE:
-            self._operand_cache.pop(next(iter(self._operand_cache)))
-          self._operand_cache[key] = ops
-        out[name][var] = self._operand_cache[key]
+    out = self.aggregator.prepare_operands(
+        statistics, self._operand_cache, self.device)
+    while len(self._operand_cache) > _OPERAND_CACHE_SIZE:
+      self._operand_cache.pop(next(iter(self._operand_cache)))
     return out
 
   def _eval(self, predictions, targets) -> aggregation_lib.AggregationState:
