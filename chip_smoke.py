@@ -111,6 +111,48 @@ script exits nonzero:
    three longest kernels by torch.profiler, the host-fed eval_chunk and
    the peak device memory.
 
+12. The station path: 6,000 METAR-like stations from the seed (hourly
+   reports, ~97% arriving, ~1% filed twice, 2% of values QC-flagged, times
+   within 15 minutes of the hour) against a 0.25-degree forecast of 2m
+   temperature and 10 m wind speed, 8 inits x 41 leads (0-240 h), one init
+   per chunk, through EvaluationPipeline on the card: the forecast
+   interpolated to the stations by GridToSparseWithAltitudeAdjustment
+   (bilinear, longitude wrapping, a seeded grid elevation); an in-memory
+   station loader picks each station's closest report (first filed on
+   ties) within 30 minutes, on a fixed index of every station, NaN mask,
+   padded to a multiple of 1,024; masked aggregation over the index by
+   BySets (3 station networks), init and lead kept; RMSE, bias and MAE; a
+   chunk_stats_sink into a zarr v2 ZarrStatsStore (masked points NaN).
+   Values within 1e-5 of a float64 numpy reference that does its own
+   bilinear gather, altitude adjustment and report selection; the store
+   read back with load_unaggregated, its sums per network within 1e-6 of
+   the state (equality by torch.equal printed). Prints seconds per chunk,
+   the interpolation's share, operand layouts built and the cost of one
+   rebuild, peak memory. Sub-case: one chunk of a 50-member ensemble x 4
+   leads at the stations (fair CRPS, spread/skill, ensemble-mean RMSE),
+   exactly one fused launch with the sink on, and the fused kernel against
+   its plain version on that NaN-padded station layout.
+13. Unaggregated statistics at full width: one chunk of phase 6's
+   configuration with chunk_stats_sink streaming every statistic (SEEPS's
+   masked points NaN) into a zarr v2 blosc store in a git-ignored
+   directory (free disk checked; variables cut only if it lacks room, and
+   then said), deleted after; the state equal by torch.equal to the same
+   chunk's without the sink; the sink's GB/s, bytes on disk and the cost
+   of the host copies. Phase 8 also runs the benchmark CLI with
+   --unaggregated_zarr into zarr v2 blosc and v3 sharded zstd stores.
+14. Significance at scorecard size: a state with init_time kept, 730 inits
+   x 41 leads x 34 bins x phase 6's 25 field-levels at 1.5 degrees, RMSE
+   and bias of a main and a baseline forecast whose errors are AR(1) in
+   init time (phi 0.6), main offset by 0.5, built by ChunkEvaluator.
+   eval_accum from chunks made on the card; on it, t_test.IID,
+   GeerAR2Corrected, LazarusHACEWC, IIDBootstrap and ClusterBootstrap (by
+   day) with 1,000 replicates, the paired HAC-EWC for_baseline_comparison,
+   and StationaryBootstrap on one field-level of one region. Checks: the
+   IID standard error of RMSE against its float64 closed form, every
+   method on the card against the same call on a CPU copy of three
+   field-levels (1e-9 relative to max(|value|, 1)), the paired test's
+   p-values below 0.01. Prints each method's seconds and peak memory.
+
 The last three lines are a JSON object describing the three kernels, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -1097,12 +1139,13 @@ def bench_sources(stores, paths=None) -> dict:
   return out
 
 
-def bench_pipeline(stores, registry, sources):
-  """The benchmark CLI's own construction over the stores' configs."""
+def bench_pipeline(stores, registry, sources, variables=None):
+  """The benchmark CLI's own construction over the stores' configs (every
+  variable of the stores unless ``variables`` names some)."""
   from weatherbenchx_tpu_torch import time_chunks
   from weatherbenchx_tpu_torch.apps import run_benchmark_evaluation as cli
   from weatherbenchx_tpu_torch.parallel import pipeline
-  variables, levels = bench_variables(), list(BENCH_LEVELS)
+  variables, levels = variables or bench_variables(), list(BENCH_LEVELS)
   p_loader, t_loader = cli.build_loaders(
       'hres', sources['predictions'], sources['targets'], variables, levels)
   climatology = cli.load_climatology(sources['climatology'], variables,
@@ -1711,6 +1754,49 @@ def bench_cli_from_zarr(tmp: str, paths: dict, det: dict, ens: dict) -> dict:
   return kernel_launches(out)
 
 
+def bench_cli_unaggregated(tmp: str, paths: dict, det: dict) -> None:
+  """Phase 8's deterministic run again with --unaggregated_zarr, into a
+  zarr v2 blosc store and a v3 sharded zstd store: the metrics equal to the
+  run without it bit for bit, and the stored squared errors of
+  geopotential equal to (prediction - target)^2 from the .npz stores."""
+  import torch
+  from weatherbenchx_tpu_torch import io, zarr_io
+  pred = io.load_dataset(paths['hres'])['geopotential'].values
+  tgt = io.load_dataset(paths['era5'])['geopotential'].values
+  vpos = 2 * np.arange(BENCH_CLI_INITS)[:, None] + np.arange(4)[None, :]
+  want = (torch.from_numpy(pred) - torch.from_numpy(tgt[vpos])) ** 2
+  for label, extra in (
+      ('zarr v2 blosc', ['--zarr_compressor=blosc']),
+      ('zarr v3 sharded zstd', ['--zarr_format=3', '--zarr_compressor=zstd',
+                                '--zarr_shards=init_time=4,lead_time=4'])):
+    out = f'{tmp}/unagg_{len(extra)}'
+    t0 = time.perf_counter()
+    run_bench_cli(['--prediction=hres', f'--prediction_path={paths["hres"]}',
+                   f'--target_path={paths["era5"]}',
+                   f'--climatology_path={paths["clim"]}',
+                   '--variables=geopotential,2m_temperature',
+                   f'--output_dir={out}', '--unaggregated_zarr', *extra])
+    seconds = time.perf_counter() - t0
+    got = io.load_dataset(f'{out}/hres_vs_era5_64x32_2020-init12h.npz')
+    if sorted(got) != sorted(det) or not all(
+        np.array_equal(got[k].values, det[k].values, equal_nan=True)
+        for k in det):
+      raise AssertionError(f'benchmark CLI with --unaggregated_zarr ({label}) '
+                           'changed the metrics')
+    stats = zarr_io.open_dataset_zarr(
+        f'{out}/hres_vs_era5_64x32_2020-init12h_stats.zarr')
+    se = stats['SquaredError.geopotential'].transpose(
+        'init_time', 'lead_time', 'level', 'latitude', 'longitude').data
+    _, rel, _ = rel_err(se, want)
+    if se.shape != want.shape or rel > 1e-6:
+      raise AssertionError(f'benchmark CLI {label} store: SquaredError '
+                           f'{tuple(se.shape)}, {rel:.3g} from the stores')
+    log(f'benchmark cli --unaggregated_zarr ({label}): {len(stats)} '
+        f'statistic arrays, SquaredError.geopotential {tuple(se.shape)} within '
+        f'{rel:.3g} of (prediction - target)^2; metrics equal to the run '
+        f'without the flag bit for bit; {seconds:.1f} s ok')
+
+
 def benchmark_cli_phase(seed: int) -> dict:
   """Phase 8: python -m ...run_benchmark_evaluation --device cuda on .npz
   stores, deterministic (RMSE = sqrt(2), ACC = 1/2) and --prediction=ens
@@ -1729,6 +1815,7 @@ def benchmark_cli_phase(seed: int) -> dict:
     det = io.load_dataset(
         f'{tmp}/det/hres_vs_era5_64x32_2020-init12h.npz')
     det_s = time.perf_counter() - t0
+    bench_cli_unaggregated(tmp, paths, det)
     t0 = time.perf_counter()
     out = run_bench_cli(['--prediction=ens',
                          f'--prediction_path={paths["ens"]}',
@@ -1925,11 +2012,13 @@ def timing_fields(res: dict, key: str, work: tuple, form: str,
           'form': form}
 
 
-def kernels_line(main_launches, ens_launches, main_err, res, n) -> dict:
+def kernels_line(main_launches, ens_launches, main_err, res, n,
+                 station) -> dict:
   """The `kernels` JSON: fused and spread at M = 50, cross at 50 x 10, and
-  the spread's M = 10 launch (the ensemble path's analysis) beside it. No
-  single PyTorch call computes any of the three functions, so library_ms
-  is null."""
+  the spread's M = 10 launch (the ensemble path's analysis) beside it; the
+  fused kernel's launch and error on the station path (phase 12) beside
+  its main path's. No single PyTorch call computes any of the three
+  functions, so library_ms is null."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   csrc = 'weatherbenchx_tpu_torch/ops/csrc/'
   replaced = 'weatherbenchx_tpu/ops/crps_pairwise.py'
@@ -1949,6 +2038,9 @@ def kernels_line(main_launches, ens_launches, main_err, res, n) -> dict:
       'max_abs_err': max(main_err[k] for k in (
           'spread_sum', 'skill_sum', 'mean', 'sq_dev_sum')),
       **timing_fields(res, 'fused', stats_work(M, n, True), f50, copy_bytes),
+      'station_path': {
+          'launches': station['launches']['fused_ensemble_stats'],
+          'shape': station['shape'], 'max_abs_err': station['max_abs_err']},
   }, {
       'name': 'pairwise_spread_sum', 'route': 'cuda', 'source': register,
       'replaces': f'{replaced}:{spread_line(M)}',
@@ -2108,6 +2200,795 @@ def family_phase(seed: int, card: str) -> dict:
   return report
 
 
+# -- Phase 12, the station path --------------------------------------------------
+
+# METAR stations scored against a 0.25-degree forecast, as
+# tools/sparse_scale_demo.py shapes them: 6,000 stations with seeded
+# positions and elevations, hourly reports of which about 97% arrive, about
+# 1% are filed twice and 2% of each variable's values carry a bad QC flag;
+# report times jitter within 15 minutes of the hour. The forecast: one init
+# per chunk, 41 leads (0-240 h every 6 h), 2m temperature and 10 m wind
+# speed on 721 x 1440. Cut: 8 inits (00 and 12 UTC from 2020-01-01), not a
+# month's 62.
+STATIONS = 6000
+STATION_INITS = 8
+STATION_LEADS = 41
+STATION_VARIABLES = ('2m_temperature', '10m_wind_speed')
+STATION_NETWORKS = 3
+STATION_PAD = 1024
+STATION_TOLERANCE = np.timedelta64(30, 'm')
+# Values against the float64 reference, relative to max(|value|, 1) (the
+# bias sits near 0); the stored statistics' sums against the state's,
+# relative to the sum of the terms' magnitudes.
+STATION_F64_RTOL = 1e-5
+STATION_STORE_RTOL = 1e-6
+# The ensemble sub-case: 50 members of 2m temperature x 4 leads, one chunk.
+STATION_ENSEMBLE_LEADS = 4
+STATION_GRID = (721, 1440)
+
+
+def station_table(seed: int) -> dict:
+  """The stations and their reports (numpy, host): per report its time,
+  station and one value per variable, NaN where its QC flag is bad."""
+  rng = np.random.default_rng([seed, 12000])
+  lat = rng.uniform(-65, 75, STATIONS)
+  lon = rng.uniform(0, 360, STATIONS)
+  elevation = np.abs(rng.normal(200, 350, STATIONS))
+  names = np.array([f'S{i:05d}' for i in range(STATIONS)])
+  start = np.datetime64('2020-01-01T00', 'ns')
+  hours = (STATION_INITS - 1) * 12 + (STATION_LEADS - 1) * 6 + 1
+  present = rng.random((hours, STATIONS)) < 0.97
+  hour, station = np.nonzero(present)
+  dup = rng.random(hour.size) < 0.01
+  hour = np.concatenate([hour, hour[dup]])
+  station = np.concatenate([station, station[dup]])
+  n = hour.size
+  jitter = rng.integers(-15, 15, n) * np.timedelta64(1, 'm')
+  values = {
+      '2m_temperature': (288 - 0.0065 * elevation[station]
+                         - 25 * np.cos(np.deg2rad(lat[station]))
+                         + 3 * rng.standard_normal(n)),
+      '10m_wind_speed': np.abs(5 + 2 * rng.standard_normal(n))}
+  for name in STATION_VARIABLES:
+    values[name][rng.random(n) < 0.02] = np.nan  # bad QC flag
+  return {'lat': lat, 'lon': lon, 'elevation': elevation, 'names': names,
+          'time': start + hour * np.timedelta64(1, 'h') + jitter,
+          'hour': hour, 'station': station, 'values': values}
+
+
+def station_loader(table: dict, leads, variables=STATION_VARIABLES):
+  """An in-memory station loader: for each (init, lead) point, each
+  station's report closest to the valid time within the tolerance (the
+  first filed on ties), its QC-flagged values NaN, on a fixed ``index`` of
+  every station (NaN where none reported); then the NaN mask and the
+  padding of ``index`` to a multiple of STATION_PAD."""
+  from weatherbenchx_tpu_torch.darray import Coord, DimArray
+  from weatherbenchx_tpu_torch.data import base as data_base
+  order = np.argsort(table['time'], kind='stable')
+  times = table['time'][order]
+  coords = {'latitude': Coord(('index',), table['lat']),
+            'longitude': Coord(('index',), table['lon']),
+            'elevation': Coord(('index',), table['elevation']),
+            'stationName': Coord(('index',), table['names'])}
+
+  class StationReports(data_base.DataLoader):
+
+    def _load_chunk_from_source(self, init_times, lead_times=None):
+      valid = (init_times[:, None].astype('datetime64[ns]')
+               + lead_times[None, :].astype('timedelta64[ns]'))
+      out = {v: np.full(valid.shape + (STATIONS,), np.nan, np.float32)
+             for v in variables}
+      for i, j in np.ndindex(valid.shape):
+        lo, hi = np.searchsorted(times, [valid[i, j] - STATION_TOLERANCE,
+                                         valid[i, j] + STATION_TOLERANCE])
+        rows = np.sort(order[lo:hi])  # in filing order
+        gap = np.abs(table['time'][rows] - valid[i, j])
+        ranked = rows[np.argsort(gap, kind='stable')]
+        _, first = np.unique(table['station'][ranked], return_index=True)
+        keep = ranked[first]
+        for v in variables:
+          out[v][i, j, table['station'][keep]] = table['values'][v][keep]
+      dims = ('init_time', 'lead_time', 'index')
+      return {v: DimArray(out[v], dims, {
+          'init_time': init_times, 'lead_time': lead_times,
+          'valid_time': Coord(('init_time', 'lead_time'), valid), **coords})
+              for v in variables}
+
+  return StationReports(add_nan_mask=True, pad_index_multiple=STATION_PAD)
+
+
+def station_grid_elevation(seed: int):
+  """A seeded grid elevation in metres (float32), latitude ascending."""
+  from weatherbenchx_tpu_torch.darray import DimArray
+  rng = np.random.default_rng([seed, 12001])
+  return DimArray((rng.random(STATION_GRID) * 2000).astype(np.float32),
+                  ('latitude', 'longitude'), station_space())
+
+
+def station_space() -> dict:
+  nlat, nlon = STATION_GRID
+  return {'latitude': np.linspace(-90, 90, nlat),
+          'longitude': np.arange(nlon) * (360 / nlon)}
+
+
+def station_forecast(seed: int, inits, leads, members=None,
+                     variables=STATION_VARIABLES) -> dict:
+  """The forecast store (host), generated on the card from the seed."""
+  import torch
+  from weatherbenchx_tpu_torch.darray import DimArray
+  gen = torch.Generator(device=DEVICE)
+  gen.manual_seed(seed + 12002)
+  lat = torch.linspace(-90, 90, STATION_GRID[0], device=DEVICE)[:, None]
+  lead_shape = ((members,) if members else ()) + (len(inits), len(leads))
+  out = {}
+  for name in variables:
+    z = torch.randn(lead_shape + STATION_GRID, generator=gen, device=DEVICE)
+    if name == '2m_temperature':
+      field = 288 - 25 * torch.cos(torch.deg2rad(lat)) + 3 * z
+    else:
+      field = (5 + 2 * z).abs()
+    dims = ((('number',) if members else ())
+            + ('init_time', 'lead_time', 'latitude', 'longitude'))
+    coords = {'init_time': inits, 'lead_time': leads, **station_space()}
+    if members:
+      coords['number'] = np.arange(members)
+    out[name] = DimArray(field.cpu().numpy(), dims, coords)
+    del z, field
+  return out
+
+
+def station_networks(table: dict) -> dict:
+  return {f'network_{k}': table['names'][k::STATION_NETWORKS]
+          for k in range(STATION_NETWORKS)}
+
+
+def bilinear_f64(grid: np.ndarray, lat: np.ndarray, lon: np.ndarray):
+  """float64 bilinear gather from (..., *STATION_GRID) at the stations, the
+  longitude wrapping; independent of the port's interpolation."""
+  nlat, nlon = STATION_GRID
+  fi = (lat + 90) / (180 / (nlat - 1))
+  i0 = np.clip(np.floor(fi).astype(int), 0, nlat - 2)
+  fi = fi - i0
+  fj = lon / (360 / nlon)
+  j0 = np.floor(fj).astype(int)
+  fj = fj - j0
+  j0 %= nlon
+  j1 = (j0 + 1) % nlon
+  g = grid.astype(np.float64)
+  return ((1 - fi) * (1 - fj) * g[..., i0, j0] + (1 - fi) * fj * g[..., i0, j1]
+          + fi * (1 - fj) * g[..., i0 + 1, j0] + fi * fj * g[..., i0 + 1, j1])
+
+
+def altitude_adjusted_f64(name: str, values, table: dict, grid_elev):
+  """The altitude adjustment in float64 (Ingleby 2014, section 3.3)."""
+  dz = table['elevation'] - bilinear_f64(grid_elev, table['lat'],
+                                         table['lon'])
+  dz = np.where(np.abs(dz) < 1500, dz, 0.0)
+  if name == '2m_temperature':
+    return values - 0.0065 * dz
+  factor = np.where(dz < 100, 1.0, 1 + 0.002 * (dz - 100))
+  return values * np.where(dz < 1100, factor, 3.0)
+
+
+def station_f64_reference(table, forecast, grid_elev, inits, leads) -> dict:
+  """RMSE, bias and MAE per (init, lead, network) in float64 from the raw
+  report table (no loader): each station's report closest to the valid
+  time, QC-flagged values missing."""
+  start = np.datetime64('2020-01-01T00', 'ns')
+  gap = np.abs(table['time'] - (start + table['hour'] * np.timedelta64(
+      1, 'h')))
+  networks = station_networks(table)
+  member = np.stack([np.isin(table['names'], v) for v in networks.values()])
+  out = {}
+  # Per (hour, station) the report of least gap, the first filed on ties.
+  rows = np.lexsort((np.arange(gap.size), gap, table['station'],
+                     table['hour']))
+  h, s = table['hour'][rows], table['station'][rows]
+  pick = rows[np.r_[True, (h[1:] != h[:-1]) | (s[1:] != s[:-1])]]
+  for name in STATION_VARIABLES:
+    obs = np.full(((STATION_INITS - 1) * 12 + (STATION_LEADS - 1) * 6 + 1,
+                   STATIONS), np.nan)
+    obs[table['hour'][pick], table['station'][pick]] = (
+        table['values'][name][pick])
+    pred = bilinear_f64(forecast[name].values, table['lat'], table['lon'])
+    pred = altitude_adjusted_f64(name, pred, table, grid_elev)
+    hour = ((inits[:, None] - start) / np.timedelta64(1, 'h')
+            + leads[None, :] / np.timedelta64(1, 'h')).astype(int)
+    err = pred - obs[hour]  # (init, lead, station)
+    ok = ~np.isnan(err)
+    e = np.where(ok, err, 0.0)
+    count = np.einsum('ils,ns->iln', ok.astype(float), member)
+    out[f'rmse.{name}'] = np.sqrt(np.einsum('ils,ns->iln', e ** 2, member)
+                                  / count)
+    out[f'bias.{name}'] = np.einsum('ils,ns->iln', e, member) / count
+    out[f'mae.{name}'] = np.einsum('ils,ns->iln', np.abs(e), member) / count
+  return out
+
+
+def masked_to_nan(flat: dict) -> dict:
+  """A sink's statistics with their mask applied (NaN where it is False)
+  and dropped: a store keeps no mask (ZarrStatsStore refuses one, as the
+  JAX package's does), so the NaN carries it."""
+  from weatherbenchx_tpu_torch.darray import DimArray
+  out = {}
+  for key, da in flat.items():
+    if da.has_coord('mask'):
+      c = da.coords['mask']
+      da = da.where(DimArray(np.asarray(c.values), c.dims)).drop_coords(
+          'mask')
+    out[key] = da
+  return out
+
+
+class Timed:
+  """Wraps an interpolation's ``interpolate`` to add up its seconds."""
+
+  def __init__(self, inner):
+    self.inner, self.seconds, self.calls = inner, 0.0, 0
+
+  def interpolate(self, ds, reference=None):
+    t0 = time.perf_counter()
+    out = self.inner.interpolate(ds, reference)
+    self.seconds += time.perf_counter() - t0
+    self.calls += 1
+    return out
+
+
+def station_path(seed: int, card: str) -> dict:
+  """Phase 12: the station path on the card, against float64; the sink's
+  zarr store read back against the state; the ensemble sub-case's fused
+  launches."""
+  import shutil
+  import torch
+  from weatherbenchx_tpu_torch import aggregation, binning, interpolations
+  from weatherbenchx_tpu_torch import time_chunks
+  from weatherbenchx_tpu_torch.data import loaders
+  from weatherbenchx_tpu_torch.metrics import deterministic, probabilistic
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import pipeline, unaggregated
+  t0 = time.perf_counter()
+  table = station_table(seed)
+  inits = (np.datetime64('2020-01-01T00', 'ns')
+           + np.arange(STATION_INITS) * np.timedelta64(12, 'h'))
+  leads = (np.arange(STATION_LEADS) * np.timedelta64(6, 'h')).astype(
+      'timedelta64[ns]')
+  forecast = station_forecast(seed, inits, leads)
+  grid_elev = station_grid_elevation(seed)
+  log(f'station path: {STATIONS} stations, {table["time"].size} reports, '
+      f'forecast {len(inits)} x {len(leads)} x {STATION_GRID} x '
+      f'{len(STATION_VARIABLES)} float32 made in '
+      f'{time.perf_counter() - t0:.1f} s')
+  interp = Timed(interpolations.GridToSparseWithAltitudeAdjustment(
+      'linear', grid_elevation=grid_elev, dims=['latitude', 'longitude'],
+      wrap_longitude=True))
+  predictions = loaders.PredictionsFromDataset(
+      ds=forecast, rename_dimensions=None, interpolation=interp)
+  networks = station_networks(table)
+  aggregator = aggregation.Aggregator(
+      reduce_dims=['index'], masked=True,
+      bin_by=[binning.BySets(networks, 'stationName', bin_dim_name='network')])
+  metrics = {'rmse': deterministic.RMSE(), 'bias': deterministic.Bias(),
+             'mae': deterministic.MAE()}
+  times = time_chunks.TimeChunks(inits, leads, init_time_chunk_size=1)
+  store_path = os.path.join(DISK_STORE_DIR, 'station_stats.zarr')
+  shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  os.makedirs(DISK_STORE_DIR)
+  try:
+    store = unaggregated.ZarrStatsStore(times, store_path)
+    pipe = pipeline.EvaluationPipeline(
+        metrics=metrics, aggregator=aggregator,
+        predictions_loader=predictions, targets_loader=station_loader(
+            table, leads), times=times, device=DEVICE,
+        chunk_stats_sink=lambda i, o, flat: store.write_chunk(
+            i, o, masked_to_nan(flat)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = pipe.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    store.finalize()
+    stored = unaggregated.load_unaggregated(store_path)
+    values = state.metric_values(metrics)
+    ref = station_f64_reference(table, forecast, grid_elev.values, inits,
+                                leads)
+    worst = 0.0
+    for key, want in ref.items():
+      da = values[key].transpose('init_time', 'lead_time', 'network')
+      got = da.values.astype(np.float64)
+      if da.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f'station path {key}: shape {da.shape}, '
+                             'or non-finite values')
+      rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1)).max())
+      if rel > STATION_F64_RTOL:
+        raise AssertionError(f'station path {key}: rel err vs float64 '
+                             f'{rel:.3g} > {STATION_F64_RTOL}')
+      worst = max(worst, rel)
+    # The store, read back: its masked statistics summed per network, one
+    # chunk at a time by the aggregation's own contraction (float32 on the
+    # card), against the state's weighted sums; the difference relative to
+    # the sum of the terms' magnitudes (the bias's terms cancel).
+    sums_equal, store_rel = True, 0.0
+    names = np.append(table['names'], [''] * (
+        stored['SquaredError.2m_temperature'].sizes['index'] - STATIONS))
+    member = torch.from_numpy(np.stack(
+        [np.isin(names, v) for v in networks.values()])).float().to(DEVICE)
+    for key, da in stored.items():
+      stat, var = key.split('.', 1)
+      x = torch.nan_to_num(da.transpose('init_time', 'lead_time', 'index')
+                           .data.to(DEVICE))
+      got = torch.cat([torch.einsum('ils,ns->iln', x[i:i + 1], member)
+                       for i in range(x.shape[0])])
+      scale = torch.einsum('ils,ns->iln', x.double().abs(), member.double())
+      ws = state.sum_weighted_statistics[stat][var].transpose(
+          'init_time', 'lead_time', 'network').data.float().to(DEVICE)
+      store_rel = max(store_rel, float(
+          ((got.double() - ws.double()).abs() / scale.clamp(min=1e-30)
+           ).max()))
+      sums_equal &= bool(torch.equal(got, ws))
+    if store_rel > STATION_STORE_RTOL:
+      raise AssertionError(f'station path: the stored statistics sum to '
+                           f'{store_rel:.3g} from the state')
+    on_disk = tree_bytes(store_path)
+  finally:
+    shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  per_chunk = seconds / STATION_INITS
+  interp_s = interp.seconds / max(interp.calls, 1)
+  timers = {k: round(d.mean, 4) for k, d in pipe._obs.timings.items()
+            if k in ('load_targets_seconds', 'load_predictions_seconds',
+                     'eval_chunk_seconds', 'chunk_stats_sink_seconds')}
+  # The trap of a flat report layout: a chunk whose station set changes
+  # rebuilds its weights and bin masks. One such build, cold, on the card.
+  flat = station_loader(table, leads).load_chunk(inits[:1], leads)
+  stat = flat['2m_temperature'].isel(index=np.random.default_rng(
+      seed).permutation(STATIONS))
+  t1 = time.perf_counter()
+  aggregator.prepare_operands({'s': {'v': stat}}, {}, DEVICE)
+  torch.cuda.synchronize()
+  rebuild = time.perf_counter() - t1
+  log(f'station path: {len(ref)} metric arrays within {worst:.3g} of '
+      f'float64 (tol {STATION_F64_RTOL}, relative to max(|value|, 1)); the '
+      f'zarr v2 store read back ({len(stored)} arrays, {on_disk} bytes): '
+      f'its masked sums within {store_rel:.3g} of the state (tol '
+      f'{STATION_STORE_RTOL}), equal by torch.equal: {sums_equal}')
+  log(f'station path: {per_chunk:.3f} s per chunk ({STATION_INITS} chunks of '
+      f'{STATION_LEADS} leads x {STATIONS} stations padded to a multiple of '
+      f'{STATION_PAD}), interpolation {interp_s:.3f} s per chunk '
+      f'({interp_s / per_chunk:.1%} of a chunk); per-chunk means (s) '
+      f'{json.dumps(timers)}; operand layouts built '
+      f'{pipe._evaluator.operand_builds} (a changed station set rebuilds: '
+      f'{rebuild * 1e3:.1f} ms cold); peak device memory '
+      f'{peak / 2**30:.3f} GiB; card {card}')
+  builds = pipe._evaluator.operand_builds
+  del forecast, predictions, pipe, state, flat, stat
+  ens = station_ensemble(seed, table, grid_elev, card)
+  return {'s_per_chunk': per_chunk, 'interp_s_per_chunk': interp_s,
+          'interp_share': interp_s / per_chunk, 'timers': timers,
+          'operand_builds': builds, 'rebuild_ms': rebuild * 1e3,
+          'peak_gib': peak / 2**30, 'max_rel_err': worst,
+          'store_rel': store_rel, 'store_sums_equal': sums_equal,
+          'store_bytes': on_disk, 'ensemble': ens}
+
+
+def station_ensemble(seed: int, table: dict, grid_elev, card: str) -> dict:
+  """Phase 12's sub-case: one chunk of a 50-member 2m temperature ensemble
+  x 4 leads at the stations, fair CRPS, spread/skill and ensemble-mean RMSE
+  through the pipeline with a sink on: one fused launch for the chunk; and
+  the kernel against its plain version on that chunk's NaN-padded station
+  layout."""
+  import torch
+  from weatherbenchx_tpu_torch import aggregation, binning, interpolations
+  from weatherbenchx_tpu_torch import time_chunks
+  from weatherbenchx_tpu_torch.data import loaders
+  from weatherbenchx_tpu_torch.metrics import probabilistic
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import pipeline
+  inits = np.array(['2020-01-01T00'], 'datetime64[ns]')
+  leads = (np.arange(STATION_ENSEMBLE_LEADS) * np.timedelta64(6, 'h')).astype(
+      'timedelta64[ns]')
+  variables = ('2m_temperature',)
+  forecast = station_forecast(seed + 1, inits, leads, members=M,
+                              variables=variables)
+  predictions = loaders.PredictionsFromDataset(
+      ds=forecast, rename_dimensions=None,
+      interpolation=interpolations.GridToSparseWithAltitudeAdjustment(
+          'linear', grid_elevation=grid_elev,
+          dims=['latitude', 'longitude'], wrap_longitude=True))
+  targets = station_loader(table, leads, variables)
+  metrics = {'crps': probabilistic.CRPSEnsemble(use_sort=True),
+             'spread_skill': probabilistic.UnbiasedSpreadSkillRatio(),
+             'unbiased_mean_rmse': probabilistic.UnbiasedEnsembleMeanRMSE()}
+  emitted = []
+  pipe = pipeline.EvaluationPipeline(
+      metrics=metrics, aggregator=aggregation.Aggregator(
+          reduce_dims=['index'], masked=True,
+          bin_by=[binning.BySets(station_networks(table), 'stationName',
+                                 bin_dim_name='network')]),
+      predictions_loader=predictions, targets_loader=targets,
+      times=time_chunks.TimeChunks(inits, leads, init_time_chunk_size=1),
+      device=DEVICE,
+      chunk_stats_sink=lambda i, o, flat: emitted.append(sorted(flat)))
+  cp.reset_launch_counts()
+  t0 = time.perf_counter()
+  state = pipe.run()
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = dict(cp.LAUNCHES)
+  if launches != {'fused_ensemble_stats': 1, 'pairwise_spread_sum': 0,
+                  'pairwise_cross_sum': 0} or len(emitted) != 1:
+    raise AssertionError(f'station ensemble: expected one fused launch for '
+                         f'its one chunk with the sink on, got {launches} '
+                         f'and {len(emitted)} sink calls')
+  values = state.metric_values(metrics)
+  for key, da in values.items():
+    if not np.isfinite(da.values).all():
+      raise AssertionError(f'station ensemble {key}: non-finite values')
+  # The kernel at the path's shape: members x init x lead x the padded
+  # station index, its padded rows NaN.
+  tgt = targets.load_chunk(inits, leads)
+  pred = predictions.load_chunk(inits, leads, reference=tgt)
+  x = pred['2m_temperature'].transpose(
+      'number', 'init_time', 'lead_time', 'index').data.to(DEVICE)
+  y = tgt['2m_temperature'].data.to(DEVICE)
+  got = cp.fused_ensemble_stats(x, y)
+  want = cp.fused_ensemble_stats_plain(x, y)
+  errs = [rel_err(g, w) for g, w in zip(got, want)]
+  if not all(same for same, _, _ in errs) or max(
+      r for _, r, _ in errs) > KERNEL_RTOL['float32']:
+    raise AssertionError(f'station ensemble: fused kernel against its plain '
+                         f'version on {tuple(x.shape)}: {errs}')
+  summary = {k: float(np.nanmean(da.values)) for k, da in values.items()}
+  log(f'station ensemble: {M} members x {STATION_ENSEMBLE_LEADS} leads at '
+      f'{STATIONS} stations, one chunk in {seconds:.3f} s; fused launches '
+      f'{launches["fused_ensemble_stats"]} with the sink on (statistics '
+      f'{emitted[0]}); network means {json.dumps(summary)}; fused kernel on '
+      f'{tuple(x.shape)} (padded rows NaN) against its plain version: max '
+      f'rel err {max(r for _, r, _ in errs):.3g}, max abs err '
+      f'{max(a for _, _, a in errs):.3g}; card {card}')
+  return {'seconds': seconds, 'launches': launches,
+          'max_abs_err': max(a for _, _, a in errs), 'shape': list(x.shape)}
+
+
+# -- Phase 13, unaggregated statistics at full width ------------------------------
+
+# One chunk of phase 6's configuration (25 field-levels x 12 leads x 721 x
+# 1440, 34 bins) with the pipeline's chunk_stats_sink streaming every
+# statistic into a zarr v2 blosc store under DISK_STORE_DIR: about 8
+# statistics x 25 field-levels of 12 x 721 x 1440 float32, ~10 GB at most.
+UNAGG_STORE_NEEDS_BYTES = 12 * 2**30
+
+
+def unaggregated_path(stores, card: str) -> dict:
+  """Phase 13: one chunk of phase 6's configuration with a chunk_stats_sink
+  into a zarr v2 blosc store; the state equal by torch.equal to the same
+  chunk's without the sink; the sink's rate and the bytes on disk."""
+  import shutil
+  import torch
+  from weatherbenchx_tpu_torch import observability, time_chunks, zarr_io
+  from weatherbenchx_tpu_torch.parallel import unaggregated
+  shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  os.makedirs(DISK_STORE_DIR)
+  variables = bench_variables()
+  free = shutil.disk_usage(DISK_STORE_DIR).free
+  cut = ''
+  if free < UNAGG_STORE_NEEDS_BYTES:
+    keep = max(1, int(len(variables) * free / UNAGG_STORE_NEEDS_BYTES))
+    variables = variables[:keep]
+    cut = (f'; CUT to {keep} of the {len(bench_variables())} variables: '
+           f'{free} bytes free, the store needs up to '
+           f'{UNAGG_STORE_NEEDS_BYTES}')
+  one = dict(stores, inits=stores['inits'][:1])
+  times = time_chunks.TimeChunks(one['inits'], one['leads'],
+                                 init_time_chunk_size=1,
+                                 lead_time_chunk_size=BENCH_LEADS)
+  path = os.path.join(DISK_STORE_DIR, 'bench_stats.zarr')
+  written = {'bytes': 0, 'arrays': 0}
+  try:
+    store = unaggregated.ZarrStatsStore(times, path, compressor='blosc')
+
+    def sink(i, offsets, flat):
+      flat = masked_to_nan(flat)
+      written['bytes'] += sum(da.data.numel() * da.data.element_size()
+                              for da in flat.values())
+      written['arrays'] += len(flat)
+      store.write_chunk(i, offsets, flat)
+
+    states, timers = {}, {}
+    for label, with_sink in (('sink', True), ('plain', False)):
+      registry = observability.Metrics()
+      pipe = bench_pipeline(one, registry, bench_sources(one), variables)
+      pipe.chunk_stats_sink = sink if with_sink else None
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      t0 = time.perf_counter()
+      states[label] = pipe.run()
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      timers[label] = {'seconds': seconds,
+                       'peak_gib': torch.cuda.max_memory_allocated() / 2**30,
+                       **{k: d.mean for k, d in registry.timings.items()}}
+      del pipe
+    t0 = time.perf_counter()
+    store.finalize()
+    finalize_s = time.perf_counter() - t0
+    on_disk = tree_bytes(path)
+    got, want = states['sink'].to_dataset(), states['plain'].to_dataset()
+    if sorted(got) != sorted(want) or not all(
+        torch.equal(got[k].data, want[k].data) for k in want):
+      raise AssertionError('unaggregated path: the state with the sink '
+                           'differs from the state without it')
+    opened = zarr_io.open_dataset_zarr(path)  # lazy: metadata and coords
+    if len(opened) != written['arrays'] or any(
+        da.sizes['init_time'] != 1 or da.sizes['lead_time'] != BENCH_LEADS
+        for da in opened.values()):
+      raise AssertionError('unaggregated path: the store does not hold the '
+                           'chunk\'s statistics')
+  finally:
+    shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  sink_s = timers['sink']['chunk_stats_sink_seconds']
+  copy_s = (timers['sink']['eval_chunk_seconds']
+            - timers['plain']['eval_chunk_seconds'])
+  log(f'unaggregated path: one chunk of phase 6\'s configuration '
+      f'({len(variables)} variables{cut}) streamed {written["arrays"]} '
+      f'statistic arrays, {written["bytes"]} bytes, into a zarr v2 blosc '
+      f'store: the sink {sink_s:.3f} s ({written["bytes"] / sink_s / 1e9:.3f} '
+      f'GB/s), finalize {finalize_s:.3f} s, {on_disk} bytes on disk; the '
+      f'host copies add {copy_s:.3f} s to eval_chunk '
+      f'({timers["sink"]["eval_chunk_seconds"]:.3f} against '
+      f'{timers["plain"]["eval_chunk_seconds"]:.3f} s); the chunk '
+      f'{timers["sink"]["seconds"]:.3f} s with the sink, '
+      f'{timers["plain"]["seconds"]:.3f} without; peak device memory '
+      f'{timers["sink"]["peak_gib"]:.2f} / {timers["plain"]["peak_gib"]:.2f} '
+      f'GiB; states equal by torch.equal ({len(want)} arrays); card {card}')
+  return {'variables': len(variables), 'bytes': written['bytes'],
+          'arrays': written['arrays'], 'sink_s': sink_s,
+          'GB_per_s': written['bytes'] / sink_s / 1e9,
+          'bytes_on_disk': on_disk, 'finalize_s': finalize_s,
+          'host_copy_s': copy_s, 'timers': timers}
+
+
+# -- Phase 14, significance at scorecard size -------------------------------------
+
+# A year of inits (2020, 00 and 12 UTC: 730) x 41 leads (0-240 h every
+# 6 h) x 34 bins x phase 6's 25 field-levels at 1.5 degrees (121 x 240):
+# RMSE and bias of a main and a baseline forecast against the same target,
+# their errors N(0, 1) per gridpoint, AR(1) in init time with phi = 0.6,
+# the main forecast offset by SIG_OFFSET. Each init is one chunk generated
+# on the card and evaluated by ChunkEvaluator.eval_accum; the per-init
+# states are concatenated on the card along init_time.
+SIG_INITS = 730
+SIG_LEADS = 41
+SIG_GRID = (121, 240)
+SIG_PHI = 0.6
+# Large enough that the paired test finds it in the smallest bin: with the
+# AR(1) inflation sqrt((1 + phi) / (1 - phi)) = 2, one gridpoint's paired
+# standard error over 730 inits is 2 sqrt(2 / 730) = 0.105, so 4.8 of them.
+SIG_OFFSET = 0.5
+SIG_REPLICATES = 1000
+SIG_RTOL = 1e-9  # card against CPU, and the IID closed form
+SIG_P_MAX = 0.01
+SIG_CPU_VARIABLE = 'geopotential'  # three field-levels (500, 700, 850)
+SIG_STATIONARY = ('2m_temperature', 'global')  # one field-level, one region
+
+
+def concat_states(states, dim: str):
+  """Per-chunk states joined along ``dim`` on their device."""
+  from weatherbenchx_tpu_torch import darray, tree
+  from weatherbenchx_tpu_torch.aggregation import AggregationState
+  def join(*parts):
+    return darray.concat(list(parts), dim)
+  return AggregationState(
+      tree.map_structure(join, *[s.sum_weighted_statistics for s in states]),
+      tree.map_structure(join, *[s.sum_weights for s in states]))
+
+
+def significance_states(seed: int, card: str) -> tuple:
+  """(main state, baseline state, seconds) with init_time kept, on the
+  card, from SIG_INITS chunks made on the card."""
+  import torch
+  from weatherbenchx_tpu_torch import aggregation, binning, weighting
+  from weatherbenchx_tpu_torch.aggregation import AggregationState
+  from weatherbenchx_tpu_torch.apps import configs
+  from weatherbenchx_tpu_torch.darray import Coord, DimArray
+  from weatherbenchx_tpu_torch.metrics import deterministic
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  nlat, nlon = SIG_GRID
+  lat = np.linspace(-90, 90, nlat)
+  lon = np.arange(nlon) * (360 / nlon)
+  land = ((np.floor(lat / 5)[:, None] + np.floor(lon / 5)[None, :]) % 2) == 0
+  aggregator = aggregation.Aggregator(
+      reduce_dims=['latitude', 'longitude'],
+      weigh_by=[weighting.GridAreaWeighting()],
+      bin_by=[binning.Regions(configs.REGIONS, land_sea_mask=DimArray(
+          land.astype(np.float32), ('latitude', 'longitude'),
+          {'latitude': lat, 'longitude': lon}))],
+      masked=True)
+  metrics = {'rmse': deterministic.RMSE(), 'bias': deterministic.Bias()}
+  ev = evaluator.ChunkEvaluator(metrics, aggregator, device=DEVICE)
+  inits = (np.datetime64('2020-01-01T00', 'ns')
+           + np.arange(SIG_INITS) * np.timedelta64(12, 'h'))
+  leads = (np.arange(SIG_LEADS) * np.timedelta64(6, 'h')).astype(
+      'timedelta64[ns]')
+  gen = torch.Generator(device=DEVICE)
+  gen.manual_seed(seed + 14000)
+  shapes = {}
+  for name in bench_variables():
+    lev = name in configs.UPPER_LEVEL_VARIABLES
+    shapes[name] = ((SIG_LEADS,) + ((len(BENCH_LEVELS),) if lev else ())
+                    + SIG_GRID, ('lead_time',) + (('level',) if lev else ())
+                    + ('latitude', 'longitude'),
+                    {'level': np.array(BENCH_LEVELS)} if lev else {})
+  err = {side: {name: torch.randn(shape, generator=gen, device=DEVICE)
+                for name, (shape, _, _) in shapes.items()}
+         for side in ('main', 'baseline')}
+  innovation = math.sqrt(1 - SIG_PHI ** 2)
+  states = {'main': [], 'baseline': []}
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for k in range(SIG_INITS):
+    coords = {'init_time': inits[k:k + 1], 'lead_time': leads,
+              'latitude': lat, 'longitude': lon}
+    targets, preds = {}, {'main': {}, 'baseline': {}}
+    for name, (shape, dims, lcoords) in shapes.items():
+      t = torch.randn(shape, generator=gen, device=DEVICE)
+      targets[name] = DimArray(t[None], ('init_time',) + dims,
+                               {**coords, **lcoords})
+      for side, offset in (('main', SIG_OFFSET), ('baseline', 0.0)):
+        if k:
+          e = err[side][name]
+          e.mul_(SIG_PHI).add_(torch.randn(shape, generator=gen,
+                                           device=DEVICE), alpha=innovation)
+        preds[side][name] = DimArray((t + offset + err[side][name])[None],
+                                     ('init_time',) + dims,
+                                     {**coords, **lcoords})
+    for side in states:
+      states[side].append(ev.eval_accum((preds[side], targets),
+                                        AggregationState.zero()))
+  day = Coord(('init_time',), inits.astype('datetime64[D]'))
+  out = [concat_states(states[side], 'init_time').map(
+      lambda x: x.assign_coords(day=day)) for side in ('main', 'baseline')]
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  return metrics, out[0], out[1], seconds
+
+
+def subset_state(state, variable: str, region=None, device=None):
+  """The state's arrays of one variable (and one region), on ``device``."""
+  from weatherbenchx_tpu_torch.aggregation import AggregationState
+  def pick(tree_):
+    out = {}
+    for stat, per_var in tree_.items():
+      da = per_var[variable]
+      if region is not None:
+        da = da.isel(region=[list(da.coord_values('region')).index(region)])
+      if device is not None:
+        da = da.copy(data=da.data.to(device))
+      out[stat] = {variable: da}
+    return out
+  return AggregationState(pick(state.sum_weighted_statistics),
+                          pick(state.sum_weights))
+
+
+def inference_outputs(method) -> dict:
+  """Every output of an inference method, computed (forces the work)."""
+  lo, hi = method.confidence_intervals(0.05)
+  return {'point': method.point_estimates(),
+          'se': method.standard_error_estimates(), 'lo': lo, 'hi': hi,
+          'p': method.p_values(0.0)}
+
+
+def significance_path(seed: int, card: str) -> dict:
+  """Phase 14: t-tests, bootstraps, the paired HAC test and the stationary
+  bootstrap on the card state; the IID RMSE standard error against its
+  float64 closed form; the card against a CPU copy of three field-levels;
+  the paired test's p-values for the offset."""
+  import torch
+  from weatherbenchx_tpu_torch.inference import bootstrap, t_test
+  metrics, main, baseline, build_s = significance_states(seed, card)
+  n_leaves = sum(len(v) for v in main.sum_weights.values())
+  log(f'significance: {SIG_INITS} inits x {SIG_LEADS} leads x 34 bins x '
+      f'{len(bench_variables())} variables ({n_leaves} state arrays per '
+      f'side) at {SIG_GRID}, {2 * SIG_INITS} eval_accum steps in '
+      f'{build_s:.1f} s ({build_s / (2 * SIG_INITS) * 1e3:.2f} ms each); '
+      f'card {card}')
+  sv, sr = SIG_STATIONARY
+  methods = {
+      'iid_t': lambda m, b: t_test.IID(metrics, m, 'init_time'),
+      'geer_ar2_t': lambda m, b: t_test.GeerAR2Corrected(
+          metrics, m, 'init_time'),
+      'lazarus_hac_ewc_t': lambda m, b: t_test.LazarusHACEWC(
+          metrics, m, 'init_time'),
+      'iid_bootstrap': lambda m, b: bootstrap.IIDBootstrap(
+          metrics, m, 'init_time', n_replicates=SIG_REPLICATES, seed=seed),
+      'cluster_bootstrap': lambda m, b: bootstrap.ClusterBootstrap(
+          metrics, m, 'day', n_replicates=SIG_REPLICATES, seed=seed + 1),
+      'paired_hac_ewc': lambda m, b: (
+          t_test.LazarusHACEWC.for_baseline_comparison(
+              metrics, m, b, experimental_unit_dim='init_time')),
+      'stationary_bootstrap': lambda m, b: bootstrap.StationaryBootstrap(
+          metrics, subset_state(m, sv, sr), 'init_time',
+          n_replicates=SIG_REPLICATES, seed=seed + 2),
+  }
+  results, report = {}, {}
+  for name, make in methods.items():
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results[name] = inference_outputs(make(main, baseline))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for per_metric in results[name]['se'].values():
+      for da in per_metric.values():
+        if da.device.type != DEVICE or da.dtype != torch.float64:
+          raise AssertionError(f'significance {name}: {da.device} '
+                               f'{da.dtype}, not float64 on the card')
+    report[name] = {'seconds': seconds, 'peak_gib': peak}
+    log(f'significance {name}: {seconds:.3f} s, peak device memory '
+        f'{peak:.3f} GiB; card {card}')
+  # The IID standard error of RMSE against its float64 closed form.
+  iid_rel = 0.0
+  for var, se in results['iid_t']['se']['rmse'].items():
+    ws = main.sum_weighted_statistics['SquaredError'][var]
+    w = main.sum_weights['SquaredError'][var]
+    mse = (ws.data.double() / w.data.double()).movedim(
+        ws.dims.index('init_time'), -1)
+    rmse = mse.mean(-1).sqrt()
+    want = mse.std(-1, correction=1) / (2 * rmse * math.sqrt(SIG_INITS))
+    got = se.transpose(*[d for d in ws.dims if d != 'init_time']).data
+    iid_rel = max(iid_rel, float(((got - want).abs() / want.abs()).max()))
+  if iid_rel > SIG_RTOL:
+    raise AssertionError(f'significance: IID RMSE standard error '
+                         f'{iid_rel:.3g} from its closed form')
+  # The card against the same calls on a CPU copy of three field-levels.
+  cpu_rel = 0.0
+  for name, make in methods.items():
+    if name == 'stationary_bootstrap':
+      cpu = inference_outputs(make(subset_state(main, sv, sr, 'cpu'), None))
+      var = sv
+    else:
+      cpu = inference_outputs(make(
+          subset_state(main, SIG_CPU_VARIABLE, device='cpu'),
+          subset_state(baseline, SIG_CPU_VARIABLE, device='cpu')))
+      var = SIG_CPU_VARIABLE
+    for out, per_metric in cpu.items():
+      for metric, per_var in per_metric.items():
+        want = per_var[var].data
+        got = results[name][out][metric][var].transpose(
+            *per_var[var].dims).data.cpu()
+        ok = ~torch.isnan(want)
+        if not torch.equal(ok, ~torch.isnan(got)):
+          raise AssertionError(f'significance {name} {out}: NaN patterns '
+                               'differ between the card and the CPU')
+        rel = float(((got[ok] - want[ok]).abs()
+                     / want[ok].abs().clamp(min=1.0)).max()) if ok.any(
+                     ) else 0.0
+        cpu_rel = max(cpu_rel, rel)
+  if cpu_rel > SIG_RTOL:
+    raise AssertionError(f'significance: the card {cpu_rel:.3g} from the '
+                         f'CPU (tol {SIG_RTOL})')
+  # The paired test finds the offset.
+  p = torch.cat([da.data.flatten() for da in
+                 results['paired_hac_ewc']['p']['bias'].values()])
+  p_bias = float(p.max()) if bool(torch.isfinite(p).all()) else math.inf
+  diff = [da.data for da in
+          results['paired_hac_ewc']['point']['bias'].values()]
+  if p_bias >= SIG_P_MAX:
+    raise AssertionError(f'significance: the paired HAC test missed the '
+                         f'offset {SIG_OFFSET}: p up to {p_bias:.3g}')
+  mean_diff = float(torch.cat([d.flatten() for d in diff]).mean())
+  log(f'significance: IID RMSE standard error within {iid_rel:.3g} of the '
+      f'float64 closed form; the card within {cpu_rel:.3g} of a CPU copy '
+      f'({SIG_CPU_VARIABLE}, 3 field-levels; {sv} x {sr} for the stationary '
+      f'bootstrap; tol {SIG_RTOL}); paired HAC-EWC: bias difference '
+      f'{mean_diff:.4f} (offset {SIG_OFFSET}), the largest p {p_bias:.3g} '
+      f'(< {SIG_P_MAX}); card {card}')
+  return {'build_s': build_s, 'methods': report, 'iid_rel': iid_rel,
+          'cpu_rel': cpu_rel, 'paired_p_max': p_bias,
+          'paired_bias_diff': mean_diff}
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -2147,20 +3028,30 @@ def main() -> int:
   benchmark_cli_phase(args.seed)
   log('phase 8 benchmark cli: ok')
   disk = disk_benchmark_path(bstores, bstate, in_memory, card)
-  del bstores, bstate
+  del bstate
   log('phase 9 disk benchmark path: ok')
   res = timing(ev, chunks, stores, card)
   log('phase 10 timing: done')
   del ev, chunks, stores
   families = family_phase(args.seed, card)
   log('phase 11 metric families: ok')
+  station = station_path(args.seed, card)
+  log('phase 12 station path: ok')
+  unagg = unaggregated_path(bstores, card)
+  del bstores
+  log('phase 13 unaggregated path: ok')
+  significance = significance_path(args.seed, card)
+  log('phase 14 significance: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
+  log(f'station path: {json.dumps(station)}; card {card}')
+  log(f'unaggregated path: {json.dumps(unagg)}; card {card}')
+  log(f'significance: {json.dumps(significance)}; card {card}')
 
   n = math.prod(GRID)
   print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,
-                                n)), flush=True)
+                                n, station['ensemble'])), flush=True)
   print(card, flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind,

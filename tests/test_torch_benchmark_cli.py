@@ -142,8 +142,9 @@ def _run_both(stores, tmp_path, prediction, extra=(), variables=None):
   j_cli.main(_argv(stores, prediction, f'{tmp_path}/jax', extra) + variables)
   cli.main(_argv(stores, prediction, f'{tmp_path}/port', extra) + variables
            + ['--device=cpu'])
-  name = os.listdir(f'{tmp_path}/jax')
-  assert os.listdir(f'{tmp_path}/port') == name
+  name = sorted(os.listdir(f'{tmp_path}/jax'))
+  assert sorted(os.listdir(f'{tmp_path}/port')) == name
+  name = [n for n in name if not n.endswith('_stats.zarr')]
   return (io.load_dataset(f'{tmp_path}/port/{name[0]}'),
           j_io.load_dataset(f'{tmp_path}/jax/{name[0]}'))
 
@@ -297,8 +298,48 @@ def test_cli_from_every_container_matches_the_jax_cli(
 @pytest.mark.parametrize('flag,item', [
     ('--unaggregated_zarr', 'A11'), ('--chunks_per_dispatch=2', 'A7')])
 def test_unported_options_raise(stores, tmp_path, flag, item):
+  """--chunks_per_dispatch > 1 (ROADMAP A7) still raises. The refusal of
+  --unaggregated_zarr is lifted: the flag now writes its statistics store."""
+  argv = _argv(stores, 'hres', str(tmp_path)) + [flag, '--device=cpu']
+  if item == 'A11':
+    cli.main(argv + ['--variables=geopotential,2m_temperature'])
+    assert any(n.endswith('_stats.zarr') for n in os.listdir(tmp_path))
+    return
   with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
-    cli.main(_argv(stores, 'hres', str(tmp_path)) + [flag, '--device=cpu'])
+    cli.main(argv)
+
+
+def _tree_bytes(root):
+  out = {}
+  for dirpath, _, names in os.walk(root):
+    for n in names:
+      with open(os.path.join(dirpath, n), 'rb') as f:
+        out[os.path.relpath(os.path.join(dirpath, n), root)] = f.read()
+  return out
+
+
+@pytest.mark.parametrize('extra', [
+    ('--zarr_compressor=blosc',),
+    ('--zarr_format=3', '--zarr_compressor=zstd',
+     '--zarr_shards=init_time=2,lead_time=2')])
+def test_unaggregated_zarr_matches_the_jax_cli(stores, tmp_path, extra):
+  """--unaggregated_zarr: the port's statistics store against the JAX
+  CLI's. The deterministic statistics of float32 data are the same bits
+  in both packages (ACC's anomalies included), so the stores are the same
+  files, byte for byte; the metric outputs agree as elsewhere."""
+  got, want = _run_both(stores, tmp_path, 'hres',
+                        ('--unaggregated_zarr',) + extra,
+                        variables='geopotential,2m_temperature')
+  _assert_outputs_match(got, want)
+  name = [n for n in os.listdir(f'{tmp_path}/jax') if n.endswith('.zarr')]
+  assert len(name) == 1 and name[0].endswith('_stats.zarr')
+  port = _tree_bytes(f'{tmp_path}/port/{name[0]}')
+  jax_store = _tree_bytes(f'{tmp_path}/jax/{name[0]}')
+  assert sorted(port) == sorted(jax_store)
+  for f in port:
+    assert port[f] == jax_store[f], f
+  ds = zarr_io.open_dataset_zarr(f'{tmp_path}/port/{name[0]}')
+  assert {'SquaredError.geopotential', 'Error.2m_temperature'} <= set(ds)
 
 
 class _Opened(Exception):

@@ -552,3 +552,71 @@ def test_fair_ensemble_rps_takes_the_fused_kernel(cuda):
   torch.cuda.synchronize()
   assert crps_pairwise.LAUNCHES['fused_ensemble_stats'] >= 1
   assert _rel(got.data.cpu(), run('cpu').data) <= 1e-5
+
+
+def test_fused_kernel_on_a_nan_padded_station_layout(cuda):
+  """Fair CRPS at stations: the fused kernel over (members, init, lead,
+  index) with the padded rows NaN, against its plain version; padded rows
+  stay NaN and real rows agree to 1e-5."""
+  rng = np.random.default_rng(12)
+  n, pad = 1000, 24  # padded to a multiple of 1024
+  x = rng.standard_normal((50, 1, 4, n + pad)).astype(np.float32)
+  y = rng.standard_normal((1, 4, n + pad)).astype(np.float32)
+  x[..., n:] = np.nan
+  y[..., n:] = np.nan
+  xd, yd = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+  crps_pairwise.reset_launch_counts()
+  got = crps_pairwise.fused_ensemble_stats(xd, yd)
+  want = crps_pairwise.fused_ensemble_stats_plain(xd, yd)
+  assert crps_pairwise.LAUNCHES['fused_ensemble_stats'] == 1
+  for g, w in zip(got, want):
+    assert torch.isnan(g[..., n:]).all()
+    assert _rel(g, w) < 1e-5
+
+
+def test_inference_on_a_cuda_state_matches_the_cpu(cuda):
+  """t-tests, bootstraps and the delta method on a state on the card:
+  float64 on the card, equal to the same calls on the CPU to 1e-9."""
+  from weatherbenchx_tpu_torch.aggregation import AggregationState
+  from weatherbenchx_tpu_torch.darray import Coord, DimArray
+  from weatherbenchx_tpu_torch.inference import bootstrap, t_test
+  from weatherbenchx_tpu_torch.metrics import deterministic
+
+  rng = np.random.default_rng(13)
+  n = 60
+  inits = (np.datetime64('2020-01-01', 'ns')
+           + np.arange(n) * np.timedelta64(12, 'h'))
+  coords = {'init_time': inits, 'lead_time': np.arange(3),
+            'day': Coord(('init_time',), inits.astype('datetime64[D]'))}
+  dims = ('init_time', 'lead_time')
+  err = rng.standard_normal((n, 3)) + 0.3
+  w = np.full((n, 3), 10.0)
+
+  def state(device):
+    def da(v):
+      return DimArray(torch.from_numpy(v.astype(np.float32)).to(device),
+                      dims, coords)
+    return AggregationState(
+        {'SquaredError': {'t': da(err ** 2 * 10)},
+         'Error': {'t': da(err * 10)}},
+        {'SquaredError': {'t': da(w)}, 'Error': {'t': da(w)}})
+
+  metrics = {'rmse': deterministic.RMSE(), 'bias': deterministic.Bias()}
+  methods = {
+      'iid': lambda s: t_test.IID(metrics, s, 'init_time'),
+      'hac': lambda s: t_test.LazarusHACEWC(metrics, s, 'init_time'),
+      'iid_bootstrap': lambda s: bootstrap.IIDBootstrap(
+          metrics, s, 'init_time', n_replicates=300, seed=1),
+      'cluster': lambda s: bootstrap.ClusterBootstrap(
+          metrics, s, 'day', n_replicates=300, seed=2),
+  }
+  for name, make in methods.items():
+    on_card, on_cpu = make(state(cuda)), make(state('cpu'))
+    for fn in ('point_estimates', 'standard_error_estimates', 'p_values'):
+      got, want = getattr(on_card, fn)(), getattr(on_cpu, fn)()
+      for m in want:
+        g = got[m]['t']
+        assert g.device.type == 'cuda' and g.dtype == torch.float64, name
+        np.testing.assert_allclose(g.values, want[m]['t'].values,
+                                   rtol=1e-9, atol=1e-12,
+                                   err_msg=f'{name} {fn} {m}')

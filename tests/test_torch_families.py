@@ -232,18 +232,35 @@ def _port_modules():
   return modules
 
 
-def _imported_roots(path):
+def _imported_roots(path, module_level=False):
   """Top-level names of every import statement of a file, wherever in the
-  file it stands (inside functions too)."""
+  file it stands (inside functions too), or of its module-level imports
+  only (those outside any function)."""
   with open(path) as f:
     tree = ast.parse(f.read())
+  if module_level:
+    nodes, stack = [], list(tree.body)
+    while stack:
+      node = stack.pop()
+      if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+        continue
+      nodes.append(node)
+      stack.extend(ast.iter_child_nodes(node))
+  else:
+    nodes = ast.walk(tree)
   roots = set()
-  for node in ast.walk(tree):
+  for node in nodes:
     if isinstance(node, ast.Import):
       roots.update(a.name.split('.')[0] for a in node.names)
     elif isinstance(node, ast.ImportFrom) and node.level == 0:
       roots.add(node.module.split('.')[0])
   return roots
+
+
+# The Parquet reader alone may import pandas and pyarrow, inside the
+# functions that read Parquet (the card's machine has neither).
+PARQUET_READERS = {os.path.join('weatherbenchx_tpu_torch', 'data',
+                                'sparse_parquet')}
 
 
 @pytest.mark.parametrize('path', ['chip_smoke.py'] + [
@@ -255,4 +272,8 @@ def test_no_file_of_the_port_names_a_banned_import(path):
     full = full + '.py' if os.path.exists(full + '.py') else os.path.join(
         full, '__init__.py')
   banned = {'jax', 'jaxlib', 'pandas', 'weatherbenchx_tpu'}
+  if path in PARQUET_READERS:
+    assert not _imported_roots(full, module_level=True) & (
+        banned | {'pyarrow'}), path
+    banned -= {'pandas'}
   assert not _imported_roots(full) & banned, path

@@ -421,8 +421,16 @@ def test_loaders_match_jax_with_renames_and_selections(tmp_path):
   np.testing.assert_array_equal(g.coord_values('level'), [850, 500])
   with pytest.raises(ValueError, match='Exactly one'):
     loaders.PredictionsFromDataset()
-  with pytest.raises(NotImplementedError, match='sparse path'):
-    loaders.PredictionsFromDataset(path=path, pad_index_multiple=8)
+  # The sparse path's options, refused until it was ported, now load: a
+  # dense chunk has no ``index`` to pad, so it comes back as it was, and
+  # its values ride along as a coord.
+  padded = loaders.PredictionsFromDataset(
+      path=path, pad_index_multiple=8, add_values_to_coords=True,
+      **kwargs).load_chunk(INIT_TIMES[1:], slice(LEAD_TIMES[0],
+                                                 LEAD_TIMES[1]))['temperature']
+  np.testing.assert_array_equal(padded.values, g.values)
+  np.testing.assert_array_equal(padded.coord_values('values_as_coord'),
+                                g.values)
 
 
 def _cli_stores(tmp_path):

@@ -18,8 +18,10 @@ that raises: ``run_evaluation.resolve_device``).
 
 Stores open lazily through ``io.open_dataset_auto``: ``.npz``, ``.wbx``,
 zarr v2 and v3 (local, or an fsspec URL such as the registry's ``gs://``
-paths) and netCDF; ``--output_format`` writes npz, zarr, wbx or nc. Not
-ported yet, and raising: ``--unaggregated_zarr`` (ROADMAP A11) and
+paths) and netCDF; ``--output_format`` writes npz, zarr, wbx or nc.
+``--unaggregated_zarr`` also streams the raw per-point statistics of the
+same pass into ``<output>_stats.zarr`` (``--zarr_format``,
+``--zarr_compressor``, ``--zarr_shards``). Not ported yet, and raising:
 ``--chunks_per_dispatch`` > 1 (ROADMAP A7). The JAX CLI's
 ``--compilation_cache_dir`` has no counterpart: nothing is compiled per
 chunk shape.
@@ -54,6 +56,7 @@ from weatherbenchx_tpu_torch.metrics import categorical, deterministic
 from weatherbenchx_tpu_torch.metrics import probabilistic, wrappers
 from weatherbenchx_tpu_torch.ops import crps_pairwise
 from weatherbenchx_tpu_torch.parallel import pipeline as pipeline_lib
+from weatherbenchx_tpu_torch.parallel import unaggregated
 
 SPECIAL_PREDICTIONS = ('persistence', 'probabilistic_climatology',
                        'climatology')
@@ -110,10 +113,13 @@ def build_parser() -> argparse.ArgumentParser:
                  choices=['zlib', 'zstd', 'blosc'],
                  help='Compression for --unaggregated_zarr cells')
   p.add_argument('--zarr_shards', default=None,
-                 help='v3 shard sizes per dim for --unaggregated_zarr')
+                 help='v3 sharding_indexed shard sizes per dim for '
+                      '--unaggregated_zarr output, e.g. '
+                      '"init_time=64,lead_time=16" (elements; rounded up '
+                      'to a chunk multiple). Requires --zarr_format=3')
   p.add_argument('--unaggregated_zarr', action='store_true',
-                 help='Also stream raw per-point statistics into a Zarr '
-                      'store; not ported yet')
+                 help='Also stream raw per-point statistics into a '
+                      '<output>_stats.zarr store, from the same pass')
   p.add_argument('--device', default='cuda',
                  help="Device the chunks are evaluated on: 'cuda' (the "
                       "default; raises without a GPU) or 'cpu'")
@@ -121,14 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-  unported = []
-  if args.unaggregated_zarr:
-    unported.append('--unaggregated_zarr (ROADMAP A11)')
   if args.chunks_per_dispatch > 1:
-    unported.append('--chunks_per_dispatch > 1 (ROADMAP A7)')
-  if unported:
     raise NotImplementedError(
-        f'not ported to weatherbenchx_tpu_torch yet: {", ".join(unported)}')
+        'not ported to weatherbenchx_tpu_torch yet: --chunks_per_dispatch '
+        '> 1 (ROADMAP A7)')
 
 
 def resolve_configs(args) -> tuple[dict, dict, dict, bool]:
@@ -354,12 +356,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
   out_path = os.path.join(args.output_dir, f'{filename}.{args.output_format}')
   os.makedirs(args.output_dir, exist_ok=True)
   print(f'Save path: {out_path}')
+  stats_store = None
+  if args.unaggregated_zarr:
+    # Raw per-point statistics streamed into a Zarr store from the SAME
+    # pass as the aggregated evaluation (the reference computes both in
+    # one Beam graph, beam_pipeline.py:449-540,610-681).
+    zarr_shards = None
+    if args.zarr_shards:
+      zarr_shards = {k: int(v) for k, v in
+                     (kv.split('=', 1) for kv in args.zarr_shards.split(','))}
+    stats_store = unaggregated.ZarrStatsStore(
+        times, os.path.join(args.output_dir, filename + '_stats.zarr'),
+        compressor=args.zarr_compressor, zarr_format=args.zarr_format,
+        zarr_shards=zarr_shards)
   values = pipeline_lib.evaluate(
       all_metrics, aggregator, prediction_loader, target_loader, times,
       out_path=out_path, device=device,
       checkpoint_path=(out_path + '.ckpt' if args.checkpoint_every else None),
       checkpoint_every=args.checkpoint_every,
+      chunk_stats_sink=stats_store.write_chunk if stats_store else None,
       retry=run_evaluation.retry_policy_from_args(args))
+  if stats_store is not None:
+    print(f'Wrote unaggregated statistics store: {stats_store.finalize()}')
   print(f'Wrote {len(values)} metric variables.')
   print(f'Kernel launches: {json.dumps(crps_pairwise.LAUNCHES)}')
 

@@ -17,7 +17,16 @@ numpy, and there is no jit cache to protect.
   layout, uploads one copy of each, and keeps them for later chunks.
 * ``eval_chunk`` computes the unique statistics in one compute pass (so
   the CRPS family shares one fused kernel launch), aggregating each one as
-  it comes, so that one statistic at a time is held on the device.
+  it comes, so that one statistic at a time is held on the device;
+  ``eval_with_statistics`` also hands each statistic back as a host copy
+  (the pipeline's ``chunk_stats_sink``).
+
+A station chunk brings new coord objects over its ``index`` every chunk
+(positions, names, interpolated grid elevations): binnings read theirs by
+content, and other host coords past 4,096 values enter the layout key by
+identity (``aggregation._layout_key``), so such a chunk's weights and bin
+masks are rebuilt, and the operand cache turns over; ``operand_builds``
+counts the layouts built.
 """
 
 import dataclasses
@@ -64,6 +73,14 @@ def _resource_budget_bytes(device: torch.device) -> int:
   return _CPU_RESOURCE_BYTES
 
 
+def host_copy(da: DimArray) -> DimArray:
+  """``da`` on the host: its data a CPU tensor, its coords numpy."""
+  coords = {name: Coord(c.dims, c.values.detach().cpu().numpy()
+                        if isinstance(c.values, torch.Tensor) else c.values)
+            for name, c in da.coords.items()}
+  return DimArray(da.data.detach().cpu(), da.dims, coords)
+
+
 @dataclasses.dataclass
 class ChunkEvaluator:
   """Runs the fused statistics → aggregation step for chunks on a device.
@@ -83,6 +100,7 @@ class ChunkEvaluator:
     self._stats = list(metrics_base.unique_statistics_for_metrics(
         self.metrics).values())
     self._operand_cache: dict = {}
+    self.operand_builds = 0  # layouts whose operands were built
     self._resource_cache = None
     self._plan_resources()
 
@@ -197,13 +215,19 @@ class ChunkEvaluator:
     Returns ``{stat_name: {var: [DimArray] | None}}`` for
     ``Aggregator.aggregate_statistics``.
     """
+    before = len(self._operand_cache)
     out = self.aggregator.prepare_operands(
         statistics, self._operand_cache, self.device)
+    self.operand_builds += len(self._operand_cache) - before
     while len(self._operand_cache) > _OPERAND_CACHE_SIZE:
       self._operand_cache.pop(next(iter(self._operand_cache)))
     return out
 
-  def _eval(self, predictions, targets) -> aggregation_lib.AggregationState:
+  def _eval(self, predictions, targets, statistics_out=None
+            ) -> aggregation_lib.AggregationState:
+    """The aggregated state of a chunk on the device; with
+    ``statistics_out`` (a dict), each statistic is also copied there to the
+    host as it is aggregated: computed once, consumed twice."""
     sums, weights = {}, {}
     with metrics_base.device_resources(self.resources()):
       for name, values in metrics_base.generate_unique_statistics_for_all_metrics(
@@ -213,6 +237,9 @@ class ChunkEvaluator:
             one, self.operands_for(one))
         sums.update(state.sum_weighted_statistics)
         weights.update(state.sum_weights)
+        if statistics_out is not None:
+          statistics_out[name] = {var: host_copy(da)
+                                  for var, da in values.items()}
     return aggregation_lib.AggregationState(sums, weights)
 
   def eval_chunk(
@@ -230,6 +257,18 @@ class ChunkEvaluator:
   ) -> aggregation_lib.AggregationState:
     """Evaluates a chunk that ``prepare_host`` already prepared."""
     return self._eval(*self.to_device(predictions, targets))
+
+  def eval_with_statistics(
+      self,
+      predictions: Mapping[Hashable, DimArray],
+      targets: Mapping[Hashable, DimArray],
+  ) -> tuple[aggregation_lib.AggregationState, dict]:
+    """Evaluates a host-prepared chunk; returns (state, statistics): the
+    state as ``eval_host_prepared`` gives it, and host copies (CPU tensors,
+    numpy coords) of the ``{stat_name: {var: DimArray}}`` it aggregated."""
+    statistics: dict = {}
+    state = self._eval(*self.to_device(predictions, targets), statistics)
+    return state, statistics
 
   def eval_accum(self, pair: tuple, prev_state: aggregation_lib.AggregationState
                  ) -> aggregation_lib.AggregationState:

@@ -21,12 +21,19 @@ The port of ``weatherbenchx_tpu/parallel/pipeline.py:52-204, 262-652,
   leaf's live dtype, so a resumed run restores the float32 sums exactly and
   ends bit-identical to an uninterrupted one.
 
+* optionally, ``chunk_stats_sink(i, offsets, {'<stat>.<var>': DimArray})``
+  per chunk, with host copies of the very statistics the aggregated step
+  consumed (computed once; ``ChunkEvaluator.eval_with_statistics``), their
+  coords intact, station names of a sparse chunk included: unaggregated
+  output (``parallel/unaggregated.ZarrStatsStore.write_chunk``) streams
+  from the same pass.
+
 Not ported: the device mesh and multi-process (``mesh``, ``dim_to_axis``,
-``distributed``), ``chunks_per_dispatch`` and ``chunk_stats_sink`` are
-queued; ``compilation_cache_dir``, ``WBX_FUSED_ACCUM`` and the in-flight
-byte window are XLA and remote-accelerator machinery with nothing to do
-here (eager PyTorch blocks the host on each pageable host→device copy, so
-no staged-byte backlog builds up).
+``distributed``) and ``chunks_per_dispatch`` are queued;
+``compilation_cache_dir``, ``WBX_FUSED_ACCUM`` and the in-flight byte
+window are XLA and remote-accelerator machinery with nothing to do here
+(eager PyTorch blocks the host on each pageable host→device copy, so no
+staged-byte backlog builds up).
 """
 
 import dataclasses
@@ -195,6 +202,9 @@ class EvaluationPipeline:
       ``run_and_write`` writes them beside the metrics output.
     metrics_registry: counters and timers (``observability``); the
       process-global default if None.
+    chunk_stats_sink: optional, called per chunk as ``sink(i, offsets,
+      {'<stat>.<var>': DimArray})`` with host copies of the statistics the
+      aggregated step consumed (timed as ``chunk_stats_sink_seconds``).
   """
 
   metrics: Mapping[str, metrics_base.Metric]
@@ -208,6 +218,7 @@ class EvaluationPipeline:
   checkpoint_every: int = 0
   retry: Optional[RetryPolicy] = None
   metrics_registry: Optional[observability.Metrics] = None
+  chunk_stats_sink: Optional[Callable] = None
   failed_chunks: list = dataclasses.field(default_factory=list, init=False)
 
   def __post_init__(self):
@@ -305,8 +316,18 @@ class EvaluationPipeline:
     for i, offsets, (predictions, targets) in self._chunk_stream(start_chunk):
       key = self._bucket_key(offsets)
       with self._obs.timed('eval_chunk_seconds'):
-        state = self._evaluator.eval_host_prepared(predictions, targets)
+        if self.chunk_stats_sink is None:
+          state = self._evaluator.eval_host_prepared(predictions, targets)
+        else:
+          state, stats = self._evaluator.eval_with_statistics(
+              predictions, targets)
         buckets[key] = buckets[key] + state if key in buckets else state
+      if self.chunk_stats_sink is not None:
+        with self._obs.timed('chunk_stats_sink_seconds'):
+          self.chunk_stats_sink(i, offsets, {
+              f'{stat_name}.{var}': da
+              for stat_name, per_var in stats.items()
+              for var, da in per_var.items()})
       self._obs.counter('chunks_done')
       done += 1
       if (self.checkpoint_path and self.checkpoint_every

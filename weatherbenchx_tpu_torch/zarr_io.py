@@ -349,33 +349,15 @@ class ZarrArrayWriter:
     else the Python codecs run on the read pool (file writes and every
     compressor release the GIL). Shards are written as their last cell
     lands, partial ones at close()."""
-    from weatherbenchx_tpu_torch import native
-
     grid = [max(-(-s // c), 1) for s, c in zip(self.shape, self.chunks)]
     cells = list(np.ndindex(*grid))
-    if (self._codec != 'gzip'
-        and (self.shards is not None or not fileio.is_remote(self._adir))
-        and native.zarrcodec_available()):
+    if self._native_ok():
       cell_nbytes = int(np.prod(self.chunks, dtype=np.int64)
                         ) * self.dtype.itemsize
       batch = max(int((512 << 20) // max(cell_nbytes, 1)), 1)
       for i in range(0, len(cells), batch):
-        group = cells[i:i + batch]
-        blocks = [self._pad_to_cell(values[self._cell_window(c)])
-                  for c in group]
-        if self.shards is not None:
-          encoded = native.encode_buffers(self._codec, blocks,
-                                          self.dtype.itemsize, self._level,
-                                          threads=_READ_THREADS)
-          for c, raw in zip(group, encoded):
-            self._stash_sharded(tuple(int(j) for j in c), raw)
-          continue
-        paths = [os.path.join(self._adir, self._cell_key(c)) for c in group]
-        if self._format == 3:
-          for p in {os.path.dirname(p) for p in paths}:
-            fileio.makedirs(p)
-        native.encode_cells(paths, self._codec, blocks, self.dtype.itemsize,
-                            self._level, threads=_READ_THREADS)
+        write_cells([(self, c, values[self._cell_window(c)])
+                     for c in cells[i:i + batch]])
     else:
       list(_read_pool().map(
           lambda c: self.write_block(c, values[self._cell_window(c)]),
@@ -385,6 +367,45 @@ class ZarrArrayWriter:
   def _cell_window(self, cell) -> tuple:
     return tuple(slice(i * c, (i + 1) * c)
                  for i, c in zip(cell, self.chunks))
+
+  def _native_ok(self) -> bool:
+    from weatherbenchx_tpu_torch import native
+    return (self._codec != 'gzip'
+            and (self.shards is not None or not fileio.is_remote(self._adir))
+            and native.zarrcodec_available())
+
+
+def write_cells(items: Sequence[tuple]) -> None:
+  """Writes ``(writer, cell, block)`` items, the same bytes as each
+  writer's ``write_block``, encoded in parallel by the native codec where
+  it serves (cells of one codec, level and size in one call, across
+  writers), else one by one."""
+  from weatherbenchx_tpu_torch import native
+
+  groups: dict = {}
+  for writer, cell, block in items:
+    if not writer._native_ok():
+      writer.write_block(cell, block)
+      continue
+    block = writer._pad_to_cell(block)
+    key = (writer._codec, writer._level, writer.dtype.itemsize, block.nbytes,
+           writer.shards is not None)
+    groups.setdefault(key, []).append((writer, tuple(int(i) for i in cell),
+                                       block))
+  for (codec, level, itemsize, _, sharded), group in groups.items():
+    blocks = [b for _, _, b in group]
+    if sharded:
+      encoded = native.encode_buffers(codec, blocks, itemsize, level,
+                                      threads=_READ_THREADS)
+      for (writer, cell, _), raw in zip(group, encoded):
+        writer._stash_sharded(cell, raw)
+      continue
+    paths = [os.path.join(w._adir, w._cell_key(c)) for w, c, _ in group]
+    for path in {os.path.dirname(p) for (w, c, _), p in zip(group, paths)
+                 if w._format == 3 and c}:
+      fileio.makedirs(path)
+    native.encode_cells(paths, codec, blocks, itemsize, level,
+                        threads=_READ_THREADS)
 
 
 def _write_array(root: str, name: str, values: np.ndarray,
