@@ -152,9 +152,37 @@ script exits nonzero:
    method on the card against the same call on a CPU copy of three
    field-levels (1e-9 relative to max(|value|, 1)), the paired test's
    p-values below 0.01. Prints each method's seconds and peak memory.
+15. Batched dispatch (chunks_per_dispatch), run beside the phases whose
+   inputs it reuses; the batched path never drops to one chunk at a time
+   but on a signature split, and the splits are counted and printed:
+   (a) after phase 10, phase 4's 3 chunks through EvaluationPipeline at
+   chunks_per_dispatch=3 (the chunks stacked on the card): exactly one
+   fused launch for the three, the values within 1e-5 relative of phase
+   4's per-chunk run and of the float64 recomputation, the peak device
+   memory printed; (b) in phase 6, its configuration at
+   chunks_per_dispatch=2 under both resource plans (resident, and the
+   climatology host-gathered: the gather with a chunk dim at full width),
+   each state within 1e-6 of phase 6's (max |diff| over max |value| per
+   array), torch.equal printed; (c) after phase 14, its configuration
+   through the pipeline (1.5 degrees, 25 field-levels, 41 leads, 34 bins,
+   init_time kept, RMSE and bias) over 64 inits of in-memory stores at 1
+   and 8 chunks per dispatch, the two states within 1e-5 (F64_RTOL: a
+   GEMM of 8 times the rows sums in another float32 order), each run's
+   seconds per chunk and eval_chunk_seconds, and from a profile_dir trace
+   (observability.maybe_profile) its CUDA kernels and eager operator calls
+   per chunk and the card's busy share; (d) after phase 8, on the host,
+   its two benchmark CLI outputs (hres and ens) combined by
+   apps/combine_results, rendered by apps/scorecard_html, and the page's
+   self-test run on its generated logic by apps/jsmini, with the seconds
+   of each (apps/scorecard_figure draws with matplotlib, which the card's
+   machine lacks, so no phase calls it; the CPU tests cover it); (e) a
+   ConstantLatencyWrapper (6 h) around an in-memory store like phase 7's
+   through the pipeline on the card, equal by torch.equal to an unwrapped
+   run of the nominal inits it maps to.
 
-The last three lines are a JSON object describing the three kernels, the
-card's name and power limit, and {"ok": true, "device": {...}}.
+The whole script's seconds are printed before the last three lines: a
+JSON object describing the three kernels, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 
 import argparse
@@ -807,7 +835,7 @@ def main_path(seed: int):
                          f'chunk) and no other, got {launches}')
   check_values('main path', values, f64_reference(chunks, aggregator),
                CLOSED_FORMS)
-  return ev, chunks, launches, seconds
+  return ev, chunks, launches, values
 
 
 def ensemble_stores(seed: int):
@@ -1139,9 +1167,10 @@ def bench_sources(stores, paths=None) -> dict:
   return out
 
 
-def bench_pipeline(stores, registry, sources, variables=None):
+def bench_pipeline(stores, registry, sources, variables=None, group=1):
   """The benchmark CLI's own construction over the stores' configs (every
-  variable of the stores unless ``variables`` names some)."""
+  variable of the stores unless ``variables`` names some), ``group``
+  chunks per dispatch."""
   from weatherbenchx_tpu_torch import time_chunks
   from weatherbenchx_tpu_torch.apps import run_benchmark_evaluation as cli
   from weatherbenchx_tpu_torch.parallel import pipeline
@@ -1159,11 +1188,11 @@ def bench_pipeline(stores, registry, sources, variables=None):
   return pipeline.EvaluationPipeline(
       metrics=metrics, aggregator=aggregator, predictions_loader=p_loader,
       targets_loader=t_loader, times=times, device=DEVICE,
-      metrics_registry=registry)
+      metrics_registry=registry, chunks_per_dispatch=group)
 
 
 def run_bench(stores, budget_bytes, card: str, sources=None,
-              label: str = 'benchmark path'):
+              label: str = 'benchmark path', group: int = 1):
   """One pipeline run under a resource budget (None: the default) over
   the stores' configs (``bench_sources``; default in memory); returns
   (pipeline, host state, seconds, timings): the run's seconds and stage
@@ -1182,7 +1211,8 @@ def run_bench(stores, budget_bytes, card: str, sources=None,
   t0 = time.perf_counter()
   try:
     registry = observability.Metrics()
-    pipe = bench_pipeline(stores, registry, sources or bench_sources(stores))
+    pipe = bench_pipeline(stores, registry, sources or bench_sources(stores),
+                          group=group)
   finally:
     os.environ.pop('WBX_RESOURCE_BYTES', None)
   ev = pipe._evaluator
@@ -1428,9 +1458,10 @@ def benchmark_path(seed: int, card: str) -> tuple:
       f'{budget} B)')
   del pipe2
   torch.cuda.empty_cache()
+  batched = batched_benchmark_path(stores, state, budget, card)
   return ({'resident_s_per_chunk': seconds / BENCH_INITS,
-           'host_gather_s_per_chunk': seconds2 / BENCH_INITS},
-          stores, state, timings)
+           'host_gather_s_per_chunk': seconds2 / BENCH_INITS,
+           'batched': batched}, stores, state, timings)
 
 
 # Phase 9's stores on disk, written where git ignores them, and the room
@@ -1801,7 +1832,9 @@ def benchmark_cli_phase(seed: int) -> dict:
   """Phase 8: python -m ...run_benchmark_evaluation --device cuda on .npz
   stores, deterministic (RMSE = sqrt(2), ACC = 1/2) and --prediction=ens
   (CRPS = 1/sqrt(pi), unbiased spread/skill = 1, ensemble-mean RMSE =
-  sqrt(1 + 1/8), one fused launch per chunk and variable at least)."""
+  sqrt(1 + 1/8), one fused launch per chunk and variable at least).
+  Returns the ensemble run's launches and the two outputs by file name
+  (phase 15(d) combines them)."""
   from weatherbenchx_tpu_torch import io
   n = global_n_eff()
   with tempfile.TemporaryDirectory() as tmp:
@@ -1857,7 +1890,8 @@ def benchmark_cli_phase(seed: int) -> dict:
           f'{tol:.4g}) ok')
   log(f'benchmark cli: deterministic {det_s:.1f} s, ensemble {ens_s:.1f} s '
       f'(process wall time); ensemble kernel launches {launches}')
-  return launches
+  return launches, {'hres_vs_era5_64x32_2020-init12h.npz': det,
+                    'ens_vs_era5_64x32_2020-init12h.npz': ens}
 
 
 def time_cuda(fns: dict, rounds: int, reps: int = 1) -> dict:
@@ -2013,11 +2047,12 @@ def timing_fields(res: dict, key: str, work: tuple, form: str,
 
 
 def kernels_line(main_launches, ens_launches, main_err, res, n,
-                 station) -> dict:
+                 station, batched) -> dict:
   """The `kernels` JSON: fused and spread at M = 50, cross at 50 x 10, and
   the spread's M = 10 launch (the ensemble path's analysis) beside it; the
-  fused kernel's launch and error on the station path (phase 12) beside
-  its main path's. No single PyTorch call computes any of the three
+  fused kernel's launch and error on the station path (phase 12) and its
+  launch on the batched main path (phase 15(a): 3 chunks, one launch)
+  beside its main path's. No single PyTorch call computes any of the three
   functions, so library_ms is null."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   csrc = 'weatherbenchx_tpu_torch/ops/csrc/'
@@ -2041,6 +2076,9 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
       'station_path': {
           'launches': station['launches']['fused_ensemble_stats'],
           'shape': station['shape'], 'max_abs_err': station['max_abs_err']},
+      'batched_path': {
+          'launches': batched['launches']['fused_ensemble_stats'],
+          'chunks': batched['chunks']},
   }, {
       'name': 'pairwise_spread_sum', 'route': 'cuda', 'source': register,
       'replaces': f'{replaced}:{spread_line(M)}',
@@ -2989,11 +3027,428 @@ def significance_path(seed: int, card: str) -> dict:
           'paired_bias_diff': mean_diff}
 
 
+# -- phase 15: batched dispatch -------------------------------------------------
+
+# Phase 15(c): phase 14's configuration through the pipeline, over 64 inits
+# of in-memory stores, one init per chunk, at these group sizes. Its two
+# states are held to F64_RTOL: a stack of 8 chunks contracts 8 times the
+# rows in one GEMM, which sums each row's 29,040 gridpoints in another
+# float32 order than a chunk alone (1.06e-6 apart on the H100, at a bias
+# sum of zero-mean errors; 1.01e-6 on the CPU, in the sums of weights).
+DISPATCH_INITS = 64
+DISPATCH_GROUPS = (1, 8)
+BATCHED_BENCH_RTOL = 1e-6
+
+
+def state_rel(got, want) -> tuple:
+  """(max over the arrays of max |got - want| / max |want|, the array that
+  takes it, all equal by torch.equal) of two AggregationStates, on the
+  host in float64."""
+  import torch
+  got, want = got.to_host().to_dataset(), want.to_host().to_dataset()
+  if sorted(got) != sorted(want):
+    raise AssertionError(f'state keys differ: {sorted(set(got) ^ set(want))}')
+  worst, where, equal = 0.0, None, True
+  for k in want:
+    g, w = got[k].transpose(*want[k].dims).data, want[k].data
+    equal = equal and bool(torch.equal(g, w))
+    scale = w.abs().max().item()
+    rel = (g.double() - w.double()).abs().max().item() / (scale or 1.0)
+    if rel >= worst:
+      worst, where = rel, k
+  return worst, where, equal
+
+
+def chunk_loader(chunks, side: int):
+  """A DataLoader serving host chunks by their (single) init time."""
+  from weatherbenchx_tpu_torch.data import base
+  by_init = {c[side]['2m_temperature'].coord_values('init_time')[0]: c[side]
+             for c in chunks}
+
+  class ChunkSource(base.DataLoader):
+    def _load_chunk_from_source(self, init_times, lead_times=None):
+      return by_init[init_times[0]]
+  return ChunkSource()
+
+
+def batched_main_path(chunks, phase4_values, card: str) -> dict:
+  """Phase 15(a): phase 4's 3 chunks through EvaluationPipeline at
+  chunks_per_dispatch=3: one fused launch for the three, values within
+  F64_RTOL of phase 4's per-chunk run and of the float64 recomputation."""
+  import torch
+  from weatherbenchx_tpu_torch import observability, time_chunks
+  from weatherbenchx_tpu_torch.metrics import probabilistic
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import pipeline
+  metrics = {
+      'crps': probabilistic.CRPSEnsemble(use_sort=True),
+      'spread_skill': probabilistic.UnbiasedSpreadSkillRatio(),
+      'unbiased_mean_rmse': probabilistic.UnbiasedEnsembleMeanRMSE(),
+  }
+  aggregator = region_aggregator()
+  inits = np.concatenate([c[0]['2m_temperature'].coord_values('init_time')
+                          for c in chunks])
+  registry = observability.Metrics()
+  pipe = pipeline.EvaluationPipeline(
+      metrics=metrics, aggregator=aggregator,
+      predictions_loader=chunk_loader(chunks, 0),
+      targets_loader=chunk_loader(chunks, 1),
+      times=time_chunks.TimeChunks(
+          inits, chunks[0][0]['2m_temperature'].coord_values('lead_time'),
+          init_time_chunk_size=1),
+      device=DEVICE, chunks_per_dispatch=len(chunks),
+      metrics_registry=registry)
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  cp.reset_launch_counts()
+  t0 = time.perf_counter()
+  values = pipe.run().metric_values(metrics)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = dict(cp.LAUNCHES)
+  peak = torch.cuda.max_memory_allocated()
+  ev = pipe._evaluator
+  log(f'phase 15a batched main path: {len(chunks)} chunks of {M} x {GRID} '
+      f'in {ev.dispatches} dispatch(es), signature splits '
+      f'{ev.signature_splits} + {registry.counters.get("signature_splits", 0)}'
+      f', kernel launches {launches}, {seconds:.2f} s to a final '
+      f'synchronize, eval_chunk_seconds '
+      f'{registry.timings["eval_chunk_seconds"].mean:.3f}; peak device memory '
+      f'{peak / 2**30:.2f} GiB; card {card}')
+  if launches != {'fused_ensemble_stats': 1, 'pairwise_spread_sum': 0,
+                  'pairwise_cross_sum': 0}:
+    raise AssertionError(f'expected one fused launch for the {len(chunks)} '
+                         f'stacked chunks and no other, got {launches}')
+  if ev.dispatches != 1:
+    raise AssertionError(f'{ev.dispatches} dispatches, want 1')
+  check_values('phase 15a batched main path', values,
+               f64_reference(chunks, aggregator), CLOSED_FORMS)
+  worst = 0.0
+  for name in CLOSED_FORMS:
+    key = f'{name}.2m_temperature'
+    got = values[key].transpose(*phase4_values[key].dims).data.double()
+    want = phase4_values[key].data.double().cpu()
+    worst = max(worst, ((got - want).abs() / want.abs()).max().item())
+  if worst > F64_RTOL:
+    raise AssertionError(f'batched main path {worst:.3g} from phase 4 > '
+                         f'{F64_RTOL}')
+  log(f'phase 15a batched main path: values {worst:.3g} relative from phase '
+      f'4\'s per-chunk run (tol {F64_RTOL}) ok')
+  return {'launches': launches, 'dispatches': ev.dispatches,
+          'chunks': len(chunks), 'seconds': seconds,
+          'peak_gib': peak / 2**30, 'rel_vs_phase4': worst}
+
+
+def batched_benchmark_path(stores, want_state, budget: int, card: str
+                           ) -> dict:
+  """Phase 15(b): phase 6's configuration at chunks_per_dispatch=2 (its 2
+  chunks in one dispatch) under both of phase 6's resource plans; each
+  state within BATCHED_BENCH_RTOL of phase 6's resident state (max |diff|
+  over max |value| per array), torch.equal printed."""
+  import torch
+  out = {}
+  for plan, b in (('resident', None), ('host_gather', budget)):
+    pipe, state, seconds, _ = run_bench(
+        stores, b, card, label=f'phase 15b batched benchmark path ({plan})',
+        group=BENCH_INITS)
+    ev = pipe._evaluator
+    if (plan == 'host_gather') != bool(ev.host_gather_ids):
+      raise AssertionError(f'{plan}: {len(ev.host_gather_ids)} demoted')
+    if ev.dispatches != 1 or ev.signature_splits:
+      raise AssertionError(f'{plan}: {ev.dispatches} dispatches, '
+                           f'{ev.signature_splits} signature splits; want 1, 0')
+    rel, where, equal = state_rel(state, want_state)
+    log(f'phase 15b batched benchmark path ({plan}): {BENCH_INITS} chunks in '
+        f'1 dispatch; state {rel:.3g} from phase 6\'s (max |diff| / max '
+        f'|value| per array, at {where}; tol {BATCHED_BENCH_RTOL}); '
+        f'torch.equal {equal}; card {card}')
+    if not rel <= BATCHED_BENCH_RTOL:
+      raise AssertionError(f'{plan}: batched state {rel:.3g} from phase 6')
+    out[plan] = {'s_per_chunk': seconds / BENCH_INITS, 'rel': rel,
+                 'torch_equal': equal}
+    del pipe, state
+    torch.cuda.empty_cache()
+  return out
+
+
+def dispatch_stores(seed: int) -> dict:
+  """Phase 15(c)'s host stores: phase 14's 25 field-levels at 1.5 degrees,
+  DISPATCH_INITS inits 12 h apart x SIG_LEADS leads; targets N(0, 1) at
+  the valid times, predictions the target plus N(0, 1); made on the card
+  from the seed."""
+  import torch
+  from weatherbenchx_tpu_torch.apps import configs
+  from weatherbenchx_tpu_torch.darray import DimArray
+  gen = torch.Generator(device=DEVICE)
+  gen.manual_seed(seed + 15000)
+  nlat, nlon = SIG_GRID
+  space = {'latitude': np.linspace(-90, 90, nlat),
+           'longitude': np.arange(nlon) * (360 / nlon)}
+  inits = (np.datetime64('2020-01-01T00', 'ns')
+           + np.arange(DISPATCH_INITS) * np.timedelta64(12, 'h'))
+  leads = (np.arange(SIG_LEADS) * np.timedelta64(6, 'h')).astype(
+      'timedelta64[ns]')
+  n_valid = 2 * (DISPATCH_INITS - 1) + SIG_LEADS
+  valid = (np.datetime64('2020-01-01T00', 'ns')
+           + np.arange(n_valid) * np.timedelta64(6, 'h'))
+  vpos = torch.tensor([2 * k + j for k in range(DISPATCH_INITS)
+                       for j in range(SIG_LEADS)], device=DEVICE)
+  preds, tgts = {}, {}
+  for name in bench_variables():
+    lev = name in configs.UPPER_LEVEL_VARIABLES
+    fshape = ((len(BENCH_LEVELS),) if lev else ()) + SIG_GRID
+    fdims = (('level',) if lev else ()) + ('latitude', 'longitude')
+    lcoords = {'level': np.array(BENCH_LEVELS)} if lev else {}
+    t = torch.randn((n_valid,) + fshape, generator=gen, device=DEVICE)
+    p = t[vpos] + torch.randn((len(vpos),) + fshape, generator=gen,
+                              device=DEVICE)
+    tgts[name] = DimArray(t.cpu().numpy(), ('valid_time',) + fdims,
+                          {'valid_time': valid, **space, **lcoords})
+    preds[name] = DimArray(
+        p.reshape((DISPATCH_INITS, SIG_LEADS) + fshape).cpu().numpy(),
+        ('init_time', 'lead_time') + fdims,
+        {'init_time': inits, 'lead_time': leads, **space, **lcoords})
+    del t, p
+  return {'predictions': preds, 'targets': tgts, 'inits': inits,
+          'leads': leads, 'space': space}
+
+
+def dispatch_run(stores, group: int, profile_dir=None) -> tuple:
+  """One EvaluationPipeline run of phase 15(c) at ``group`` chunks per
+  dispatch; returns (host state, seconds to a final synchronize,
+  registry, evaluator)."""
+  import torch
+  from weatherbenchx_tpu_torch import aggregation, binning, observability
+  from weatherbenchx_tpu_torch import time_chunks, weighting
+  from weatherbenchx_tpu_torch.apps import configs
+  from weatherbenchx_tpu_torch.darray import DimArray
+  from weatherbenchx_tpu_torch.data import loaders
+  from weatherbenchx_tpu_torch.metrics import deterministic
+  from weatherbenchx_tpu_torch.parallel import pipeline
+  lat, lon = stores['space']['latitude'], stores['space']['longitude']
+  land = ((np.floor(lat / 5)[:, None] + np.floor(lon / 5)[None, :]) % 2) == 0
+  registry = observability.Metrics()
+  pipe = pipeline.EvaluationPipeline(
+      metrics={'rmse': deterministic.RMSE(), 'bias': deterministic.Bias()},
+      aggregator=aggregation.Aggregator(
+          reduce_dims=['latitude', 'longitude'],
+          weigh_by=[weighting.GridAreaWeighting()],
+          bin_by=[binning.Regions(configs.REGIONS, land_sea_mask=DimArray(
+              land.astype(np.float32), ('latitude', 'longitude'),
+              stores['space']))],
+          masked=True),
+      predictions_loader=loaders.PredictionsFromDataset(
+          ds=stores['predictions'], rename_dimensions=None),
+      targets_loader=loaders.TargetsFromDataset(
+          ds=stores['targets'], rename_dimensions=None),
+      times=time_chunks.TimeChunks(stores['inits'], stores['leads'],
+                                   init_time_chunk_size=1),
+      device=DEVICE, chunks_per_dispatch=group, metrics_registry=registry,
+      profile_dir=profile_dir)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  state = pipe.run()
+  torch.cuda.synchronize()
+  return state, time.perf_counter() - t0, registry, pipe._evaluator
+
+
+def dispatch_path(seed: int, card: str) -> dict:
+  """Phase 15(c): phase 14's configuration (1.5 degrees, 25 field-levels,
+  41 leads, 34 bins, init_time kept, RMSE and bias) through
+  EvaluationPipeline over DISPATCH_INITS inits of in-memory stores, at
+  each of DISPATCH_GROUPS chunks per dispatch: seconds per chunk and the
+  mean eval_chunk_seconds of a plain run, then a profiled run
+  (profile_dir): CUDA kernels and eager operator calls per chunk and the
+  card's busy share (the union of its kernels' intervals over the run's
+  wall time); the states within F64_RTOL of each other."""
+  import torch
+  from weatherbenchx_tpu_torch import observability
+  from weatherbenchx_tpu_torch.metrics import deterministic
+  t0 = time.perf_counter()
+  stores = dispatch_stores(seed)
+  log(f'phase 15c dispatch path: made {DISPATCH_INITS} inits x {SIG_LEADS} '
+      f'leads x {len(bench_variables())} variables at {SIG_GRID} in '
+      f'{time.perf_counter() - t0:.1f} s')
+  out, states = {}, {}
+  for group in DISPATCH_GROUPS:
+    state, seconds, registry, ev = dispatch_run(stores, group)
+    states[group] = state
+    eval_s = registry.timings['eval_chunk_seconds']
+    with tempfile.TemporaryDirectory() as trace_dir:
+      _, traced_s, _, _ = dispatch_run(stores, group, trace_dir)
+      summary = observability.trace_summary(trace_dir)
+      trace_mb = os.path.getsize(summary['path']) / 2**20
+    row = {
+        's_per_chunk': seconds / DISPATCH_INITS,
+        'dispatches': ev.dispatches,
+        'signature_splits': ev.signature_splits
+                            + registry.counters.get('signature_splits', 0),
+        'eval_chunk_seconds_mean': eval_s.mean,
+        'eval_chunk_seconds_per_chunk': eval_s.total / DISPATCH_INITS,
+        'profiled_s_per_chunk': traced_s / DISPATCH_INITS,
+        'kernels_per_chunk': summary['kernels'] / DISPATCH_INITS,
+        'cpu_ops_per_chunk': summary['cpu_ops'] / DISPATCH_INITS,
+        'busy_share': summary['busy_seconds'] / traced_s,
+        'kernel_ms_per_chunk': 1e3 * summary['kernel_seconds']
+                               / DISPATCH_INITS,
+        'trace_mib': trace_mb,
+    }
+    out[group] = row
+    log(f'phase 15c dispatch path, {group} chunk(s) per dispatch: '
+        f'{row["s_per_chunk"]:.4f} s per chunk ({DISPATCH_INITS} chunks, wall '
+        f'clock to a final synchronize, {ev.dispatches} dispatches, '
+        f'{row["signature_splits"]} signature splits); eval_chunk_seconds '
+        f'mean {eval_s.mean:.4f} s per dispatch, '
+        f'{row["eval_chunk_seconds_per_chunk"]:.4f} s per chunk; profiled '
+        f'run {row["profiled_s_per_chunk"]:.4f} s per chunk, '
+        f'{row["kernels_per_chunk"]:.1f} CUDA kernels and '
+        f'{row["cpu_ops_per_chunk"]:.1f} eager operator calls per chunk, '
+        f'the card busy {row["busy_share"]:.1%} of the run '
+        f'({row["kernel_ms_per_chunk"]:.3f} ms of kernels per chunk; trace '
+        f'{trace_mb:.1f} MiB); card {card}')
+    torch.cuda.empty_cache()
+  rel, where, equal = state_rel(states[DISPATCH_GROUPS[1]],
+                                states[DISPATCH_GROUPS[0]])
+  if not rel <= F64_RTOL:
+    raise AssertionError(f'dispatch path: groups {DISPATCH_GROUPS} differ by '
+                         f'{rel:.3g} > {F64_RTOL} at {where}')
+  values = states[DISPATCH_GROUPS[1]].metric_values(
+      {'rmse': deterministic.RMSE()})
+  rmse = values['rmse.2m_temperature']
+  glob = rmse.values[..., list(rmse.coord_values('region')).index('global')]
+  if rmse.dims != ('init_time', 'lead_time', 'region') or not (
+      abs(glob.mean() - 1.0) < 0.01):
+    raise AssertionError(f'dispatch path rmse dims {rmse.dims}, global mean '
+                         f'{glob.mean()} (want 1)')
+  log(f'phase 15c dispatch path: states of groups {DISPATCH_GROUPS} '
+      f'{rel:.3g} apart (at {where}; tol {F64_RTOL}), torch.equal {equal}; '
+      f'global RMSE of N(0, 1) errors {glob.mean():.5f} (want 1) ok')
+  del stores, states
+  return {'groups': out, 'rel': rel, 'rel_at': where, 'torch_equal': equal}
+
+
+def scorecard_phase(outputs: dict) -> dict:
+  """Phase 15(d), on the host: phase 8's two benchmark CLI outputs (hres
+  and ens, 64 x 32) written into a results directory, combined by
+  combine_results with display names, rendered by scorecard_html, and the
+  rendered page's own self-test run on its generated logic by jsmini."""
+  import re
+  from weatherbenchx_tpu_torch import io
+  from weatherbenchx_tpu_torch.apps import combine_results, jsmini
+  from weatherbenchx_tpu_torch.apps import scorecard_html
+  with tempfile.TemporaryDirectory() as tmp:
+    for name, ds in outputs.items():
+      io.save_dataset(os.path.join(tmp, name), ds)
+    out = os.path.join(tmp, 'scorecard', 'scorecard.npz')
+    os.makedirs(os.path.dirname(out))
+    t0 = time.perf_counter()
+    combine_results.main(['--results_dir', tmp, '--output_path', out,
+                          '--display_names'])
+    combine_s = time.perf_counter() - t0
+    sc = io.load_dataset(out)
+    t0 = time.perf_counter()
+    page = scorecard_html.render_scorecard_html(out)
+    render_s = time.perf_counter() - t0
+  data = json.loads(re.search(r'const DATA = (\{.*?\});\n', page,
+                              re.S).group(1))
+  m = re.search(r'const SELFTEST = (\[.*?\]);\n', page, re.S)
+  fixtures = json.loads(m.group(1))
+  logic_js = page[m.end():page.index('function sl_deepNear')]
+  t0 = time.perf_counter()
+  failures = jsmini.run_selftests(logic_js, fixtures, data['values'])
+  selftest_s = time.perf_counter() - t0
+  models = list(sc['Geopotential'].coord_values('model'))
+  if failures or models != ['IFS ENS vs ERA5', 'IFS HRES vs ERA5']:
+    raise AssertionError(f'scorecard: models {models}, self-test failures '
+                         f'{failures}')
+  log(f'phase 15d scorecard: {len(sc)} variables x {len(models)} models '
+      f'combined in {combine_s:.3f} s, page of {len(page)} characters '
+      f'rendered in {render_s:.3f} s, {len(fixtures)} self-test fixtures '
+      f'passed through jsmini in {selftest_s:.3f} s ok')
+  return {'combine_s': combine_s, 'render_s': render_s,
+          'selftest_s': selftest_s, 'fixtures': len(fixtures)}
+
+
+def latency_phase(seed: int, card: str) -> dict:
+  """Phase 15(e): a ConstantLatencyWrapper (6 h) around an in-memory store
+  like phase 7's (2m temperature at CLI_GRID, N(0, 1)), through
+  EvaluationPipeline on the card at 2 chunks per dispatch: inits 6 h after
+  each nominal run score that run 6 h further out, equal by torch.equal to
+  a run without the wrapper of the nominal inits at the shifted leads."""
+  import torch
+  from weatherbenchx_tpu_torch import aggregation, observability
+  from weatherbenchx_tpu_torch import time_chunks, weighting
+  from weatherbenchx_tpu_torch.darray import DimArray
+  from weatherbenchx_tpu_torch.data import latency_wrappers, loaders
+  from weatherbenchx_tpu_torch.metrics import deterministic
+  from weatherbenchx_tpu_torch.parallel import pipeline
+  rng = np.random.default_rng([seed, 15500])
+  nominal = np.arange('2020-01-01', '2020-01-05', np.timedelta64(12, 'h'),
+                      dtype='datetime64[ns]')
+  leads = (np.arange(0, 49, 6) * np.timedelta64(1, 'h')).astype(
+      'timedelta64[ns]')
+  valid = np.arange('2020-01-01', '2020-01-07', np.timedelta64(6, 'h'),
+                    dtype='datetime64[ns]')
+  space = {'latitude': np.linspace(-90, 90, CLI_GRID[0]),
+           'longitude': np.arange(CLI_GRID[1]) * (360 / CLI_GRID[1])}
+  preds = {'2m_temperature': DimArray(
+      rng.standard_normal((len(nominal), len(leads)) + CLI_GRID,
+                          dtype=np.float32),
+      ('init_time', 'lead_time', 'latitude', 'longitude'),
+      {'init_time': nominal, 'lead_time': leads, **space})}
+  tgts = {'2m_temperature': DimArray(
+      rng.standard_normal((len(valid),) + CLI_GRID, dtype=np.float32),
+      ('valid_time', 'latitude', 'longitude'), {'valid_time': valid, **space})}
+  metrics = {'rmse': deterministic.RMSE(), 'bias': deterministic.Bias()}
+  offset = np.timedelta64(6, 'h')
+  requested = leads[:-2]  # the adjusted leads stay on the store's grid
+
+  def run(loader, inits, run_leads):
+    return pipeline.EvaluationPipeline(
+        metrics=metrics,
+        aggregator=aggregation.Aggregator(
+            reduce_dims=['latitude', 'longitude'],
+            weigh_by=[weighting.GridAreaWeighting()]),
+        predictions_loader=loader,
+        targets_loader=loaders.TargetsFromDataset(ds=tgts,
+                                                  rename_dimensions=None),
+        times=time_chunks.TimeChunks(inits, run_leads,
+                                     init_time_chunk_size=1),
+        device=DEVICE, chunks_per_dispatch=2,
+        metrics_registry=observability.Metrics()).run()
+
+  t0 = time.perf_counter()
+  wrapped = run(latency_wrappers.ConstantLatencyWrapper(
+      loaders.PredictionsFromDataset(ds=preds, rename_dimensions=None),
+      latency=offset, nominal_init_times=nominal), nominal + offset,
+      requested)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  plain = run(loaders.PredictionsFromDataset(ds=preds, rename_dimensions=None),
+              nominal, requested + offset)
+  got, want = wrapped.to_dataset(), plain.to_dataset()
+  if sorted(got) != sorted(want):
+    raise AssertionError('latency phase: state keys differ')
+  for k in want:
+    if not (torch.equal(got[k].data, want[k].data) and np.array_equal(
+        got[k].coord_values('init_time'),
+        want[k].coord_values('init_time') + offset)):
+      raise AssertionError(f'latency phase: {k} differs from the unwrapped '
+                           'run of the nominal inits')
+  log(f'phase 15e latency wrapper: {len(nominal)} inits 6 h after their '
+      f'runs x {len(requested)} leads through the pipeline on the card in '
+      f'{seconds:.2f} s, equal by torch.equal to the unwrapped nominal run '
+      f'at leads + 6 h ({len(want)} arrays) ok; card {card}')
+  return {'seconds': seconds, 'arrays': len(want)}
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
   args = parser.parse_args()
 
+  t_start = time.perf_counter()
   import torch
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this script runs only on the GPU',
@@ -3017,7 +3472,7 @@ def main() -> int:
 
   main_err = check_kernels(args.seed)
   log('phase 3 kernels: all checks within tolerance')
-  ev, chunks, main_launches, _ = main_path(args.seed)
+  ev, chunks, main_launches, main_values = main_path(args.seed)
   log('phase 4 main path: ok')
   stores, ens_launches = ensemble_path(args.seed)
   log('phase 5 ensemble path: ok')
@@ -3025,13 +3480,17 @@ def main() -> int:
   log('phase 6 benchmark path: ok')
   cli_phase(args.seed)
   log('phase 7 cli: ok')
-  benchmark_cli_phase(args.seed)
+  _, cli_outputs = benchmark_cli_phase(args.seed)
   log('phase 8 benchmark cli: ok')
+  scorecard = scorecard_phase(cli_outputs)
+  log('phase 15d scorecard: ok')
   disk = disk_benchmark_path(bstores, bstate, in_memory, card)
   del bstate
   log('phase 9 disk benchmark path: ok')
   res = timing(ev, chunks, stores, card)
   log('phase 10 timing: done')
+  batched_main = batched_main_path(chunks, main_values, card)
+  log('phase 15a batched main path: ok')
   del ev, chunks, stores
   families = family_phase(args.seed, card)
   log('phase 11 metric families: ok')
@@ -3042,16 +3501,27 @@ def main() -> int:
   log('phase 13 unaggregated path: ok')
   significance = significance_path(args.seed, card)
   log('phase 14 significance: ok')
+  dispatch = dispatch_path(args.seed, card)
+  log('phase 15c dispatch path: ok')
+  latency = latency_phase(args.seed, card)
+  log('phase 15e latency wrapper: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
   log(f'station path: {json.dumps(station)}; card {card}')
   log(f'unaggregated path: {json.dumps(unagg)}; card {card}')
   log(f'significance: {json.dumps(significance)}; card {card}')
+  batched = {'main': batched_main, 'benchmark': bench['batched'],
+             'dispatch': dispatch, 'scorecard': scorecard,
+             'latency': latency}
+  log(f'batched dispatch: {json.dumps(batched)}; card {card}')
+  log(f'whole script: {time.perf_counter() - t_start:.1f} s '
+      f'(the build included); card {card}')
 
   n = math.prod(GRID)
   print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,
-                                n, station['ensemble'])), flush=True)
+                                n, station['ensemble'], batched_main)),
+        flush=True)
   print(card, flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind,

@@ -298,15 +298,27 @@ def test_cli_from_every_container_matches_the_jax_cli(
 @pytest.mark.parametrize('flag,item', [
     ('--unaggregated_zarr', 'A11'), ('--chunks_per_dispatch=2', 'A7')])
 def test_unported_options_raise(stores, tmp_path, flag, item):
-  """--chunks_per_dispatch > 1 (ROADMAP A7) still raises. The refusal of
-  --unaggregated_zarr is lifted: the flag now writes its statistics store."""
+  """Both refusals are lifted. --unaggregated_zarr writes its statistics
+  store; --chunks_per_dispatch=2 runs and matches the unbatched CLI's
+  output within atol 1e-5."""
   argv = _argv(stores, 'hres', str(tmp_path)) + [flag, '--device=cpu']
   if item == 'A11':
     cli.main(argv + ['--variables=geopotential,2m_temperature'])
     assert any(n.endswith('_stats.zarr') for n in os.listdir(tmp_path))
     return
-  with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
-    cli.main(argv)
+  variables = '--variables=geopotential,2m_temperature,total_precipitation_24hr'
+  cli.main(argv + [variables])
+  cli.main(_argv(stores, 'hres', f'{tmp_path}/single')
+           + ['--device=cpu', variables])
+  name = sorted(n for n in os.listdir(tmp_path) if n.endswith('.npz'))
+  assert sorted(os.listdir(f'{tmp_path}/single')) == name
+  got = io.load_dataset(f'{tmp_path}/{name[0]}')
+  want = io.load_dataset(f'{tmp_path}/single/{name[0]}')
+  assert sorted(got) == sorted(want)
+  for k in want:
+    assert got[k].dims == want[k].dims, k
+    np.testing.assert_allclose(got[k].values, want[k].values, atol=1e-5,
+                               rtol=0, err_msg=k)
 
 
 def _tree_bytes(root):

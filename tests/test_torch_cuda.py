@@ -620,3 +620,76 @@ def test_inference_on_a_cuda_state_matches_the_cpu(cuda):
         np.testing.assert_allclose(g.values, want[m]['t'].values,
                                    rtol=1e-9, atol=1e-12,
                                    err_msg=f'{name} {fn} {m}')
+
+
+def _ensemble_chunks(n_chunks=3, members=50, shape=(2, 91, 180)):
+  """Host-prepared 50-member chunks (one init each) and an evaluator of
+  fair CRPS and ensemble-mean RMSE over two regions."""
+  from weatherbenchx_tpu_torch import aggregation, binning, weighting
+  from weatherbenchx_tpu_torch.darray import DimArray
+  from weatherbenchx_tpu_torch.metrics import probabilistic
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  rng = np.random.default_rng(15)
+  lat = np.linspace(-90, 90, shape[1])
+  lon = np.linspace(0, 360, shape[2], endpoint=False)
+  lead = (np.arange(shape[0]) * np.timedelta64(6, 'h')).astype(
+      'timedelta64[ns]')
+  pairs = []
+  for k in range(n_chunks):
+    init = np.array([np.datetime64('2020-01-01', 'ns')
+                     + k * np.timedelta64(12, 'h')])
+    coords = {'init_time': init, 'lead_time': lead, 'latitude': lat,
+              'longitude': lon}
+    dims = ('init_time', 'lead_time', 'latitude', 'longitude')
+    x = rng.standard_normal((members, 1) + shape).astype(np.float32)
+    y = rng.standard_normal((1,) + shape).astype(np.float32)
+    pairs.append(({'t': DimArray(x, ('number',) + dims,
+                                 {**coords, 'number': np.arange(members)})},
+                  {'t': DimArray(y, dims, coords)}))
+  ev = evaluator.ChunkEvaluator(
+      {'crps': probabilistic.CRPSEnsemble(),
+       'mean_rmse': probabilistic.UnbiasedEnsembleMeanRMSE()},
+      aggregation.Aggregator(
+          reduce_dims=['latitude', 'longitude'],
+          weigh_by=[weighting.GridAreaWeighting()],
+          bin_by=[binning.Regions({'global': ((-90, 90), (0, 360)),
+                                   'tropics': ((-30, 30), (0, 360))})]),
+      'cuda')
+  return ev, pairs
+
+
+def test_batched_dispatch_launches_the_fused_kernel_once(cuda):
+  ev, pairs = _ensemble_chunks()
+  crps_pairwise.reset_launch_counts()
+  states = ev.eval_prepared(pairs)
+  torch.cuda.synchronize()
+  assert crps_pairwise.LAUNCHES['fused_ensemble_stats'] == 1
+  assert ev.dispatches == 1 and ev.signature_splits == 0
+  for pair, state in zip(pairs, states):
+    want = ev.eval_host_prepared(*pair).to_dataset()
+    got = state.to_dataset()
+    assert sorted(got) == sorted(want)
+    for k in want:
+      assert got[k].dims == want[k].dims, k
+      np.testing.assert_array_equal(got[k].coord_values('init_time'),
+                                    want[k].coord_values('init_time'))
+      assert _rel(got[k].data, want[k].data) < 1e-5, k
+  assert crps_pairwise.LAUNCHES['fused_ensemble_stats'] == 4
+
+
+def test_profiled_cuda_run_names_the_fused_kernel(cuda, tmp_path):
+  from weatherbenchx_tpu_torch import observability
+  ev, pairs = _ensemble_chunks(n_chunks=2)
+  ev.eval_prepared(pairs)  # the library built and the operands cached
+  torch.cuda.synchronize()
+  with observability.maybe_profile(str(tmp_path), cuda):
+    ev.eval_prepared(pairs)
+    torch.cuda.synchronize()
+  summary = observability.trace_summary(str(tmp_path))
+  assert summary['ranges']['wbx.fused_ensemble_stats'] == 1
+  for name in ev._stat_names:
+    assert summary['ranges'][f'wbx.statistic.{name}'] == 1, name
+  assert summary['kernels'] > 0 and summary['busy_seconds'] > 0
+  # CUPTI records the ctypes-launched kernel too.
+  assert sum(n for name, n in summary['kernel_names'].items()
+             if 'register_stats_kernel' in name) == 1

@@ -169,7 +169,7 @@ def test_full_float32_matmul_precision():
 
 def test_port_never_imports_jax():
   """Every module of the port, and chip_smoke.py, imports in a fresh
-  process without jax, pandas or the JAX package."""
+  process without jax, pandas, matplotlib or the JAX package."""
   modules = ['chip_smoke']
   pkg = os.path.join(REPO, 'weatherbenchx_tpu_torch')
   for root, _, files in os.walk(pkg):
@@ -181,7 +181,8 @@ def test_port_never_imports_jax():
   code = ('import importlib, sys\n'
           f'for m in {modules!r}:\n'
           '  importlib.import_module(m)\n'
-          "banned = ('jax', 'jaxlib', 'pandas', 'weatherbenchx_tpu')\n"
+          "banned = ('jax', 'jaxlib', 'pandas', 'matplotlib',"
+          " 'weatherbenchx_tpu')\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
           'assert not bad, bad\n'
           'print(len(sys.modules))\n')

@@ -258,9 +258,13 @@ def _imported_roots(path, module_level=False):
 
 
 # The Parquet reader alone may import pandas and pyarrow, inside the
-# functions that read Parquet (the card's machine has neither).
+# functions that read Parquet (the card's machine has neither); the
+# scorecard figure alone matplotlib, inside the functions that draw (the
+# card's machine has none).
 PARQUET_READERS = {os.path.join('weatherbenchx_tpu_torch', 'data',
                                 'sparse_parquet')}
+FIGURE_DRAWERS = {os.path.join('weatherbenchx_tpu_torch', 'apps',
+                               'scorecard_figure')}
 
 
 @pytest.mark.parametrize('path', ['chip_smoke.py'] + [
@@ -271,9 +275,22 @@ def test_no_file_of_the_port_names_a_banned_import(path):
   if not full.endswith('.py'):
     full = full + '.py' if os.path.exists(full + '.py') else os.path.join(
         full, '__init__.py')
-  banned = {'jax', 'jaxlib', 'pandas', 'weatherbenchx_tpu'}
+  banned = {'jax', 'jaxlib', 'pandas', 'matplotlib', 'weatherbenchx_tpu'}
   if path in PARQUET_READERS:
     assert not _imported_roots(full, module_level=True) & (
         banned | {'pyarrow'}), path
     banned -= {'pandas'}
+  if path in FIGURE_DRAWERS:
+    assert not _imported_roots(full, module_level=True) & banned, path
+    assert 'matplotlib' in _imported_roots(full), path
+    banned -= {'matplotlib'}
   assert not _imported_roots(full) & banned, path
+
+
+def test_the_guard_covers_the_new_modules():
+  modules = set(_port_modules())
+  for m in ('parallel.evaluator', 'parallel.pipeline', 'observability',
+            'data.latency_wrappers', 'test_utils', 'apps.combine_results',
+            'apps.pyjs', 'apps.jsmini', 'apps.scorecard_logic',
+            'apps.scorecard_html', 'apps.scorecard_figure'):
+    assert f'weatherbenchx_tpu_torch.{m}' in modules, m

@@ -21,10 +21,11 @@ zarr v2 and v3 (local, or an fsspec URL such as the registry's ``gs://``
 paths) and netCDF; ``--output_format`` writes npz, zarr, wbx or nc.
 ``--unaggregated_zarr`` also streams the raw per-point statistics of the
 same pass into ``<output>_stats.zarr`` (``--zarr_format``,
-``--zarr_compressor``, ``--zarr_shards``). Not ported yet, and raising:
-``--chunks_per_dispatch`` > 1 (ROADMAP A7). The JAX CLI's
-``--compilation_cache_dir`` has no counterpart: nothing is compiled per
-chunk shape.
+``--zarr_compressor``, ``--zarr_shards``). ``--chunks_per_dispatch`` > 1
+evaluates that many chunks of one layout stacked on the device at once
+(``parallel/pipeline``); with ``--unaggregated_zarr`` it is ignored, as in
+the JAX CLI. The JAX CLI's ``--compilation_cache_dir`` has no
+counterpart: nothing is compiled per chunk shape.
 
 The construction is split into functions (``build_loaders``,
 ``load_climatology``, ``build_metrics``, ``build_aggregator``) that
@@ -100,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--climatology_path', default=None)
   p.add_argument('--checkpoint_every', type=int, default=0)
   p.add_argument('--chunks_per_dispatch', type=int, default=1,
-                 help='Chunks per evaluation; only 1 is ported so far')
+                 help='Chunks of one layout evaluated together, stacked on '
+                      'the device (one kernel launch for all of them)')
   p.add_argument('--load_retries', type=int, default=0,
                  help='Retries per chunk load on transient (I/O) failures')
   p.add_argument('--load_retry_backoff', type=float, default=1.0)
@@ -124,13 +126,6 @@ def build_parser() -> argparse.ArgumentParser:
                  help="Device the chunks are evaluated on: 'cuda' (the "
                       "default; raises without a GPU) or 'cpu'")
   return p
-
-
-def _check_ported(args) -> None:
-  if args.chunks_per_dispatch > 1:
-    raise NotImplementedError(
-        'not ported to weatherbenchx_tpu_torch yet: --chunks_per_dispatch '
-        '> 1 (ROADMAP A7)')
 
 
 def resolve_configs(args) -> tuple[dict, dict, dict, bool]:
@@ -326,7 +321,6 @@ def build_aggregator(land_sea_mask: Optional[DimArray], temporal: bool,
 def main(argv: Optional[Sequence[str]] = None) -> None:
   args = build_parser().parse_args(argv)
   device = run_evaluation.resolve_device(args.device)
-  _check_ported(args)
 
   pred_cfg, tgt_cfg, clim_cfg, is_probabilistic = resolve_configs(args)
   if args.variables:
@@ -374,6 +368,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       out_path=out_path, device=device,
       checkpoint_path=(out_path + '.ckpt' if args.checkpoint_every else None),
       checkpoint_every=args.checkpoint_every,
+      chunks_per_dispatch=args.chunks_per_dispatch,
       chunk_stats_sink=stats_store.write_chunk if stats_store else None,
       retry=run_evaluation.retry_policy_from_args(args))
   if stats_store is not None:

@@ -4,10 +4,10 @@ The port of ``weatherbenchx_tpu/apps/run_evaluation.py``: the same flags
 and metric/aggregation setup, plus ``--device`` (default ``cuda``; without
 a GPU that raises, it never falls back to the CPU, and on a GPU the native
 I/O libraries must build: the pure-Python codecs serve only CPU runs, as
-``resolve_device`` says). The JAX CLI's
-``--compilation_cache_dir`` and ``--chunks_per_dispatch`` have no
-counterpart here: nothing is compiled per chunk shape, and each chunk is
-one eager evaluation.
+``resolve_device`` says). ``--chunks_per_dispatch`` evaluates that many
+chunks of one layout stacked on the device at once. The JAX CLI's
+``--compilation_cache_dir`` has no counterpart here: nothing is compiled
+per chunk shape.
 
 Stores open lazily by ``io.open_dataset_auto`` (``.npz``, ``.wbx``, zarr v2
 and v3 local or through fsspec, netCDF), and the outputs take the container
@@ -79,6 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument('--checkpoint_path', default=None,
                  help='Optional running-state checkpoint path (resume)')
   p.add_argument('--checkpoint_every', type=int, default=0)
+  p.add_argument('--chunks_per_dispatch', type=int, default=1,
+                 help='Chunks of one layout evaluated together, stacked on '
+                      'the device (one kernel launch for all of them)')
   p.add_argument('--load_retries', type=int, default=0,
                  help='Retries per chunk load on transient (I/O) failures, '
                       'with exponential backoff')
@@ -167,6 +170,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
       device=device,
       checkpoint_path=args.checkpoint_path,
       checkpoint_every=args.checkpoint_every,
+      chunks_per_dispatch=args.chunks_per_dispatch,
       retry=retry_policy_from_args(args))
   print(f'Wrote {len(values)} metric variables to {args.output_path}')
   for k, v in sorted(values.items()):

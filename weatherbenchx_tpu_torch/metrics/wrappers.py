@@ -180,6 +180,12 @@ def select_bin_thresholds_by_time_from_chunk(
       raise ValueError(
           'select_bin_thresholds_by_time_from_chunk requires host '
           f'datetime coords, got {v.dtype} for {name}.')
+    if chunk.coords[name].dims != (name,):
+      # A batched dispatch stacks the chunks' time coords along a new dim.
+      raise ValueError(
+          'select_bin_thresholds_by_time_from_chunk requires one chunk\'s '
+          f'1-D {name} coord, got dims {chunk.coords[name].dims}; evaluate '
+          'with chunks_per_dispatch=1.')
     return v
 
   def dayofyear(t):

@@ -2,25 +2,34 @@
 
 The port of ``weatherbenchx_tpu/observability.py:21-104`` (host-only code,
 copied): a thread-safe ``Metrics`` registry of counters and timing
-distributions, and a process-global default registry. The JAX package's
-``maybe_profile`` (a ``jax.profiler`` trace) is not ported yet.
+distributions, and a process-global default registry; and
+``maybe_profile``, the JAX package's ``jax.profiler`` trace as a
+``torch.profiler`` trace, with ``trace_summary`` to read one back.
 
 Counters the pipeline records: ``chunks_done``, ``load_retries``,
-``chunks_failed``. Timings (seconds): ``load_targets_seconds``,
-``load_predictions_seconds`` (which includes the statistics' host
-preparation of the chunk: climatology alignment indices and host-gathered
-climatology slices), ``eval_chunk_seconds`` (host clock around one
-chunk's device copy and the launch of its evaluation; device work may
-still be running when it stops), ``checkpoint_seconds``.
+``chunks_failed``, ``signature_splits`` (batches flushed early because the
+next chunk's signature differed). Timings (seconds):
+``load_targets_seconds``, ``load_predictions_seconds`` (which includes the
+statistics' host preparation of the chunk: climatology alignment indices
+and host-gathered climatology slices), ``eval_chunk_seconds`` (host clock
+around one dispatch's device copies and the launch of its evaluation, one
+chunk or a batch of ``chunks_per_dispatch``; device work may still be
+running when it stops), ``checkpoint_seconds``,
+``chunk_stats_sink_seconds``.
 """
 
 import collections
 import contextlib
 import dataclasses
+import glob
+import json
 import math
+import os
 import threading
 import time
 from typing import Iterator, Mapping
+
+import torch
 
 
 @dataclasses.dataclass
@@ -104,3 +113,66 @@ class Metrics:
 
 # Process-global default registry, for pipelines given none.
 default_metrics = Metrics()
+
+
+@contextlib.contextmanager
+def maybe_profile(trace_dir: str | None,
+                  device: torch.device | str | None = None) -> Iterator[None]:
+  """A ``torch.profiler`` trace when a directory is given, no-op otherwise.
+
+  CPU activity, and CUDA activity when ``device`` is a CUDA device; the
+  trace is written into ``trace_dir`` as a Chrome/TensorBoard JSON file
+  (``*.pt.trace.json``) when the context exits. The port's named ranges
+  (``wbx.statistic.<name>`` per statistic, ``wbx.<kernel>`` per kernel
+  wrapper call) appear in it.
+  """
+  if not trace_dir:
+    yield
+    return
+  activities = [torch.profiler.ProfilerActivity.CPU]
+  if device is not None and torch.device(device).type == 'cuda':
+    activities.append(torch.profiler.ProfilerActivity.CUDA)
+  os.makedirs(trace_dir, exist_ok=True)
+  with torch.profiler.profile(
+      activities=activities,
+      on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir)):
+    yield
+
+
+def trace_summary(trace_dir: str) -> dict:
+  """Reads the newest trace ``maybe_profile`` wrote into ``trace_dir``.
+
+  Returns ``{'path', 'ranges': {name: count} of the user ranges,
+  'cpu_ops': the count of eager operator calls, 'kernel_names': {name:
+  count} of the device kernels, 'kernels': their count,
+  'kernel_seconds': their summed time, 'busy_seconds': the union of their
+  intervals, 'span_seconds': first kernel start to last kernel end}``.
+  """
+  path = max(glob.glob(os.path.join(trace_dir, '*.pt.trace.json')),
+             key=os.path.getmtime)
+  with open(path) as f:
+    events = json.load(f).get('traceEvents', [])
+  ranges: dict[str, int] = collections.Counter()
+  kernel_names: dict[str, int] = collections.Counter()
+  intervals = []
+  cpu_ops = 0
+  for e in events:
+    cat = e.get('cat', '')
+    if cat == 'cpu_op':
+      cpu_ops += 1
+    elif cat == 'user_annotation':
+      ranges[e['name']] += 1
+    elif cat == 'kernel' and e.get('ph') == 'X':
+      kernel_names[e['name']] += 1
+      intervals.append((float(e['ts']), float(e['ts']) + float(e['dur'])))
+  intervals.sort()
+  busy, end = 0.0, -math.inf
+  for t0, t1 in intervals:
+    if t1 > end:
+      busy += t1 - max(t0, end)
+      end = t1
+  span = end - intervals[0][0] if intervals else 0.0
+  return {'path': path, 'ranges': dict(ranges), 'cpu_ops': cpu_ops,
+          'kernel_names': dict(kernel_names), 'kernels': len(intervals),
+          'kernel_seconds': sum(t1 - t0 for t0, t1 in intervals) * 1e-6,
+          'busy_seconds': busy * 1e-6, 'span_seconds': span * 1e-6}

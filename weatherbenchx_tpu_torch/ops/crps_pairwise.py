@@ -27,7 +27,9 @@ member count M alone (``spread_form``), both hand-written CUDA:
 networks written out as straight-line code from ``sort_network``.
 
 ``LAUNCHES`` counts kernel launches per kernel, so that a run can show its
-main path went through the kernels; the plain versions do not count.
+main path went through the kernels; the plain versions do not count. Each
+public function runs inside a ``torch.profiler.record_function`` range
+named ``wbx.<function>``, so that a profiler trace names it.
 """
 
 import torch
@@ -273,12 +275,13 @@ def fused_ensemble_stats(x: torch.Tensor, y: torch.Tensor) -> tuple:
                      f'{tuple(y.shape)}; want x = (M, *y.shape)')
   if x.dtype != y.dtype:
     raise TypeError(f'dtype mismatch: {x.dtype} vs {y.dtype}')
-  if _route(x, y) == 'cpu':
-    return fused_ensemble_stats_plain(x, y)
-  rest = y.shape
-  outs = _launch_stats(x.contiguous().reshape(x.shape[0], -1),
-                       y.contiguous().reshape(-1))
-  return tuple(o.reshape(rest) for o in outs)
+  with torch.profiler.record_function('wbx.fused_ensemble_stats'):
+    if _route(x, y) == 'cpu':
+      return fused_ensemble_stats_plain(x, y)
+    rest = y.shape
+    outs = _launch_stats(x.contiguous().reshape(x.shape[0], -1),
+                         y.contiguous().reshape(-1))
+    return tuple(o.reshape(rest) for o in outs)
 
 
 def pairwise_spread_sum(x: torch.Tensor) -> torch.Tensor:
@@ -289,10 +292,11 @@ def pairwise_spread_sum(x: torch.Tensor) -> torch.Tensor:
   """
   if x.dim() < 1:
     raise ValueError('need an ensemble axis')
-  if _route(x) == 'cpu':
-    return pairwise_spread_sum_plain(x)
-  return _launch_stats(x.contiguous().reshape(x.shape[0], -1),
-                       None).reshape(x.shape[1:])
+  with torch.profiler.record_function('wbx.pairwise_spread_sum'):
+    if _route(x) == 'cpu':
+      return pairwise_spread_sum_plain(x)
+    return _launch_stats(x.contiguous().reshape(x.shape[0], -1),
+                         None).reshape(x.shape[1:])
 
 
 def pairwise_cross_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -310,11 +314,12 @@ def pairwise_cross_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                      f'{tuple(y.shape)}')
   if x.dtype != y.dtype:
     raise TypeError(f'dtype mismatch: {x.dtype} vs {y.dtype}')
-  if _route(x, y) == 'cpu':
-    return pairwise_cross_sum_plain(x, y)
-  return _launch_cross(x.contiguous().reshape(x.shape[0], -1),
-                       y.contiguous().reshape(y.shape[0], -1)).reshape(
-                           x.shape[1:])
+  with torch.profiler.record_function('wbx.pairwise_cross_sum'):
+    if _route(x, y) == 'cpu':
+      return pairwise_cross_sum_plain(x, y)
+    return _launch_cross(x.contiguous().reshape(x.shape[0], -1),
+                         y.contiguous().reshape(y.shape[0], -1)).reshape(
+                             x.shape[1:])
 
 
 def spread_sum_along_axis(data: torch.Tensor, axis: int) -> torch.Tensor:

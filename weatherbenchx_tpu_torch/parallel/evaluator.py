@@ -20,6 +20,16 @@ numpy, and there is no jit cache to protect.
   it comes, so that one statistic at a time is held on the device;
   ``eval_with_statistics`` also hands each statistic back as a host copy
   (the pipeline's ``chunk_stats_sink``).
+* ``eval_prepared`` evaluates several host-prepared chunks of one
+  ``batchable_signature`` at once: each is copied to the device into its
+  slice of arrays stacked along a leading ``CHUNK_DIM`` that no aggregator
+  reduces, the stack is evaluated once (one fused kernel launch for all
+  of its chunks, the weights and bin masks shared), and the state is split
+  back into one state per chunk. Coords that differ from chunk to chunk
+  (time coords, validity masks, climatology index and value coords) gain
+  ``CHUNK_DIM`` in the stack, so each chunk's state carries its own. This
+  replaces the JAX package's ``jax.vmap`` of the step: the kernels are
+  launched through ctypes and have no batching rule.
 
 A station chunk brings new coord objects over its ``index`` every chunk
 (positions, names, interpolated grid elevations): binnings read theirs by
@@ -32,13 +42,18 @@ counts the layouts built.
 import dataclasses
 import logging
 import os
-from typing import Hashable, Mapping
+from typing import Hashable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from weatherbenchx_tpu_torch import aggregation as aggregation_lib
+from weatherbenchx_tpu_torch import darray
 from weatherbenchx_tpu_torch.darray import Coord, DimArray, as_tensor
 from weatherbenchx_tpu_torch.metrics import base as metrics_base
+
+# The leading dim along which a batched dispatch stacks its chunks.
+CHUNK_DIM = '_chunk'
 
 _OPERAND_CACHE_SIZE = 32  # layouts kept; ragged runs would grow it per chunk
 
@@ -73,6 +88,69 @@ def _resource_budget_bytes(device: torch.device) -> int:
   return _CPU_RESOURCE_BYTES
 
 
+def _per_chunk(name, c: Coord, host_coords=()) -> bool:
+  """Whether a coord may differ between the chunks of one batched dispatch:
+  the device-bound coords (validity mask, climatology index and value
+  coords) and the time coords that no binning reads."""
+  if name == 'mask' or str(name).startswith(_DEVICE_COORD_PREFIXES):
+    return True
+  return (name not in host_coords and isinstance(c.values, np.ndarray)
+          and c.values.dtype.kind in 'Mm')
+
+
+def batchable_signature(predictions: Mapping[Hashable, DimArray],
+                        targets: Mapping[Hashable, DimArray],
+                        host_coords=()) -> tuple:
+  """Hashable key: host-prepared pairs with equal keys can share one
+  batched dispatch.
+
+  Variables in order, with their dims, shapes and dtypes, and every coord's
+  name and dims. Coords that may differ per chunk (``_per_chunk``) enter by
+  shape and dtype. The others enter as the aggregation's layout key takes
+  them (``aggregation._coord_fingerprint``): by content when a binning
+  reads them (``host_coords``) or when small, else by identity, so chunks
+  whose bin masks would differ never share a dispatch. Reads no data.
+  """
+  def side(data):
+    out = []
+    for var, da in data.items():
+      coords = []
+      for name, c in da.coords.items():
+        if _per_chunk(name, c, host_coords):
+          fp = ('per_chunk', tuple(np.shape(c.values)), str(c.values.dtype))
+        else:
+          fp = aggregation_lib._coord_fingerprint(c, name in host_coords)
+        coords.append((str(name), c.dims, fp))
+      out.append((var, da.dims, da.shape, str(da.dtype), tuple(sorted(coords))))
+    return tuple(out)
+  return side(predictions), side(targets)
+
+
+def _stack_to(values, device: torch.device) -> torch.Tensor:
+  """Host arrays (or tensors) of one shape, stacked along a new leading
+  axis on ``device``; each copied straight into its slice."""
+  first = as_tensor(values[0])
+  out = torch.empty((len(values),) + tuple(first.shape), dtype=first.dtype,
+                    device=device)
+  for k, v in enumerate(values):
+    out[k].copy_(as_tensor(v))
+  return out
+
+
+def _split_states(state: aggregation_lib.AggregationState, n: int
+                  ) -> list[aggregation_lib.AggregationState]:
+  """One state per chunk of a state evaluated over ``CHUNK_DIM``."""
+  def take(k):
+    def one(x: DimArray) -> DimArray:
+      if CHUNK_DIM not in x.dims:
+        raise ValueError(
+            f'a statistic reduced over {CHUNK_DIM!r}: its chunks cannot be '
+            'told apart; evaluate with chunks_per_dispatch=1')
+      return x.isel({CHUNK_DIM: k})
+    return state.map(one)
+  return [take(k) for k in range(n)]
+
+
 def host_copy(da: DimArray) -> DimArray:
   """``da`` on the host: its data a CPU tensor, its coords numpy."""
   coords = {name: Coord(c.dims, c.values.detach().cpu().numpy()
@@ -97,10 +175,15 @@ class ChunkEvaluator:
 
   def __post_init__(self):
     self.device = torch.device(self.device)
-    self._stats = list(metrics_base.unique_statistics_for_metrics(
-        self.metrics).values())
+    unique = metrics_base.unique_statistics_for_metrics(self.metrics)
+    self._stat_names = list(unique)
+    self._stats = list(unique.values())
+    self._host_coords = tuple(sorted({
+        name for b in self.aggregator.bin_by or [] for name in b.host_coords}))
     self._operand_cache: dict = {}
     self.operand_builds = 0  # layouts whose operands were built
+    self.dispatches = 0  # evaluations: one per chunk, or per stack
+    self.signature_splits = 0  # eval_prepared calls evaluated one by one
     self._resource_cache = None
     self._plan_resources()
 
@@ -203,6 +286,40 @@ class ChunkEvaluator:
     """Host preparation, then the chunk on the device."""
     return self.to_device(*self.prepare_host(predictions, targets))
 
+  def signature(self, predictions: Mapping[Hashable, DimArray],
+                targets: Mapping[Hashable, DimArray]) -> tuple:
+    """``batchable_signature`` with the coords this aggregator's binnings
+    read."""
+    return batchable_signature(predictions, targets, self._host_coords)
+
+  def _stack_one(self, parts: list[DimArray]) -> DimArray:
+    """One variable of several host-prepared chunks, stacked on the device
+    along ``CHUNK_DIM``. Coords that may differ per chunk gain
+    ``CHUNK_DIM`` (time coords stay numpy, and one that is the same in
+    every chunk is kept once); the rest are equal in every chunk of a
+    signature and kept once."""
+    first = parts[0]
+    coords = {}
+    for name, c in first.coords.items():
+      vals = [p.coords[name].values for p in parts]
+      if not _per_chunk(name, c, self._host_coords):
+        coords[name] = c
+      elif name == 'mask' or str(name).startswith(_DEVICE_COORD_PREFIXES):
+        coords[name] = Coord((CHUNK_DIM,) + c.dims,
+                             _stack_to(vals, self.device))
+      elif darray._coord_parts_identical(vals):
+        coords[name] = c
+      else:
+        coords[name] = Coord((CHUNK_DIM,) + c.dims, np.stack(vals))
+    return DimArray(_stack_to([p.data for p in parts], self.device),
+                    (CHUNK_DIM,) + first.dims, coords)
+
+  def to_device_stacked(self, pairs: Sequence[tuple]) -> tuple:
+    """Host-prepared pairs of one signature as one pair on the device,
+    stacked along ``CHUNK_DIM``."""
+    return tuple({var: self._stack_one([pair[side][var] for pair in pairs])
+                  for var in pairs[0][side]} for side in (0, 1))
+
   # -- evaluation ----------------------------------------------------------------------
 
   def operands_for(
@@ -228,18 +345,25 @@ class ChunkEvaluator:
     """The aggregated state of a chunk on the device; with
     ``statistics_out`` (a dict), each statistic is also copied there to the
     host as it is aggregated: computed once, consumed twice."""
+    self.dispatches += 1
     sums, weights = {}, {}
     with metrics_base.device_resources(self.resources()):
-      for name, values in metrics_base.generate_unique_statistics_for_all_metrics(
-          self.metrics, predictions, targets):
-        one = {name: values}
-        state = self.aggregator.aggregate_statistics(
-            one, self.operands_for(one))
-        sums.update(state.sum_weighted_statistics)
-        weights.update(state.sum_weights)
-        if statistics_out is not None:
-          statistics_out[name] = {var: host_copy(da)
-                                  for var, da in values.items()}
+      stats = metrics_base.generate_unique_statistics_for_all_metrics(
+          self.metrics, predictions, targets)
+      for expected in self._stat_names:
+        # A named range per statistic, its compute and its aggregation, for
+        # a profiler trace (observability.maybe_profile).
+        with torch.profiler.record_function(f'wbx.statistic.{expected}'):
+          name, values = next(stats)
+          one = {name: values}
+          state = self.aggregator.aggregate_statistics(
+              one, self.operands_for(one))
+          sums.update(state.sum_weighted_statistics)
+          weights.update(state.sum_weights)
+          if statistics_out is not None:
+            statistics_out[name] = {var: host_copy(da)
+                                    for var, da in values.items()}
+      stats.close()
     return aggregation_lib.AggregationState(sums, weights)
 
   def eval_chunk(
@@ -275,3 +399,25 @@ class ChunkEvaluator:
     """Evaluates a prepared pair on the device and adds it to
     ``prev_state``."""
     return prev_state + self._eval(*pair)
+
+  def eval_prepared(self, pairs: Sequence[tuple]
+                    ) -> list[aggregation_lib.AggregationState]:
+    """One state per host-prepared (predictions, targets) pair.
+
+    A single pair takes the one-chunk path. Pairs of one signature are
+    stacked on the device and evaluated once, their aggregation operands
+    shared; pairs whose signatures differ (e.g. a ragged tail chunk) are
+    evaluated one by one, counted in ``signature_splits``.
+    """
+    if len(pairs) == 1:
+      return [self.eval_host_prepared(*pairs[0])]
+    if len({self.signature(*pair) for pair in pairs}) > 1:
+      self.signature_splits += 1
+      return [self.eval_host_prepared(*pair) for pair in pairs]
+    return _split_states(self._eval(*self.to_device_stacked(pairs)),
+                         len(pairs))
+
+  def eval_chunks(self, pairs: Sequence[tuple]
+                  ) -> list[aggregation_lib.AggregationState]:
+    """Host chunks prepared, then evaluated as ``eval_prepared`` does."""
+    return self.eval_prepared([self.prepare_host(*pair) for pair in pairs])

@@ -27,13 +27,21 @@ The port of ``weatherbenchx_tpu/parallel/pipeline.py:52-204, 262-652,
   coords intact, station names of a sparse chunk included: unaggregated
   output (``parallel/unaggregated.ZarrStatsStore.write_chunk``) streams
   from the same pass.
+* ``chunks_per_dispatch`` > 1: host-prepared chunks are buffered and
+  evaluated together (``ChunkEvaluator.eval_prepared``), the buffer
+  flushed when the next chunk's ``batchable_signature`` differs (counted
+  as ``signature_splits``), when it is full, and at the end; each chunk's
+  state then goes to its own bucket, and the checkpoint cadence counts
+  chunks. A sink turns batching off, as in the JAX package.
+* ``profile_dir``: a ``torch.profiler`` trace of the run
+  (``observability.maybe_profile``).
 
 Not ported: the device mesh and multi-process (``mesh``, ``dim_to_axis``,
-``distributed``) and ``chunks_per_dispatch`` are queued;
-``compilation_cache_dir``, ``WBX_FUSED_ACCUM`` and the in-flight byte
-window are XLA and remote-accelerator machinery with nothing to do here
-(eager PyTorch blocks the host on each pageable host→device copy, so no
-staged-byte backlog builds up).
+``distributed``) are queued; ``compilation_cache_dir``,
+``WBX_FUSED_ACCUM`` and the in-flight byte window are XLA and
+remote-accelerator machinery with nothing to do here (eager PyTorch blocks
+the host on each pageable host→device copy, so no staged-byte backlog
+builds up).
 """
 
 import dataclasses
@@ -205,6 +213,11 @@ class EvaluationPipeline:
     chunk_stats_sink: optional, called per chunk as ``sink(i, offsets,
       {'<stat>.<var>': DimArray})`` with host copies of the statistics the
       aggregated step consumed (timed as ``chunk_stats_sink_seconds``).
+    chunks_per_dispatch: chunks of one signature evaluated together,
+      stacked on the device (each flush timed as ``eval_chunk_seconds``).
+      Ignored (1) when a sink is set.
+    profile_dir: if set, the run is traced by ``torch.profiler`` into this
+      directory (CPU, and CUDA on a CUDA device).
   """
 
   metrics: Mapping[str, metrics_base.Metric]
@@ -219,6 +232,8 @@ class EvaluationPipeline:
   retry: Optional[RetryPolicy] = None
   metrics_registry: Optional[observability.Metrics] = None
   chunk_stats_sink: Optional[Callable] = None
+  chunks_per_dispatch: int = 1
+  profile_dir: Optional[str] = None
   failed_chunks: list = dataclasses.field(default_factory=list, init=False)
 
   def __post_init__(self):
@@ -262,7 +277,13 @@ class EvaluationPipeline:
   def _ckpt_manifest(self) -> str:
     return f'{self.checkpoint_path}.manifest.json'
 
-  def _save_checkpoint(self, buckets, next_chunk: int) -> None:
+  def _save_checkpoint(self, buckets, next_chunk: int,
+                       batch_start: Optional[int] = None) -> None:
+    """Saves the buckets, which hold exactly the chunks before
+    ``next_chunk``. ``batch_start`` (default ``next_chunk``) is the first
+    chunk of the batch that ``next_chunk`` belongs to: a resumed run
+    evaluates that batch again as it was and adds only its chunks from
+    ``next_chunk`` on, so it ends bit-identical to an uninterrupted run."""
     # Bucket files alternate between two generations, so a save never
     # overwrites the files the CURRENT manifest points at: a crash anywhere
     # before the manifest's atomic replace leaves the previous (manifest,
@@ -270,7 +291,9 @@ class EvaluationPipeline:
     # the bucket writes and the manifest write pair the OLD next_chunk with
     # NEW sums, and resume would count chunks twice.
     gen = 1 - self._ckpt_gen
-    manifest = {'next_chunk': next_chunk, 'generation': gen, 'buckets': []}
+    manifest = {'next_chunk': next_chunk, 'generation': gen,
+                'batch_start': next_chunk if batch_start is None
+                else batch_start, 'buckets': []}
     for k, (key, state) in enumerate(sorted(buckets.items())):
       # .wbx: thread-parallel raw block writes (the native blockstore);
       # checkpoints are the pipeline's hottest host I/O. On a remote path
@@ -286,9 +309,13 @@ class EvaluationPipeline:
     self._ckpt_gen = gen  # flip only once the manifest commit succeeded
 
   def _load_checkpoint(self):
+    """(buckets, next_chunk) of the checkpoint, or ({}, 0); also sets
+    ``_batch_start``, where the resumed run's chunk stream begins."""
+    self._batch_start = 0
     if not self.checkpoint_path or not fileio.exists(self._ckpt_manifest()):
       return {}, 0
     manifest = json.loads(fileio.read_text(self._ckpt_manifest()))
+    self._batch_start = manifest.get('batch_start', manifest['next_chunk'])
     # The next save writes the OTHER generation, preserving the files this
     # manifest references until the new manifest lands.
     self._ckpt_gen = manifest['generation']
@@ -311,30 +338,72 @@ class EvaluationPipeline:
   def run(self) -> aggregation_lib.AggregationState:
     """Evaluates all chunks; returns the total AggregationState (host)."""
     self.failed_chunks = []
-    buckets, start_chunk = self._load_checkpoint()
+    buckets, next_chunk = self._load_checkpoint()
     done = 0
-    for i, offsets, (predictions, targets) in self._chunk_stream(start_chunk):
+
+    def add(offsets, state):
       key = self._bucket_key(offsets)
-      with self._obs.timed('eval_chunk_seconds'):
-        if self.chunk_stats_sink is None:
-          state = self._evaluator.eval_host_prepared(predictions, targets)
-        else:
-          state, stats = self._evaluator.eval_with_statistics(
-              predictions, targets)
-        buckets[key] = buckets[key] + state if key in buckets else state
-      if self.chunk_stats_sink is not None:
-        with self._obs.timed('chunk_stats_sink_seconds'):
-          self.chunk_stats_sink(i, offsets, {
-              f'{stat_name}.{var}': da
-              for stat_name, per_var in stats.items()
-              for var, da in per_var.items()})
+      buckets[key] = buckets[key] + state if key in buckets else state
+
+    def bookkeeping(i, batch_start=None):
+      """Once chunk i is in its bucket: a checkpoint here holds exactly the
+      chunks up to i."""
+      nonlocal done
       self._obs.counter('chunks_done')
       done += 1
       if (self.checkpoint_path and self.checkpoint_every
           and done % self.checkpoint_every == 0):
         with self._obs.timed('checkpoint_seconds'):
-          self._save_checkpoint(buckets, i + 1)
+          self._save_checkpoint(buckets, i + 1, batch_start)
       logger.info('chunk %d/%d done', i + 1, len(self.times))
+
+    batch: list = []  # buffered (i, offsets, host-prepared pair)
+
+    def flush():
+      if not batch:
+        return
+      with self._obs.timed('eval_chunk_seconds'):
+        states = self._evaluator.eval_prepared([pair for _, _, pair in batch])
+      last = batch[-1][0]
+      for (i, offsets, _), state in zip(batch, states):
+        if i < next_chunk:
+          continue  # already in a resumed checkpoint's buckets
+        add(offsets, state)
+        bookkeeping(i, batch[0][0] if i < last else None)
+      batch.clear()
+
+    group = (1 if self.chunk_stats_sink is not None
+             else max(int(self.chunks_per_dispatch), 1))
+    batch_sig = None
+    # A batched run resumes at the start of the interrupted batch.
+    start = min(self._batch_start, next_chunk) if group > 1 else next_chunk
+    with observability.maybe_profile(self.profile_dir, self.device):
+      for i, offsets, pair in self._chunk_stream(start):
+        if group > 1:
+          sig = self._evaluator.signature(*pair)
+          if batch and sig != batch_sig:
+            self._obs.counter('signature_splits')
+            flush()  # the layout changed (e.g. a ragged tail chunk)
+          batch_sig = sig
+          batch.append((i, offsets, pair))
+          if len(batch) >= group:
+            flush()
+          continue
+        stats = None
+        with self._obs.timed('eval_chunk_seconds'):
+          if self.chunk_stats_sink is None:
+            state = self._evaluator.eval_host_prepared(*pair)
+          else:
+            state, stats = self._evaluator.eval_with_statistics(*pair)
+          add(offsets, state)
+        if stats is not None:
+          with self._obs.timed('chunk_stats_sink_seconds'):
+            self.chunk_stats_sink(i, offsets, {
+                f'{stat_name}.{var}': da
+                for stat_name, per_var in stats.items()
+                for var, da in per_var.items()})
+        bookkeeping(i)
+      flush()
     # Final cross-bucket combine on the host, in float64: the outer join
     # concatenates the preserved chunked dims.
     return aggregation_lib.AggregationState.sum(
