@@ -180,6 +180,23 @@ script exits nonzero:
    through the pipeline on the card, equal by torch.equal to an unwrapped
    run of the nominal inits it maps to.
 
+16. Ranks over torch.distributed, after phase 15, each rank a spawned
+   process (multichip.run_ranks; the kernels built in phase 2, before any
+   rank starts): (a) NCCL at world size 1 ('cpu:gloo,cuda:nccl'): phase
+   4's 3 chunks through EvaluationPipeline(distributed=True) with a 1-rank
+   mesh {'space': 1} over longitude, so the state's reductions are NCCL
+   calls; (b) 2 gloo ranks sharing the card, distributed=True: rank 0
+   evaluates chunks 0 and 2, rank 1 chunk 1 (2 and 1 fused launches), and
+   both return the summed total; (c) 2 gloo ranks as a mesh, {'space': 2}
+   with longitude sharded (one fused launch per chunk over 50 x 1 x 4 x
+   721 x 720 on each rank) and {'ensemble': 2} with the members sharded
+   (gathered first: one launch per chunk over all 50). Every rank's values
+   within 1e-5 relative of phase 4's (torch.equal printed), its launches,
+   the chunk its kernel saw, seconds per chunk, peak device memory and
+   bytes gathered printed; (d) multichip.dryrun_multichip(4) on the card:
+   its six phases on 4 gloo ranks sharing it, each equal to the direct
+   result.
+
 The whole script's seconds are printed before the last three lines: a
 JSON object describing the three kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -2129,9 +2146,12 @@ def device_time(fn) -> tuple:
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
     fn()
     torch.cuda.synchronize()
-  # Kernel records only: an operator's record repeats its kernels' time.
+  # Kernel records only: an operator's record repeats its kernels' time,
+  # and the port's `wbx.` ranges show on the device's timeline as
+  # annotations that span their kernels.
   rows = [(e.key, e.self_device_time_total / 1e3) for e in p.key_averages()
-          if e.device_type == DeviceType.CUDA]
+          if e.device_type == DeviceType.CUDA
+          and not e.key.startswith('wbx.')]
   rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
   if not rows:
     return None, []
@@ -3443,6 +3463,176 @@ def latency_phase(seed: int, card: str) -> dict:
   return {'seconds': seconds, 'arrays': len(want)}
 
 
+# -- Phase 16, ranks over torch.distributed -------------------------------------
+# The ranks are spawned processes (multichip.run_ranks). NCCL refuses two
+# ranks on one GPU, so the ranks that share this card use gloo, and NCCL
+# runs at world size 1. Phase 2 built the kernels before any rank starts,
+# so no rank runs nvcc.
+
+RANK_TIMEOUT_S = 600.0
+MAIN_INIT0 = np.datetime64('2020-01-01T00', 'ns')
+# Sub-phase: [(run name, distributed, (mesh axis, axis size, sharded dim)
+# or None)], the world size and the process group's backend.
+RANK_RUNS = {
+    'a': ([('nccl_world1', True, ('space', 1, 'longitude'))], 1,
+          'cpu:gloo,cuda:nccl'),
+    'b': ([('gloo_distributed', True, None)], 2, 'gloo'),
+    'c': ([('mesh_space', False, ('space', 2, 'longitude')),
+           ('mesh_ensemble', False, ('ensemble', 2, 'number'))], 2, 'gloo'),
+}
+
+
+def main_metrics() -> dict:
+  from weatherbenchx_tpu_torch.metrics import probabilistic
+  return {
+      'crps': probabilistic.CRPSEnsemble(use_sort=True),
+      'spread_skill': probabilistic.UnbiasedSpreadSkillRatio(),
+      'unbiased_mean_rmse': probabilistic.UnbiasedEnsembleMeanRMSE(),
+  }
+
+
+def phase16_rank(rank: int, world: int, sub: str, seed: int) -> dict:
+  """One rank of phase 16's sub-phase ``sub``: phase 4's 3 chunks through
+  EvaluationPipeline, as each of the sub-phase's runs configures it. Makes
+  only the chunks this rank evaluates, before the timed run."""
+  import torch
+  import torch.distributed as dist
+  from torch.distributed.device_mesh import init_device_mesh
+  from weatherbenchx_tpu_torch import observability, time_chunks
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import distributed as dist_lib
+  from weatherbenchx_tpu_torch.parallel import pipeline
+  runs, _, backend = RANK_RUNS[sub]
+  torch.cuda.set_device(0)  # the one card, which the ranks share
+  inits = MAIN_INIT0 + np.arange(N_CHUNKS) * np.timedelta64(12, 'h')
+  leads = (np.arange(GRID[1]) * np.timedelta64(6, 'h')).astype(
+      'timedelta64[ns]')
+  out = {}
+  for name, distributed, mesh_spec in runs:
+    mesh = dim_to_axis = None
+    if mesh_spec is not None:
+      axis, size, dim = mesh_spec
+      mesh = init_device_mesh('cuda' if 'nccl' in backend else 'cpu',
+                              (size,), mesh_dim_names=(axis,))
+      dim_to_axis = {dim: axis}
+    mine = [k for k in range(N_CHUNKS)
+            if not distributed or k % world == rank]
+    chunks = [make_chunk(seed, k) for k in mine]
+    registry = observability.Metrics()
+    pipe = pipeline.EvaluationPipeline(
+        metrics=main_metrics(), aggregator=region_aggregator(),
+        predictions_loader=chunk_loader(chunks, 0),
+        targets_loader=chunk_loader(chunks, 1),
+        times=time_chunks.TimeChunks(inits, leads, init_time_chunk_size=1),
+        device=DEVICE, mesh=mesh, dim_to_axis=dim_to_axis,
+        distributed=distributed, metrics_registry=registry)
+    ev, shapes = pipe._evaluator, []
+    place = ev.to_device
+
+    def to_device(p, t, place=place, shapes=shapes):
+      placed = place(p, t)
+      shapes.append(tuple(placed[0]['2m_temperature'].shape))
+      return placed
+
+    ev.to_device = to_device
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist_lib.BYTES_GATHERED.clear()
+    cp.reset_launch_counts()
+    t0 = time.perf_counter()
+    values = pipe.run().metric_values(main_metrics())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out[name] = {
+        'launches': dict(cp.LAUNCHES),
+        'values': {k: da.values for k, da in values.items()},
+        'dims': {k: da.dims for k, da in values.items()},
+        'chunks': mine if distributed else list(range(N_CHUNKS)),
+        'device_chunk_shape': shapes[0],
+        'seconds': seconds, 'seconds_per_chunk': seconds / len(shapes),
+        'eval_chunk_seconds': registry.timings['eval_chunk_seconds'].mean,
+        'peak_gib': torch.cuda.max_memory_allocated() / 2**30,
+        'bytes_gathered': dict(dist_lib.BYTES_GATHERED),
+        'backend': str(dist.get_backend()),
+    }
+    del pipe, chunks
+  return out
+
+
+def rank_path(seed: int, phase4_values: dict, card: str) -> dict:
+  """Phase 16: (a) NCCL at world size 1, (b) 2 chunk-parallel gloo ranks,
+  (c) 2 gloo ranks as a mesh, each within F64_RTOL of phase 4's values on
+  every rank, with their fused launches; (d) the six-phase dryrun on 4
+  gloo ranks sharing the card."""
+  import torch
+  from weatherbenchx_tpu_torch import multichip
+  expected_shapes = {
+      'nccl_world1': (M,) + GRID,
+      'gloo_distributed': (M,) + GRID,
+      'mesh_space': (M,) + GRID[:3] + (GRID[3] // 2,),
+      'mesh_ensemble': (M,) + GRID,
+  }
+  report = {}
+  for sub, (runs, world, backend) in RANK_RUNS.items():
+    t0 = time.perf_counter()
+    ranks = multichip.run_ranks(
+        f'{os.path.abspath(__file__)}:phase16_rank', world,
+        {'sub': sub, 'seed': seed}, backend=backend,
+        timeout_s=RANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for name, _, _ in runs:
+      for rank, r in enumerate(ranks):
+        got = r[name]
+        want_fused = len(got['chunks'])
+        worst, equal = 0.0, True
+        for k, want in phase4_values.items():
+          g = torch.from_numpy(np.transpose(got['values'][k], [
+              got['dims'][k].index(d) for d in want.dims]))
+          w = want.data.double().cpu()
+          worst = max(worst, ((g - w).abs() / w.abs()).max().item())
+          equal = equal and torch.equal(g.float(), want.data.float().cpu())
+        log(f'phase 16{sub} {name} rank {rank}/{world} ({got["backend"]}): '
+            f'chunks {got["chunks"]}, kernel launches {got["launches"]}, '
+            f'device chunk {got["device_chunk_shape"]}, '
+            f'{got["seconds_per_chunk"]:.3f} s per chunk '
+            f'(eval_chunk_seconds {got["eval_chunk_seconds"]:.3f}), peak '
+            f'{got["peak_gib"]:.2f} GiB, bytes gathered '
+            f'{got["bytes_gathered"]}; values {worst:.3g} relative from '
+            f'phase 4 (tol {F64_RTOL}), torch.equal {equal}; card {card}')
+        if got['launches'] != {'fused_ensemble_stats': want_fused,
+                               'pairwise_spread_sum': 0,
+                               'pairwise_cross_sum': 0}:
+          raise AssertionError(f'phase 16{sub} {name} rank {rank}: launches '
+                               f'{got["launches"]}, want {want_fused} fused')
+        if got['device_chunk_shape'] != expected_shapes[name]:
+          raise AssertionError(
+              f'phase 16{sub} {name} rank {rank}: the kernel saw '
+              f'{got["device_chunk_shape"]}, want {expected_shapes[name]}')
+        if worst > F64_RTOL:
+          raise AssertionError(f'phase 16{sub} {name} rank {rank}: {worst:.3g}'
+                               f' from phase 4 > {F64_RTOL}')
+        report[f'{name}_rank{rank}'] = {
+            k: got[k] for k in ('chunks', 'launches', 'seconds_per_chunk',
+                                'eval_chunk_seconds', 'peak_gib',
+                                'bytes_gathered', 'backend')}
+        report[f'{name}_rank{rank}'].update(rel_vs_phase4=worst,
+                                            torch_equal=equal)
+    report[f'{sub}_wall_seconds'] = wall
+    log(f'phase 16{sub}: {world} rank(s), {backend}, {wall:.1f} s with the '
+        'ranks\' start')
+  t0 = time.perf_counter()
+  lines = multichip.dryrun_multichip(4, device=DEVICE,
+                                     timeout_s=RANK_TIMEOUT_S)
+  report['d_wall_seconds'] = time.perf_counter() - t0
+  if len(lines) != 6:
+    raise AssertionError(f'the dryrun printed {len(lines)} phases, want 6')
+  log(f'phase 16d dryrun: six phases on 4 gloo ranks sharing the card in '
+      f'{report["d_wall_seconds"]:.1f} s; card {card}')
+  return report
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -3505,6 +3695,8 @@ def main() -> int:
   log('phase 15c dispatch path: ok')
   latency = latency_phase(args.seed, card)
   log('phase 15e latency wrapper: ok')
+  ranks = rank_path(args.seed, main_values, card)
+  log('phase 16 ranks: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
@@ -3515,6 +3707,7 @@ def main() -> int:
              'dispatch': dispatch, 'scorecard': scorecard,
              'latency': latency}
   log(f'batched dispatch: {json.dumps(batched)}; card {card}')
+  log(f'ranks: {json.dumps(ranks)}; card {card}')
   log(f'whole script: {time.perf_counter() - t_start:.1f} s '
       f'(the build included); card {card}')
 

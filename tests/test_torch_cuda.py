@@ -693,3 +693,26 @@ def test_profiled_cuda_run_names_the_fused_kernel(cuda, tmp_path):
   # CUPTI records the ctypes-launched kernel too.
   assert sum(n for name, n in summary['kernel_names'].items()
              if 'register_stats_kernel' in name) == 1
+
+
+def test_two_ranks_sharing_the_card_with_longitude_sharded(cuda):
+  """2 gloo ranks on the card (NCCL refuses two ranks on one GPU), each
+  with half the longitudes: every rank's total equals one rank's, and
+  each launched the fused kernel once per chunk on its half."""
+  import os
+  import torch_rank_cases as cases
+  from weatherbenchx_tpu_torch import multichip
+  path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      'torch_rank_cases.py')
+  ranks = multichip.run_ranks(f'{path}:case_cuda_longitude', 2,
+                              timeout_s=300.0)
+  want, launches = cases.cuda_case_values(cases.port())
+  _, _, inits, _ = cases.cuda_case_inputs()
+  assert launches == len(inits) // 2
+  for values, rank_launches in ranks:
+    assert rank_launches == launches
+    assert set(values) == set(want)
+    for k, (dims, v) in want.items():
+      assert values[k][0] == dims
+      np.testing.assert_allclose(values[k][1], v, rtol=1e-5, atol=1e-6,
+                                 err_msg=k)

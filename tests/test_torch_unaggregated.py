@@ -10,7 +10,13 @@ statistics are bit-equal in both packages (squared and plain errors of
 float32 data), so the stores must be too: every file, byte for byte.
 Also: a sparse chunk's station coords reach the sink, chunks skipped under
 ``RetryPolicy(skip_failed)`` leave NaN cells, ``load_unaggregated`` reads
-both modes as the JAX package's does, and the multi-device options raise.
+both modes as the JAX package's does, and malformed multi-device settings
+raise. Across processes (real gloo ranks on the CPU, ``multichip.run_ranks``
+loading ``tests/torch_rank_cases.py``): 2 chunk-parallel ranks write zarr
+v2 and v3-sharded stores, standalone and through the sink, byte-identical
+to the single-process port's and the JAX package's, and refuse output
+chunks, shards or the shard-directory mode that no single rank could
+write; a (2, 2) mesh writes the same stores from its first rank.
 """
 
 import os
@@ -18,6 +24,8 @@ import os
 import numpy as np
 import pytest
 import torch
+
+import torch_rank_cases as cases
 
 from weatherbenchx_tpu import aggregation as j_aggregation
 from weatherbenchx_tpu import darray as jd
@@ -29,6 +37,7 @@ from weatherbenchx_tpu.parallel import unaggregated as j_unaggregated
 from weatherbenchx_tpu_torch import aggregation
 from weatherbenchx_tpu_torch import darray as td
 from weatherbenchx_tpu_torch import interpolations
+from weatherbenchx_tpu_torch import multichip
 from weatherbenchx_tpu_torch import time_chunks
 from weatherbenchx_tpu_torch.data import base as data_base
 from weatherbenchx_tpu_torch.data import loaders
@@ -255,14 +264,18 @@ def test_sink_keeps_station_coords_of_a_sparse_chunk(tmp_path):
 
 def test_refusals(tmp_path):
   pl, tl = _loaders(PKG['torch'])
-  for kwargs in ({'mesh': object()}, {'dim_to_axis': {'init_time': 'b'}},
-                 {'distributed': True}):
-    with pytest.raises(NotImplementedError, match='not ported'):
+  # A mesh must be a DeviceMesh, dim_to_axis needs one, and distributed
+  # needs an initialised process group: none falls back to one process.
+  for kwargs, error, match in (
+      ({'mesh': object()}, TypeError, 'DeviceMesh'),
+      ({'dim_to_axis': {'init_time': 'b'}}, ValueError, 'needs a mesh'),
+      ({'distributed': True}, RuntimeError, 'init_process_group')):
+    with pytest.raises(error, match=match):
       unaggregated.UnaggregatedPipeline(
           metrics=_metrics(PKG['torch']), predictions_loader=pl,
           targets_loader=tl, times=_times(PKG['torch']),
-          out_path=str(tmp_path / 'x.zarr'), device='cpu', **kwargs)
-  with pytest.raises(NotImplementedError, match='not ported'):
+          out_path=str(tmp_path / 'x.zarr'), device='cpu', **kwargs).run()
+  with pytest.raises(RuntimeError, match='init_process_group'):
     unaggregated.ZarrStatsStore(_times(PKG['torch']), str(tmp_path / 'y'),
                                 distributed=True)
   with pytest.raises(ValueError, match='exact lead_times'):
@@ -280,3 +293,101 @@ def test_refusals(tmp_path):
   offsets, _ = next(iter(_times(PKG['torch']).iter_with_chunk_offsets()))
   with pytest.raises(ValueError, match='mask coord'):
     store.write_chunk(0, offsets, {'s.v': masked})
+
+
+# -- many processes ------------------------------------------------------------
+
+CASES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     'torch_rank_cases.py')
+
+
+@pytest.fixture(scope='module')
+def distributed_stores(tmp_path_factory):
+  out = tmp_path_factory.mktemp('distributed_stores')
+  refusals = multichip.run_ranks(
+      f'{CASES}:case_unagg_distributed', 2, {'out_dir': str(out)},
+      timeout_s=240.0, num_threads=1)
+  return out, refusals
+
+
+@pytest.fixture(scope='module')
+def mesh_stores(tmp_path_factory):
+  out = tmp_path_factory.mktemp('mesh_stores')
+  values = multichip.run_ranks(
+      f'{CASES}:case_unagg_mesh', 4, {'out_dir': str(out)}, timeout_s=240.0,
+      num_threads=1)
+  return out, values
+
+
+def _single_process_stores(p, out_dir, store):
+  """The store ``cases.UNAGG_STORES[store]`` written by one process of
+  package ``p``: (standalone path, sink path)."""
+  kw = cases.UNAGG_STORES[store]
+  times = p['tc'].TimeChunks(INIT, LEAD, init_time_chunk_size=2,
+                             lead_time_chunk_size=3)
+  pl, tl = _loaders(p)
+  solo = p['unagg'].UnaggregatedPipeline(
+      metrics=_metrics(p), predictions_loader=pl, targets_loader=tl,
+      times=times, out_path=str(out_dir / 'solo.zarr'), **p['kw'], **kw).run()
+  sink = p['unagg'].ZarrStatsStore(times, str(out_dir / 'sink.zarr'), **kw)
+  pl, tl = _loaders(p)
+  p['pipe'].EvaluationPipeline(
+      metrics=_metrics(p),
+      aggregator=p['agg'].Aggregator(reduce_dims=['latitude', 'longitude']),
+      predictions_loader=pl, targets_loader=tl, times=times,
+      chunk_stats_sink=sink.write_chunk, **p['kw']).run()
+  return solo, sink.finalize()
+
+
+@pytest.mark.parametrize('store', list(cases.UNAGG_STORES))
+def test_distributed_ranks_write_the_single_process_store(
+    tmp_path, distributed_stores, store):
+  """``test_two_process_cells_assemble_to_full``: 2 ranks write disjoint
+  cells of one store, rank 0 the metadata after the barrier; the same
+  bytes as one process of the port and of the JAX package, standalone and
+  through the aggregated pipeline's sink."""
+  out, _ = distributed_stores
+  solo, sink = _single_process_stores(PKG['torch'], tmp_path / 'torch',
+                                      store)
+  j_solo, j_sink = _single_process_stores(PKG['jax'], tmp_path / 'jax',
+                                          store)
+  _assert_same_bytes(solo, j_solo)
+  _assert_same_bytes(sink, j_sink)
+  _assert_same_bytes(str(out / store / 's.zarr'), solo)
+  _assert_same_bytes(str(out / f'sink_{store}' / 's.zarr'), sink)
+
+
+def test_distributed_refusals(distributed_stores):
+  """``test_distributed_requires_dividing_chunks``,
+  ``test_distributed_shard_spanning_chunks_rejected`` and
+  ``test_shard_mode_distributed_rejected``, on real ranks."""
+  _, refusals = distributed_stores
+  for r in refusals:
+    assert 'divide the compute chunk' in r['chunks']
+    assert 'zarr_shards' in r['shards']
+    assert 'zarr' in r['shard_mode']
+
+
+@pytest.mark.parametrize('store', list(cases.UNAGG_STORES))
+def test_zarr_on_mesh(tmp_path, mesh_stores, store):
+  """``test_zarr_on_virtual_mesh``: ``init_time`` and ``longitude`` sharded
+  over a (2, 2) mesh; the statistics are gathered whole and the mesh's first
+  rank writes the single-process store, standalone and through the sink,
+  while every rank returns the whole state."""
+  out, values = mesh_stores
+  solo, sink = _single_process_stores(PKG['torch'], tmp_path, store)
+  _assert_same_bytes(str(out / store / 's.zarr'), solo)
+  _assert_same_bytes(str(out / f'sink_{store}' / 's.zarr'), sink)
+  pl, tl = _loaders(PKG['torch'])
+  want = pipeline.EvaluationPipeline(
+      metrics=_metrics(PKG['torch']),
+      aggregator=aggregation.Aggregator(reduce_dims=['latitude', 'longitude']),
+      predictions_loader=pl, targets_loader=tl, device='cpu',
+      times=time_chunks.TimeChunks(INIT, LEAD, init_time_chunk_size=2,
+                                   lead_time_chunk_size=3),
+  ).run().metric_values(_metrics(PKG['torch']))
+  for got in values:
+    for k, da in want.items():
+      dims, v = got[k]
+      assert dims == da.dims
+      np.testing.assert_allclose(v, da.values, atol=1e-5, err_msg=k)

@@ -306,6 +306,69 @@ def _layout_key(stat: DimArray, read_coords: Collection[str] = ()) -> tuple:
 _UNSET = object()  # "build the operands here", as distinct from None (drop)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class ChunkShard:
+  """One rank's slice of a chunk sharded over a device mesh.
+
+  Attributes:
+    slices: {dim: slice} of the dims this rank holds a part of.
+    sizes: {dim: size} of those dims in the whole chunk.
+    whole_coords: the whole chunk's host coords over those dims, by name.
+
+  Weights, bin masks and sets are built from the WHOLE chunk's coords and
+  then sliced: ``GridAreaWeighting`` normalises to the mean over the
+  latitudes it is given, and a region or land mask aligns by label, so
+  operands built from a rank's slice of the coords would differ from the
+  matching slice of the whole chunk's.
+  """
+
+  slices: Mapping[str, slice]
+  sizes: Mapping[str, int]
+  whole_coords: Mapping[str, Coord]
+
+  @property
+  def key(self) -> tuple:
+    return tuple(sorted((d, s.start, s.stop) for d, s in self.slices.items()))
+
+  def only(self, dims: Collection[str]) -> 'ChunkShard | None':
+    """This shard restricted to ``dims`` (None if it slices none of them)."""
+    keep = [d for d in self.slices if d in dims]
+    if not keep:
+      return None
+    return ChunkShard({d: self.slices[d] for d in keep},
+                      {d: self.sizes[d] for d in keep}, self.whole_coords)
+
+  def take(self, da: DimArray) -> DimArray:
+    """``da``'s part of this rank along the sharded dims it has."""
+    sl = {d: s for d, s in self.slices.items() if d in da.dims}
+    return da.isel(sl) if sl else da
+
+  def whole(self, stat: DimArray) -> DimArray:
+    """A stand-in for ``stat`` at the whole chunk's sizes and host coords
+    along the sharded dims. Its data is one element broadcast, so it is
+    good for building operands only, which read dims, sizes, dtype and
+    coords."""
+    if not any(d in self.slices for d in stat.dims):
+      return stat
+    sizes = {**stat.sizes, **{d: n for d, n in self.sizes.items()
+                              if d in stat.dims}}
+    shape = tuple(sizes[d] for d in stat.dims)
+    coords = {}
+    for name, c in stat.coords.items():
+      if not set(c.dims) & set(self.slices):
+        coords[name] = c
+      elif not c.is_host:
+        coords[name] = Coord(c.dims, c.values.new_zeros(()).expand(
+            tuple(sizes[d] for d in c.dims)))
+      elif name in self.whole_coords and self.whole_coords[name].dims == c.dims:
+        coords[name] = self.whole_coords[name]
+      else:
+        raise ValueError(
+            f'coord {name!r} over the sharded dims of a statistic has no '
+            'whole-chunk counterpart to build its aggregation operands from')
+    return DimArray(stat.data.new_zeros(()).expand(shape), stat.dims, coords)
+
+
 @dataclasses.dataclass
 class Aggregator:
   """Weighted/binned/masked aggregation over a set of dimensions.
@@ -415,6 +478,7 @@ class Aggregator:
       statistics: Mapping[str, Mapping[Hashable, DimArray]],
       layout_cache: MutableMapping | None = None,
       device: torch.device | str | None = None,
+      shard: ChunkShard | None = None,
   ) -> dict:
     """``{stat_name: {var: [DimArray...] | None}}``: each statistic's
     weights and bin masks, built on the host from its layout alone (values
@@ -426,6 +490,11 @@ class Aggregator:
     region masks, not one per statistic. ``layout_cache`` is that sharing
     made to last: a mapping the caller keeps (the evaluator's, across
     chunks); entries are added to it and never evicted here.
+
+    With a ``shard`` (statistics of one rank's slice of a chunk sharded
+    over a mesh), each layout's operands are built from the whole chunk's
+    coords (``ChunkShard.whole``) and then sliced to the rank's part; the
+    slice is part of the cache key.
     """
     cache = {} if layout_cache is None else layout_cache
     out: dict = {}
@@ -435,9 +504,15 @@ class Aggregator:
         if stat is None:
           continue
         stat = self._promote(stat)
+        if shard is not None:
+          stat = shard.whole(stat)
         key = self.layout_key(stat)
+        if shard is not None:
+          key = (key, shard.key)
         if key not in cache:
           ops = self.aggregation_operands(stat)
+          if ops is not None and shard is not None:
+            ops = [shard.take(op) for op in ops]
           if ops is not None and device is not None:
             ops = [op.copy(data=op.data.to(device)) for op in ops]
           cache[key] = ops

@@ -41,14 +41,21 @@ def resource_id(da: DimArray) -> str:
 
 
 @contextlib.contextmanager
-def device_resources(mapping: Mapping[str, torch.Tensor] | None):
-  """Activates a {resource_id: device tensor} mapping for this thread."""
-  prev = getattr(_ACTIVE_RESOURCES, 'mapping', None)
-  _ACTIVE_RESOURCES.mapping = mapping
+def device_resources(mapping: Mapping[str, torch.Tensor] | None,
+                     shard=None):
+  """Activates a {resource_id: device tensor} mapping for this thread.
+
+  ``shard`` (an ``aggregation.ChunkShard``) is this rank's part of a chunk
+  sharded over a device mesh: a resident array is whole on every rank, and
+  resolves to its part along the sharded dims.
+  """
+  prev = (getattr(_ACTIVE_RESOURCES, 'mapping', None),
+          getattr(_ACTIVE_RESOURCES, 'shard', None))
+  _ACTIVE_RESOURCES.mapping, _ACTIVE_RESOURCES.shard = mapping, shard
   try:
     yield
   finally:
-    _ACTIVE_RESOURCES.mapping = prev
+    _ACTIVE_RESOURCES.mapping, _ACTIVE_RESOURCES.shard = prev
 
 
 def resolve_resource(da: DimArray) -> DimArray:
@@ -57,7 +64,8 @@ def resolve_resource(da: DimArray) -> DimArray:
   Outside the evaluator (no mapping) the host array itself is used. Inside,
   an array the mapping lacks — one the planner demoted to host-gather, or
   one no statistic registered — raises: the step never falls back to
-  copying a whole host climatology to the device.
+  copying a whole host climatology to the device. On a rank of a sharded
+  chunk the copy is sliced (a view) to the rank's part of the sharded dims.
   """
   m = getattr(_ACTIVE_RESOURCES, 'mapping', None)
   if m is None:
@@ -68,7 +76,17 @@ def resolve_resource(da: DimArray) -> DimArray:
         f'resource {resource_id(da)} {da.dims} is not resident on the device '
         '(demoted to host-gather, or not registered by its statistic); its '
         'aligned values must arrive with the chunk')
-  return DimArray(hit, da.dims, da.coords)
+  out = DimArray(hit, da.dims, da.coords)
+  shard = getattr(_ACTIVE_RESOURCES, 'shard', None)
+  if shard is None:
+    return out
+  for d, n in shard.sizes.items():
+    if d in out.dims and out.sizes[d] != n:
+      raise ValueError(
+          f'resource {resource_id(da)} has {out.sizes[d]} points along the '
+          f'sharded dim {d!r}, the chunk {n}: it cannot be sliced like the '
+          'chunk')
+  return shard.take(out)
 
 
 class Metric(abc.ABC):
@@ -106,6 +124,17 @@ class Statistic(Metric):
       targets: Mapping[Hashable, DimArray],
   ) -> Mapping[Hashable, DimArray]:
     """Computes statistic values for a predictions/targets chunk."""
+
+  def reads_across(self) -> tuple[str, ...] | None:
+    """Dims along which the statistic combines points of its inputs
+    (reduces, windows or selects along them).
+
+    A chunk sharded over a device mesh along one of these dims is made
+    whole on each rank before the statistic is computed; along the other
+    dims each rank computes its own part. ``None``, the default of a
+    statistic that does not declare, makes every sharded dim whole first.
+    """
+    return None
 
   def _dedup_identity(self) -> Mapping[str, Any]:
     """State compared when another statistic claims the same unique_name.
@@ -517,8 +546,15 @@ def aligned_climatology_for(clim: DimArray, pred: DimArray) -> DimArray:
   val = pred.coords.get(f'{CLIM_VALUE_PREFIX}{resource_id(clim)}')
   if val is not None:
     # The index path's coords too: the climatology's time coords lie on
-    # dims the slice no longer has, its spatial coords on dims it keeps.
-    return DimArray(val.values, val.dims, _spatial_coords(clim, val.dims))
+    # dims the slice no longer has, its spatial coords on dims it keeps
+    # (on a rank of a sharded chunk, its part of them).
+    coords = _spatial_coords(clim, val.dims)
+    shard = getattr(_ACTIVE_RESOURCES, 'shard', None)
+    if shard is not None:
+      coords = {k: Coord(c.dims, np.asarray(c.values)[tuple(
+          shard.slices.get(d, slice(None)) for d in c.dims)])
+                for k, c in coords.items()}
+    return DimArray(val.values, val.dims, coords)
   resolved = resolve_resource(clim)
   idx = {name[len(CLIM_INDEX_PREFIX):]: c for name, c in pred.coords.items()
          if name.startswith(CLIM_INDEX_PREFIX)}

@@ -26,6 +26,9 @@ class _ConfusionCell(base.PerVariableStatistic):
   prediction is ``_PREDICTED`` and the target ``_OBSERVED``, NaN where
   either input is NaN, float32."""
 
+  def reads_across(self):
+    return ()
+
   _PREDICTED: bool
   _OBSERVED: bool
 
@@ -77,6 +80,9 @@ class SEEPS(base.StatisticWithClimatology):
   touches no device), and the evaluator keeps it resident. Only the wet
   thresholds may be gathered per chunk on the host.
   """
+
+  def reads_across(self):
+    return ()
 
   def __init__(
       self,
@@ -192,6 +198,9 @@ class SEEPS(base.StatisticWithClimatology):
 
 class RankedProbabilityScore(base.PerVariableStatistic):
   """RPS over inputs that already represent CDFs along ``bin_dim``."""
+
+  def reads_across(self):
+    return (self._bin_dim,)
 
   def __init__(self, bin_dim: str):
     self._bin_dim = bin_dim
@@ -373,6 +382,9 @@ class Confident(base.PerVariableStatisticWithClimatology):
   The climatology's variables hold quantiles along a 'quantile' dim.
   """
 
+  def reads_across(self):
+    return (self._ensemble_dim,)
+
   def __init__(self, ensemble_dim: str,
                climatology: Mapping[Hashable, DimArray],
                spread_quantile_boundaries: tuple = (0.1, 0.9),
@@ -402,6 +414,9 @@ class Confident(base.PerVariableStatisticWithClimatology):
 class Covered(base.PerVariableStatistic):
   """Target inside the [low, high] ensemble quantile interval."""
 
+  def reads_across(self):
+    return (self._ensemble_dim,)
+
   def __init__(self, ensemble_dim: str,
                interval_quantile_boundaries: tuple = (0.1, 0.9)):
     self._ensemble_dim = ensemble_dim
@@ -422,6 +437,9 @@ class Covered(base.PerVariableStatistic):
 class JaccardDistant(base.PerVariableStatisticWithClimatology):
   """Jaccard distance of the prediction's quantile interval from the
   climatology's > threshold."""
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, ensemble_dim: str,
                climatology: Mapping[Hashable, DimArray],

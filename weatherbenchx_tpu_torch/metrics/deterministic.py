@@ -26,6 +26,9 @@ class RelativeIntensity(base.PerVariableStatistic):
   for non-negative fields such as precipitation.
   """
 
+  def reads_across(self):
+    return self._spatial_dims
+
   def __init__(self, spatial_dims: Sequence[str] = ('latitude', 'longitude')):
     self._spatial_dims = tuple(spatial_dims)
 
@@ -52,12 +55,18 @@ class RelativeIntensity(base.PerVariableStatistic):
 class Error(base.PerVariableStatistic):
   """prediction - target."""
 
+  def reads_across(self):
+    return ()
+
   def _compute_per_variable(self, predictions, targets):
     return predictions - targets
 
 
 class AbsoluteError(base.PerVariableStatistic):
   """|prediction - target|."""
+
+  def reads_across(self):
+    return ()
 
   def _compute_per_variable(self, predictions, targets):
     return abs(predictions - targets)
@@ -66,12 +75,18 @@ class AbsoluteError(base.PerVariableStatistic):
 class SquaredError(base.PerVariableStatistic):
   """(prediction - target)^2."""
 
+  def reads_across(self):
+    return ()
+
   def _compute_per_variable(self, predictions, targets):
     return (predictions - targets) ** 2
 
 
 class PredictionPassthrough(base.PerVariableStatistic):
   """Returns predictions (broadcast against the targets' dims and coords)."""
+
+  def reads_across(self):
+    return ()
 
   def __init__(self, copy_nans_from_targets: bool = False):
     self._copy_nans_from_targets = copy_nans_from_targets
@@ -86,6 +101,9 @@ class PredictionPassthrough(base.PerVariableStatistic):
 class TargetPassthrough(base.PerVariableStatistic):
   """Returns targets (broadcast against the predictions' dims and coords)."""
 
+  def reads_across(self):
+    return ()
+
   def __init__(self, copy_nans_from_predictions: bool = False):
     self._copy_nans_from_predictions = copy_nans_from_predictions
 
@@ -98,6 +116,9 @@ class TargetPassthrough(base.PerVariableStatistic):
 
 class WindVectorSquaredError(base.Statistic):
   """(u error)^2 + (v error)^2, as a new variable named ``vector_name``."""
+
+  def reads_across(self):
+    return ()
 
   def __init__(self, u_name: Sequence[str], v_name: Sequence[str],
                vector_name: Sequence[str]):
@@ -122,6 +143,9 @@ class WindVectorSquaredError(base.Statistic):
 class SquaredPredictionAnomaly(base.PerVariableStatisticWithClimatology):
   """(prediction - climatology)^2."""
 
+  def reads_across(self):
+    return ()
+
   def _compute_per_variable_with_aligned_climatology(
       self, predictions, targets, aligned_climatology):
     return (predictions - aligned_climatology) ** 2
@@ -130,6 +154,9 @@ class SquaredPredictionAnomaly(base.PerVariableStatisticWithClimatology):
 class SquaredTargetAnomaly(base.PerVariableStatisticWithClimatology):
   """(target - climatology)^2."""
 
+  def reads_across(self):
+    return ()
+
   def _compute_per_variable_with_aligned_climatology(
       self, predictions, targets, aligned_climatology):
     return (targets - aligned_climatology) ** 2
@@ -137,6 +164,9 @@ class SquaredTargetAnomaly(base.PerVariableStatisticWithClimatology):
 
 class AnomalyCovariance(base.PerVariableStatisticWithClimatology):
   """(prediction - climatology) * (target - climatology)."""
+
+  def reads_across(self):
+    return ()
 
   def _compute_per_variable_with_aligned_climatology(
       self, predictions, targets, aligned_climatology):
@@ -148,6 +178,10 @@ class ErrorExceedance(base.PerVariableStatistic):
   """Indicator of |error| > each threshold, NaN where the error or the
   threshold is NaN; the thresholds become an
   ``error_exceedance_thresholds`` dim."""
+
+  def reads_across(self):
+    return tuple(d for d in self._thresholds.dims
+                 if d != 'error_exceedance_thresholds')
 
   def __init__(self, thresholds: Sequence[float] | DimArray):
     if not isinstance(thresholds, DimArray):

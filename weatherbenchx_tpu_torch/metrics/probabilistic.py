@@ -41,6 +41,10 @@ ENSEMBLE_DIM = 'number'
 class EnsembleAveragedStatistic(wrappers._ForwardingStatistic):
   """Averages a wrapped statistic over the ensemble dimension."""
 
+  def reads_across(self):
+    return wrappers.union_reads_across(
+        self.statistic.reads_across(), (self._ensemble_dim,))
+
   def __init__(self, wrapped_statistic: base.Statistic, *,
                ensemble_dim: str, skipna_ensemble: bool):
     self.statistic = wrapped_statistic
@@ -97,6 +101,9 @@ class CRPSSkill(base.PerVariableStatistic):
   cross kernel where it applies, else a pseudo ensemble dim on the targets
   and an O(Mx·My) broadcast.
   """
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, ensemble_dim: str = ENSEMBLE_DIM,
                skipna_ensemble: bool = False):
@@ -204,6 +211,9 @@ class CRPSSpread(base.PerVariableStatistic):
   O(M log M) sorted-members (PWM) form, or the O(M²) pairwise broadcast.
   """
 
+  def reads_across(self):
+    return (self._ensemble_dim,)
+
   def __init__(self, ensemble_dim: str = ENSEMBLE_DIM,
                use_sort: bool = False, fair: bool = True,
                which: str = 'predictions', skipna_ensemble: bool = False):
@@ -268,6 +278,9 @@ class CRPSSpread(base.PerVariableStatistic):
 class EnsembleVariance(base.PerVariableStatistic):
   """Unbiased (ddof=1) ensemble variance."""
 
+  def reads_across(self):
+    return (self._ensemble_dim,)
+
   def __init__(self, ensemble_dim: str = ENSEMBLE_DIM,
                skipna_ensemble: bool = False):
     self._ensemble_dim = ensemble_dim
@@ -289,6 +302,9 @@ class EnsembleVariance(base.PerVariableStatistic):
 
 class UnbiasedEnsembleMeanSquaredError(base.PerVariableStatistic):
   """E(X̄ - Y)² debiased by var/M."""
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, ensemble_dim: str = ENSEMBLE_DIM,
                skipna_ensemble: bool = False):
@@ -333,6 +349,10 @@ class EnsembleRankedProbabilityScore(wrappers._ForwardingStatistic):
   ``fair`` the inner statistic is UnbiasedEnsembleMeanSquaredError, which
   on a CUDA tensor inside a compute pass takes the fused kernel.
   """
+
+  def reads_across(self):
+    return wrappers.union_reads_across(
+        self.statistic.reads_across(), (self._ensemble_dim,))
 
   def __init__(self, prediction_bin_thresholds, target_bin_thresholds,
                bin_dim: str, unique_name_suffix: str,
@@ -409,6 +429,9 @@ class WassersteinDistance(base.PerVariableStatistic):
   """1-Wasserstein (Earth Mover's) distance between the two ensembles, at
   every point at once. No "fair" debiasing exists for this distance."""
 
+  def reads_across(self):
+    return (self._ensemble_dim,)
+
   def __init__(self, ensemble_dim: str = ENSEMBLE_DIM):
     self._ensemble_dim = ensemble_dim
 
@@ -430,6 +453,9 @@ class WassersteinDistance(base.PerVariableStatistic):
 
 class EnsembleErrorExceedance(deterministic.ErrorExceedance):
   """Error exceedance averaged over ensemble members."""
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, thresholds, ensemble_dim: str = ENSEMBLE_DIM):
     super().__init__(thresholds=thresholds)
@@ -757,6 +783,9 @@ class RankHistogram(base.PerVariableStatistic):
   NaN target or member gives NaN over every rank of its point, so that
   masked or skipna aggregation can leave the point out.
   """
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, *, ensemble_dim: str = ENSEMBLE_DIM):
     self._ensemble_dim = ensemble_dim

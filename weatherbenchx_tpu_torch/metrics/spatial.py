@@ -17,6 +17,11 @@ from weatherbenchx_tpu_torch.metrics import base
 from weatherbenchx_tpu_torch.ops import conv
 
 
+# The dims the neighborhood windows span: a statistic of them reads across
+# both, so a chunk sharded along either is made whole first.
+WINDOW_DIMS = ('latitude', 'longitude')
+
+
 def neighborhood_averaging_for_single_size(
     da: DimArray, neighborhood_size: int, wrap_longitude: bool = False
 ) -> DimArray:
@@ -76,6 +81,9 @@ def get_suffix(neighborhood_size, wrap_longitude: bool = False) -> str:
 class SquaredFractionsError(base.PerVariableStatistic):
   """Numerator of the FSS."""
 
+  def reads_across(self):
+    return WINDOW_DIMS
+
   neighborhood_size_in_pixels: Union[int, Iterable[int]]
   wrap_longitude: bool = False
 
@@ -96,6 +104,9 @@ class SquaredFractionsError(base.PerVariableStatistic):
 class SquaredPredictionFraction(base.PerVariableStatistic):
   """One part of the FSS denominator."""
 
+  def reads_across(self):
+    return WINDOW_DIMS
+
   neighborhood_size_in_pixels: Union[int, Iterable[int]]
   wrap_longitude: bool = False
 
@@ -113,6 +124,9 @@ class SquaredPredictionFraction(base.PerVariableStatistic):
 @dataclasses.dataclass
 class SquaredTargetFraction(base.PerVariableStatistic):
   """One part of the FSS denominator."""
+
+  def reads_across(self):
+    return WINDOW_DIMS
 
   neighborhood_size_in_pixels: Union[int, Iterable[int]]
   wrap_longitude: bool = False

@@ -41,6 +41,16 @@ def _thresholds_for(thresholds: Thresholds, threshold_dim: str,
   return DimArray(t, (threshold_dim,), {threshold_dim: t})
 
 
+def _threshold_data_dims(thresholds: Thresholds, threshold_dim: str
+                         ) -> tuple[str, ...]:
+  """The data dims that thresholds given as arrays vary along (e.g. a
+  per-gridpoint climatological quantile): a transform reads them whole."""
+  arrays = (thresholds.values() if isinstance(thresholds, Mapping)
+            else [thresholds])
+  return tuple(dict.fromkeys(d for t in arrays if isinstance(t, DimArray)
+                             for d in t.dims if d != threshold_dim))
+
+
 def binarize_thresholds(
     x: DimArray,
     thresholds: Thresholds,
@@ -51,6 +61,14 @@ def binarize_thresholds(
   threshold = _thresholds_for(thresholds, threshold_dim, name)
   threshold_cmp = darray.comparison_safe_threshold(threshold, x.dtype, '>')
   return (x > threshold_cmp).where(~x.isnull()).astype(torch.float32)
+
+
+def union_reads_across(*parts) -> tuple[str, ...] | None:
+  """The dims read across by all of ``parts`` (each a ``reads_across``
+  answer); None if any part is undeclared."""
+  if any(p is None for p in parts):
+    return None
+  return tuple(dict.fromkeys(d for p in parts for d in p))
 
 
 class InputTransform(abc.ABC):
@@ -71,9 +89,16 @@ class InputTransform(abc.ABC):
                    name: Hashable | None = None) -> DimArray:
     """Function applied to predictions and/or targets arrays."""
 
+  def reads_across(self) -> tuple[str, ...] | None:
+    """As ``Statistic.reads_across``; None (undeclared) by default."""
+    return None
+
 
 class EnsembleMean(InputTransform):
   """Mean over the ensemble dimension."""
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, which: str, ensemble_dim: str = 'number',
                skipna: bool = False,
@@ -98,6 +123,9 @@ class EnsembleMean(InputTransform):
 
 class EnsembleQuantiles(InputTransform):
   """Ensemble quantiles (numpy 'linear' interpolation, like xarray)."""
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, which: str, quantiles: Union[float, Iterable[float]],
                quantile_dim: str = 'quantile', ensemble_dim: str = 'number',
@@ -137,6 +165,9 @@ def _require_suffix(values: Any, unique_name_suffix: str | None,
 
 class ContinuousToBinary(InputTransform):
   """x > threshold for each threshold, along a new threshold dim."""
+
+  def reads_across(self):
+    return _threshold_data_dims(self._threshold_value, self._threshold_dim)
 
   def __init__(self, which: str, threshold_value: Thresholds,
                threshold_dim: str, unique_name_suffix: str | None = None):
@@ -253,6 +284,9 @@ class ContinuousToBins(InputTransform):
   """Bins a continuous input: CDF differences over right-inclusive bins,
   with ``{bin_dim}_left``/``_right`` edge coords and readable bin labels."""
 
+  def reads_across(self):
+    return _threshold_data_dims(self._bin_values, self._bin_dim)
+
   def __init__(self, which: str, bin_values: Thresholds, bin_dim: str,
                unique_name_suffix: str | None = None,
                enforce_monotonicity: bool = True):
@@ -291,6 +325,10 @@ class ContinuousToBins(InputTransform):
 class ContinuousToCDF(InputTransform):
   """CDF indicators of the input at each threshold."""
 
+  def reads_across(self):
+    return _threshold_data_dims(self._threshold_values,
+                                self._threshold_dim)
+
   def __init__(self, which: str, threshold_values: Thresholds,
                threshold_dim: str, unique_name_suffix: str | None = None,
                enforce_monotonicity: bool = True,
@@ -323,6 +361,9 @@ class ContinuousToCDF(InputTransform):
 class WeibullEnsembleToProbabilistic(InputTransform):
   """Binary ensemble → probability by the Weibull plotting position
   Σ/(M+1)."""
+
+  def reads_across(self):
+    return (self._ensemble_dim,)
 
   def __init__(self, which: str, ensemble_dim: str = 'number',
                skipna: bool = False):
@@ -360,6 +401,9 @@ class Inline(InputTransform):
 
 class ReLU(InputTransform):
   """max(x, 0), preserving NaNs."""
+
+  def reads_across(self):
+    return ()
 
   @property
   def unique_name_suffix(self) -> str:
@@ -465,10 +509,13 @@ class StackToNewDimension(InputTransform):
 
 
 class _ForwardingStatistic(base.Statistic):
-  """A statistic around ``self.statistic``: forwards the host hook and the
-  evaluator's resource contract to it."""
+  """A statistic around ``self.statistic``: forwards the host hook, the
+  evaluator's resource contract and the dims read across to it."""
 
   statistic: base.Statistic
+
+  def reads_across(self):
+    return self.statistic.reads_across()
 
   def prepare_chunk(self, predictions, targets):
     return self.statistic.prepare_chunk(predictions, targets)
@@ -494,6 +541,10 @@ class WrappedStatistic(_ForwardingStatistic):
   def unique_name(self) -> str:
     return (f'{self.statistic.unique_name}_{self.transform.which}_'
             f'{self.transform.unique_name_suffix}')
+
+  def reads_across(self):
+    return union_reads_across(self.transform.reads_across(),
+                              self.statistic.reads_across())
 
   def compute(self, predictions, targets):
     if self.transform.which in ('predictions', 'both'):

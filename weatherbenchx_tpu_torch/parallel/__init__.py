@@ -1,1 +1,2 @@
-"""Per-chunk evaluation on one device, and the chunked evaluation pipeline."""
+"""Per-chunk evaluation, the chunked evaluation pipeline, and the
+collectives of many ranks (``distributed``)."""

@@ -1,7 +1,7 @@
 """The chunked evaluation loop: TimeChunks → load → eval → reduce → write.
 
 The port of ``weatherbenchx_tpu/parallel/pipeline.py:52-204, 262-652,
-696-790`` to one device:
+659-790``, one process per device:
 
 * host enumeration of ``TimeChunks``, with threaded prefetch: loader
   threads do host work only (selection, gathers, numpy, and the
@@ -36,12 +36,26 @@ The port of ``weatherbenchx_tpu/parallel/pipeline.py:52-204, 262-652,
 * ``profile_dir``: a ``torch.profiler`` trace of the run
   (``observability.maybe_profile``).
 
-Not ported: the device mesh and multi-process (``mesh``, ``dim_to_axis``,
-``distributed``) are queued; ``compilation_cache_dir``,
-``WBX_FUSED_ACCUM`` and the in-flight byte window are XLA and
-remote-accelerator machinery with nothing to do here (eager PyTorch blocks
-the host on each pageable host→device copy, so no staged-byte backlog
-builds up).
+* ``distributed``: one process per device, each a rank of the default
+  ``torch.distributed`` process group that the caller initialised. Each
+  rank keeps the chunks with ``index % ranks == rank``, checkpoints under
+  its own prefix (``<checkpoint_path>.p<rank>``, the manifest recording
+  ``process_index`` and ``process_count``; resuming with another count
+  raises), and at the end the ranks' states are all-gathered as bytes and
+  summed (``distributed.allgather_sum_states``), so every rank returns the
+  total.
+* ``mesh`` and ``dim_to_axis``: each chunk sharded over a
+  ``DeviceMesh`` (``ChunkEvaluator``), every rank of the mesh holding the
+  whole chunk state; only the mesh's first rank calls the sink. With
+  ``distributed`` too, the world is split into groups of ``mesh.size()``
+  consecutive ranks (``distributed.group_mesh``), the chunks are
+  partitioned over the groups, and only each group's first rank gives its
+  state to the cross-group sum.
+
+``compilation_cache_dir``, ``WBX_FUSED_ACCUM`` and the in-flight byte
+window are XLA and remote-accelerator machinery with nothing to do here
+(eager PyTorch blocks the host on each pageable host→device copy, so no
+staged-byte backlog builds up).
 """
 
 import dataclasses
@@ -60,6 +74,7 @@ from weatherbenchx_tpu_torch import time_chunks as time_chunks_lib
 from weatherbenchx_tpu_torch.darray import DimArray
 from weatherbenchx_tpu_torch.data import base as data_base
 from weatherbenchx_tpu_torch.metrics import base as metrics_base
+from weatherbenchx_tpu_torch.parallel import distributed as distributed_lib
 from weatherbenchx_tpu_torch.parallel import evaluator as evaluator_lib
 
 logger = logging.getLogger(__name__)
@@ -148,13 +163,18 @@ def stream_chunk_pairs(
     retry: Optional[RetryPolicy] = None,
     obs: Optional[observability.Metrics] = None,
     on_failure: Optional[Callable] = None,
+    distributed: bool = False,
+    mesh=None,
 ):
   """Yields (index, offsets, load_fn(chunk)) in order, ``prefetch`` ahead.
 
   ``retry`` applies :class:`RetryPolicy` to each load; with
   ``retry.skip_failed`` a chunk whose transient-classified failure survives
   all retries is reported via ``on_failure(index, offsets, exc)`` and
-  dropped from the stream instead of raising.
+  dropped from the stream instead of raising. With ``distributed`` each
+  rank keeps the chunks with ``index % ranks == rank``; with a ``mesh``
+  too, each group of ``mesh.size()`` ranks keeps ``index % groups ==
+  group``.
   """
   if retry is not None and retry.retries > 0:
     inner, load_fn = load_fn, (
@@ -162,8 +182,11 @@ def stream_chunk_pairs(
   # Only transient-classified failures are skippable: a bug that skipped
   # every chunk would masquerade as a clean empty result.
   skippable = retry.retryable if retry is not None and retry.skip_failed else ()
-  items = [it for it in enumerate(times.iter_with_chunk_offsets())
-           if it[0] >= start_chunk]
+  items = list(enumerate(times.iter_with_chunk_offsets()))
+  if distributed:
+    part, parts = _partition(mesh)
+    items = [it for it in items if it[0] % parts == part]
+  items = [it for it in items if it[0] >= start_chunk]
   if not items:
     return
   depth = max(prefetch, 1)
@@ -191,9 +214,25 @@ def stream_chunk_pairs(
         yield i, offsets, result
 
 
+def _partition(mesh=None) -> tuple[int, int]:
+  """(this rank's share, number of shares) of the chunks under
+  ``distributed``: per rank, or per mesh group."""
+  if mesh is None:
+    return distributed_lib.rank(), distributed_lib.world_size()
+  return distributed_lib.mesh_group(mesh)
+
+
+def first_of_mesh(mesh) -> bool:
+  """Whether this rank is the first of its mesh (or there is no mesh)."""
+  if mesh is None:
+    return True
+  return distributed_lib.rank() == min(int(r) for r in
+                                       mesh.mesh.reshape(-1).tolist())
+
+
 @dataclasses.dataclass
 class EvaluationPipeline:
-  """Chunked, restartable evaluation on one device.
+  """Chunked, restartable evaluation on one device, a mesh, or many ranks.
 
   Attributes:
     metrics: metric name → Metric.
@@ -218,6 +257,10 @@ class EvaluationPipeline:
       Ignored (1) when a sink is set.
     profile_dir: if set, the run is traced by ``torch.profiler`` into this
       directory (CPU, and CUDA on a CUDA device).
+    mesh / dim_to_axis: optional ``DeviceMesh`` each chunk is sharded over
+      (see ChunkEvaluator); ``device`` is then this rank's device.
+    distributed: chunk-parallel ranks of the default process group (module
+      docstring); raises without an initialised group.
   """
 
   metrics: Mapping[str, metrics_base.Metric]
@@ -234,13 +277,19 @@ class EvaluationPipeline:
   chunk_stats_sink: Optional[Callable] = None
   chunks_per_dispatch: int = 1
   profile_dir: Optional[str] = None
+  mesh: Optional[object] = None
+  dim_to_axis: Optional[Mapping[str, str]] = None
+  distributed: bool = False
   failed_chunks: list = dataclasses.field(default_factory=list, init=False)
 
   def __post_init__(self):
     self.device = torch.device(self.device)
+    if self.distributed:
+      _partition(self.mesh)  # raises without a process group or a bad mesh
     self._obs = self.metrics_registry or observability.default_metrics
     self._evaluator = evaluator_lib.ChunkEvaluator(
-        metrics=self.metrics, aggregator=self.aggregator, device=self.device)
+        metrics=self.metrics, aggregator=self.aggregator, device=self.device,
+        mesh=self.mesh, dim_to_axis=self.dim_to_axis)
     reduce_dims = set(self.aggregator.reduce_dims)
     self._bucket_dims = tuple(
         d for d in ('init_time', 'lead_time') if d not in reduce_dims)
@@ -266,7 +315,8 @@ class EvaluationPipeline:
         prefetch=self.prefetch, start_chunk=start_chunk, retry=self.retry,
         obs=self._obs,
         on_failure=lambda i, offsets, e: self.failed_chunks.append(
-            (i, offsets, f'{type(e).__name__}: {e}')))
+            (i, offsets, f'{type(e).__name__}: {e}')),
+        distributed=self.distributed, mesh=self.mesh)
 
   def _bucket_key(self, offsets: time_chunks_lib.TimeChunkOffsets) -> tuple:
     return tuple(getattr(offsets, d) if d in self._bucket_dims else -1
@@ -274,8 +324,23 @@ class EvaluationPipeline:
 
   # -- checkpointing -----------------------------------------------------------
 
+  def _processes(self) -> tuple[int, int]:
+    """(process_index, process_count) that a checkpoint records."""
+    if not self.distributed:
+      return 0, 1
+    return distributed_lib.rank(), distributed_lib.world_size()
+
+  def _ckpt_prefix(self) -> str:
+    """The checkpoint prefix; a rank's own under ``distributed``: each rank
+    holds the partial state of its own chunks, so a shared checkpoint would
+    make every rank resume from one rank's sums."""
+    index, count = self._processes()
+    if count > 1:
+      return f'{self.checkpoint_path}.p{index}'
+    return self.checkpoint_path
+
   def _ckpt_manifest(self) -> str:
-    return f'{self.checkpoint_path}.manifest.json'
+    return f'{self._ckpt_prefix()}.manifest.json'
 
   def _save_checkpoint(self, buckets, next_chunk: int,
                        batch_start: Optional[int] = None) -> None:
@@ -291,14 +356,16 @@ class EvaluationPipeline:
     # the bucket writes and the manifest write pair the OLD next_chunk with
     # NEW sums, and resume would count chunks twice.
     gen = 1 - self._ckpt_gen
+    index, count = self._processes()
     manifest = {'next_chunk': next_chunk, 'generation': gen,
                 'batch_start': next_chunk if batch_start is None
-                else batch_start, 'buckets': []}
+                else batch_start, 'process_index': index,
+                'process_count': count, 'buckets': []}
     for k, (key, state) in enumerate(sorted(buckets.items())):
       # .wbx: thread-parallel raw block writes (the native blockstore);
       # checkpoints are the pipeline's hottest host I/O. On a remote path
       # save_dataset_atomic writes portable npz bytes through fsspec.
-      path = f'{self.checkpoint_path}.g{gen}.bucket{k}.wbx'
+      path = f'{self._ckpt_prefix()}.g{gen}.bucket{k}.wbx'
       fileio.save_dataset_atomic(path, state.to_host().to_dataset())
       # Live (pre-float64) dtypes, so resume restores exactly.
       dtypes = {name: str(da.dtype).removeprefix('torch.')
@@ -315,6 +382,14 @@ class EvaluationPipeline:
     if not self.checkpoint_path or not fileio.exists(self._ckpt_manifest()):
       return {}, 0
     manifest = json.loads(fileio.read_text(self._ckpt_manifest()))
+    have, want = manifest.get('process_count', 1), self._processes()[1]
+    if have != want:
+      raise ValueError(
+          f'checkpoint {self._ckpt_manifest()} was written by a run of {have} '
+          f'processes, and this run has {want}: the chunks would be assigned '
+          'to other processes (index % process_count), so resuming would '
+          'count some chunks twice and drop others. Restart with the same '
+          'process count, or remove the checkpoint.')
     self._batch_start = manifest.get('batch_start', manifest['next_chunk'])
     # The next save writes the OTHER generation, preserving the files this
     # manifest references until the new manifest lands.
@@ -339,6 +414,10 @@ class EvaluationPipeline:
     """Evaluates all chunks; returns the total AggregationState (host)."""
     self.failed_chunks = []
     buckets, next_chunk = self._load_checkpoint()
+    if self.checkpoint_path and self.mesh is not None and not self.distributed:
+      # The mesh's ranks share one checkpoint: each has read it before the
+      # first rank writes the next.
+      distributed_lib.barrier()
     done = 0
 
     def add(offsets, state):
@@ -351,8 +430,11 @@ class EvaluationPipeline:
       nonlocal done
       self._obs.counter('chunks_done')
       done += 1
+      # On a mesh every rank holds the same state: without distributed
+      # they share one checkpoint, which the mesh's first rank writes.
       if (self.checkpoint_path and self.checkpoint_every
-          and done % self.checkpoint_every == 0):
+          and done % self.checkpoint_every == 0
+          and (self.distributed or first_of_mesh(self.mesh))):
         with self._obs.timed('checkpoint_seconds'):
           self._save_checkpoint(buckets, i + 1, batch_start)
       logger.info('chunk %d/%d done', i + 1, len(self.times))
@@ -396,7 +478,7 @@ class EvaluationPipeline:
           else:
             state, stats = self._evaluator.eval_with_statistics(*pair)
           add(offsets, state)
-        if stats is not None:
+        if stats is not None and first_of_mesh(self.mesh):
           with self._obs.timed('chunk_stats_sink_seconds'):
             self.chunk_stats_sink(i, offsets, {
                 f'{stat_name}.{var}': da
@@ -406,8 +488,14 @@ class EvaluationPipeline:
       flush()
     # Final cross-bucket combine on the host, in float64: the outer join
     # concatenates the preserved chunked dims.
-    return aggregation_lib.AggregationState.sum(
+    total = aggregation_lib.AggregationState.sum(
         [s.to_host() for s in buckets.values()])
+    if self.distributed:
+      # Every rank of a mesh holds its group's whole state: the group's
+      # first rank alone gives it to the sum.
+      total = distributed_lib.allgather_sum_states(
+          total, contribute=first_of_mesh(self.mesh))
+    return total
 
   def run_and_write(
       self,

@@ -1,7 +1,7 @@
 """Unaggregated statistics: stream raw per-point statistics out.
 
-The port of ``weatherbenchx_tpu/parallel/unaggregated.py`` to one device:
-the reference's ``define_unaggregated_pipeline``
+The port of ``weatherbenchx_tpu/parallel/unaggregated.py``: the
+reference's ``define_unaggregated_pipeline``
 (``beam_pipeline.py:610-681``) without Beam. Chunks are loaded and
 host-prepared like the aggregated pipeline's, their statistics computed on
 the device, copied to the host and streamed into a store:
@@ -16,9 +16,15 @@ the device, copied to the host and streamed into a store:
 ``ZarrStatsStore.write_chunk`` is also the aggregated pipeline's
 ``chunk_stats_sink``: the statistics then stream out of the same pass that
 accumulates the state. Time coords stay datetime64/timedelta64 throughout
-the port, so nothing is converted back before writing. The device mesh and
-multi-process runs (``mesh``, ``dim_to_axis``, ``distributed``) are not
-ported yet and raise.
+the port, so nothing is converted back before writing.
+
+Many processes, over ``torch.distributed``: with ``distributed`` every rank
+of the default group writes the cells of its own chunks into one zarr
+store (output chunks and v3 shards must divide the compute chunk, so that
+no cell spans two ranks' chunks), then all wait at a barrier and rank 0
+writes the metadata; the shard-directory mode, with its one manifest,
+refuses it. With a ``mesh`` the statistics are gathered whole on the mesh
+and only its first rank writes them.
 """
 
 import dataclasses
@@ -40,16 +46,9 @@ from weatherbenchx_tpu_torch import zarr_io
 from weatherbenchx_tpu_torch.darray import Coord, DimArray
 from weatherbenchx_tpu_torch.data import base as data_base
 from weatherbenchx_tpu_torch.metrics import base as metrics_base
+from weatherbenchx_tpu_torch.parallel import distributed as distributed_lib
 from weatherbenchx_tpu_torch.parallel import evaluator as evaluator_lib
 from weatherbenchx_tpu_torch.parallel import pipeline as pipeline_lib
-
-
-def _refuse_multi_device(**settings) -> None:
-  set_ = [k for k, v in settings.items() if v]
-  if set_:
-    raise NotImplementedError(
-        f'{set_}: multi-device and multi-process runs are not ported to '
-        'weatherbenchx_tpu_torch yet')
 
 
 def canonical_order(flat_stats: Mapping[str, DimArray]) -> dict:
@@ -79,6 +78,11 @@ class ZarrStatsStore:
   aggregated pipeline's ``chunk_stats_sink`` (statistics stream out of the
   SAME pass that accumulates the aggregation state — one storage scan, one
   set of device transfers).
+
+  With ``distributed`` the store is written by every rank of the default
+  process group (chunk-parallel ranks, or the ranks of a mesh, whose first
+  rank alone writes cells): each writes its own cells, and ``finalize``
+  waits at a barrier before rank 0 writes the metadata.
   """
 
   def __init__(self, times: time_chunks_lib.TimeChunks, path: str,
@@ -87,7 +91,8 @@ class ZarrStatsStore:
                zarr_chunks: Optional[Mapping[str, int]] = None,
                zarr_format: int = 2,
                zarr_shards: Optional[Mapping[str, int]] = None) -> None:
-    _refuse_multi_device(distributed=distributed)
+    if distributed:
+      distributed_lib.require_process_group()
     if isinstance(times.lead_times, slice):
       raise ValueError(
           'Zarr unaggregated output needs exact lead_times: a lead '
@@ -113,8 +118,22 @@ class ZarrStatsStore:
     self._zarr_shards = {k: int(v) for k, v in (zarr_shards or {}).items()}
     if self._zarr_shards and int(zarr_format) != 3:
       raise ValueError('zarr_shards (sharding_indexed) needs zarr_format=3')
+    if distributed:
+      for d, cc in (('init_time', self._init_chunk),
+                    ('lead_time', self._lead_chunk)):
+        for what, sizes in (('zarr_chunks', self._zarr_chunks),
+                            ('zarr_shards', self._zarr_shards)):
+          z = sizes.get(d)
+          if z is not None and (z > cc or cc % z != 0):
+            raise ValueError(
+                f'distributed zarr output needs {what}[{d!r}]={z} to divide '
+                f'the compute chunk size {cc}: otherwise one output '
+                f'{"cell" if what == "zarr_chunks" else "shard object"} '
+                'spans compute chunks owned by different processes and no '
+                'single process can assemble it')
     self._compressor = compressor
     self._zarr_format = int(zarr_format)
+    self._distributed = distributed
     if self._zarr_format == 3:
       # v3 root node, written eagerly for the same crash-resume reason as
       # the coordinates below. v3 has no consolidated-metadata file; the
@@ -273,6 +292,12 @@ class ZarrStatsStore:
     # same contract as the uncovered-cell fill above.
     for w in self._writers.values():
       w.close()
+    if self._distributed:
+      # Ranks own disjoint cells; the coordinates and metadata are the same
+      # everywhere, so rank 0 writes them once every cell is on disk.
+      distributed_lib.barrier()
+      if distributed_lib.rank() != 0:
+        return self._path
     path = self._path
     if self._zarr_format == 3:
       # No consolidated metadata in v3: the eager root zarr.json plus the
@@ -313,7 +338,11 @@ class UnaggregatedPipeline:
       xarray or ``zarr_io.open_dataset_zarr``); anything else → a
       directory of per-chunk ``.wbx`` shards + manifest.
     device: the device the statistics are computed on, e.g. 'cuda'.
-    mesh / dim_to_axis / distributed: not ported; raise if set.
+    mesh / dim_to_axis: optional ``DeviceMesh`` each chunk is sharded over
+      (see ChunkEvaluator); the statistics are gathered whole and the
+      mesh's first rank writes them.
+    distributed: chunk-parallel ranks of the default process group, each
+      writing its own chunks' cells of one ``*.zarr`` store.
   """
 
   metrics: Mapping[str, metrics_base.Metric]
@@ -342,23 +371,20 @@ class UnaggregatedPipeline:
   failed_chunks: list = dataclasses.field(default_factory=list, init=False)
 
   def __post_init__(self):
-    _refuse_multi_device(mesh=self.mesh is not None,
-                         dim_to_axis=self.dim_to_axis is not None,
-                         distributed=self.distributed)
+    if self.distributed:
+      distributed_lib.require_process_group()
     # The evaluator's host preparation and device placement; only the step
     # differs (raw statistics, no aggregation).
     self._evaluator = evaluator_lib.ChunkEvaluator(
         metrics=self.metrics,
         aggregator=aggregation_lib.Aggregator(reduce_dims=()),
-        device=self.device)
+        device=self.device, mesh=self.mesh, dim_to_axis=self.dim_to_axis)
 
   def _chunk_stats(self, predictions, targets) -> dict[str, DimArray]:
-    p, t = self._evaluator.to_device(predictions, targets)
-    with metrics_base.device_resources(self._evaluator.resources()):
-      stats = metrics_base.compute_unique_statistics_for_all_metrics(
-          self.metrics, p, t)
+    """The chunk's statistics on the host; whole, gathered on a mesh."""
+    stats = self._evaluator.statistics(predictions, targets)
     return canonical_order({
-        f'{stat_name}.{var_name}': evaluator_lib.host_copy(da)
+        f'{stat_name}.{var_name}': da
         for stat_name, stat_vars in stats.items()
         for var_name, da in stat_vars.items()})
 
@@ -372,36 +398,54 @@ class UnaggregatedPipeline:
         self._load, self.times, prefetch=self.prefetch, retry=self.retry,
         obs=observability.default_metrics,
         on_failure=lambda i, offsets, e: self.failed_chunks.append(
-            (i, offsets, f'{type(e).__name__}: {e}')))
+            (i, offsets, f'{type(e).__name__}: {e}')),
+        distributed=self.distributed, mesh=self.mesh)
 
   def run(self) -> str:
     self.failed_chunks = []
     if self.out_path.rstrip('/').endswith('.zarr'):
       return self._run_zarr()
+    if self.distributed:
+      raise ValueError(
+          'distributed unaggregated output needs a *.zarr out_path: each '
+          'process writes its own disjoint cells of one store (the '
+          'shard-directory manifest has a single writer)')
     return self._run_shards()
 
   # -- Zarr mode ---------------------------------------------------------------
 
   def _run_zarr(self) -> str:
     """One zarr chunk per (TimeChunk, variable): no rechunk shuffle."""
-    store = ZarrStatsStore(self.times, self.out_path,
-                           compressor=self.compressor,
-                           zarr_chunks=self.zarr_chunks,
-                           zarr_format=self.zarr_format,
-                           zarr_shards=self.zarr_shards)
+    writes = pipeline_lib.first_of_mesh(self.mesh)
+    store = None
+    if writes or self.distributed:
+      store = ZarrStatsStore(self.times, self.out_path,
+                             compressor=self.compressor,
+                             distributed=self.distributed,
+                             zarr_chunks=self.zarr_chunks,
+                             zarr_format=self.zarr_format,
+                             zarr_shards=self.zarr_shards)
     for i, offsets, (predictions, targets) in self._stream():
-      store.write_chunk(i, offsets,
-                        self._chunk_stats(predictions, targets))
-    return store.finalize()
+      stats = self._chunk_stats(predictions, targets)
+      if writes:
+        store.write_chunk(i, offsets, stats)
+    path = self.out_path if store is None else store.finalize()
+    if self.mesh is not None and not self.distributed:
+      distributed_lib.barrier()  # the mesh's first rank has written it all
+    return path
 
   # -- shard-directory mode ------------------------------------------------------
 
   def _run_shards(self) -> str:
     """One .wbx shard per chunk + manifest (ragged/sparse-safe)."""
-    os.makedirs(self.out_path, exist_ok=True)
+    writes = pipeline_lib.first_of_mesh(self.mesh)
+    if writes:
+      os.makedirs(self.out_path, exist_ok=True)
     manifest = {'version': 1, 'shards': []}
     for i, offsets, (predictions, targets) in self._stream():
       flat = self._chunk_stats(predictions, targets)
+      if not writes:
+        continue
       shard = f'chunk_{i:06d}.wbx'
       io_lib.save_dataset(os.path.join(self.out_path, shard), flat)
       manifest['shards'].append({
@@ -409,10 +453,13 @@ class UnaggregatedPipeline:
           'init_time_offset': offsets.init_time,
           'lead_time_offset': offsets.lead_time,
       })
-    tmp = os.path.join(self.out_path, 'manifest.json.tmp')
-    with open(tmp, 'w') as f:
-      json.dump(manifest, f)
-    os.replace(tmp, os.path.join(self.out_path, 'manifest.json'))
+    if writes:
+      tmp = os.path.join(self.out_path, 'manifest.json.tmp')
+      with open(tmp, 'w') as f:
+        json.dump(manifest, f)
+      os.replace(tmp, os.path.join(self.out_path, 'manifest.json'))
+    if self.mesh is not None:
+      distributed_lib.barrier()  # the mesh's first rank has written it all
     return self.out_path
 
 
