@@ -196,6 +196,23 @@ script exits nonzero:
    bytes gathered printed; (d) multichip.dryrun_multichip(4) on the card:
    its six phases on 4 gloo ranks sharing it, each equal to the direct
    result.
+17. The randomized parity fuzz on the card, after phase 16
+   (weatherbenchx_tpu_torch.parity_fuzz, the port's counterpart of
+   tools/tpu_parity_fuzz.py): FUZZ_SEEDS seeds of each of the config,
+   wrappers, spatial_rank and seeps families (19 x 36 grids, 4 inits x 3
+   leads, 7 members, 5 target members; seed N draws as
+   TestRandomizedConfigParity's seed N), each config run through
+   compute_metric_values_for_single_chunk on the card and again on the
+   CPU (the kernels' plain versions), held to atol and rtol 1e-5 with the
+   key sets, dims and coords equal; and FUZZ_LARGE_K_SEEDS large_k seeds
+   (the aggregation at 721 x 1440, 12-34 region bins, area weights, 3-5
+   statistics x 2-4 leads) against a float64 contraction of the same
+   weights and masks, at 2e-5 of max(|bin sum|, its row's RMS). Fails on
+   any failure (a raise is one), unless the ensemble configs launched the
+   fused kernel and the two-ensemble configs the cross and spread
+   kernels. Prints per family the configs, the largest gap, the seconds on
+   the card and on the CPU, the launches per kernel with the member counts
+   they saw, and for large_k the rows and bins.
 
 The whole script's seconds are printed before the last three lines: a
 JSON object describing the three kernels, the card's name and power
@@ -3633,6 +3650,50 @@ def rank_path(seed: int, phase4_values: dict, card: str) -> dict:
   return report
 
 
+FUZZ_SEEDS = 200
+FUZZ_LARGE_K_SEEDS = 20
+
+
+def fuzz_phase(card: str) -> dict:
+  """Phase 17: the randomized parity fuzz on the card, checked."""
+  from weatherbenchx_tpu_torch import parity_fuzz
+  t0 = time.perf_counter()
+  report, failures = parity_fuzz.fuzz(parity_fuzz.FAMILIES, FUZZ_SEEDS,
+                                      FUZZ_LARGE_K_SEEDS, DEVICE)
+  seconds = time.perf_counter() - t0
+  for f in failures[:10]:
+    log(f'parity fuzz failure: {json.dumps(f)}')
+  if failures:
+    raise AssertionError(f'phase 17: {len(failures)} fuzz configs failed')
+  for family in parity_fuzz.FAMILIES:
+    if report[family]['configs'] != FUZZ_SEEDS:
+      raise AssertionError(f'phase 17: {family} ran '
+                           f'{report[family]["configs"]} configs')
+  by_kind = report['config']['launches_by_kind']
+  fused = sum(by_kind.get(k, {}).get('fused_ensemble_stats', 0)
+              for k in ('ensemble', 'two_ensemble'))
+  two = by_kind.get('two_ensemble', {})
+  if not fused or not two.get('pairwise_cross_sum') or not two.get(
+      'pairwise_spread_sum'):
+    raise AssertionError('phase 17: the ensemble configs must launch the '
+                         'fused kernel and the two-ensemble configs the '
+                         f'cross and spread kernels; launches {by_kind}')
+  for family, r in report.items():
+    if family == parity_fuzz.LARGE_K:
+      log(f'parity fuzz {family}: {r["configs"]} seeds, largest scaled '
+          f'error {r["max_error"]:.3e} (limit {parity_fuzz.LARGE_K_LIMIT}), '
+          f'rows {min(r["rows"])}-{max(r["rows"])}, bins '
+          f'{min(r["bins"])}-{max(r["bins"])}, {r["seconds"]:.2f} s; '
+          f'card {card}')
+    else:
+      log(f'parity fuzz {family}: {r["configs"]} configs, largest gap '
+          f'{r["max_gap"]:.3e}, {r["seconds"]:.2f} s on the card, '
+          f'{r["cpu_seconds"]:.2f} s on the CPU, launches {r["launches"]}, '
+          f'members {r["members"]}; card {card}')
+  log(f'phase 17 parity fuzz: {seconds:.1f} s')
+  return dict(report, seconds=seconds)
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -3697,6 +3758,8 @@ def main() -> int:
   log('phase 15e latency wrapper: ok')
   ranks = rank_path(args.seed, main_values, card)
   log('phase 16 ranks: ok')
+  fuzz = fuzz_phase(card)
+  log('phase 17 parity fuzz: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
@@ -3708,6 +3771,7 @@ def main() -> int:
              'latency': latency}
   log(f'batched dispatch: {json.dumps(batched)}; card {card}')
   log(f'ranks: {json.dumps(ranks)}; card {card}')
+  log(f'parity fuzz: {json.dumps(fuzz)}; card {card}')
   log(f'whole script: {time.perf_counter() - t_start:.1f} s '
       f'(the build included); card {card}')
 

@@ -716,3 +716,22 @@ def test_two_ranks_sharing_the_card_with_longitude_sharded(cuda):
       assert values[k][0] == dims
       np.testing.assert_allclose(values[k][1], v, rtol=1e-5, atol=1e-6,
                                  err_msg=k)
+
+
+@pytest.mark.parametrize('family', ['config', 'wrappers', 'spatial_rank',
+                                    'seeps', 'large_k'])
+def test_parity_fuzz_on_the_card_matches_the_cpu(cuda, family):
+  """Ten seeds of a fuzz family on the card, each held to its CPU run (the
+  large-K family to float64); the ensemble configs launch their
+  kernels."""
+  from weatherbenchx_tpu_torch import parity_fuzz
+  failures = []
+  if family == 'large_k':
+    report = parity_fuzz.fuzz_large_k(range(2), cuda, failures)
+    assert report['max_error'] <= parity_fuzz.LARGE_K_LIMIT
+  else:
+    report = parity_fuzz.fuzz_family(family, range(10), cuda, failures)
+  assert not failures, failures
+  if family == 'config':
+    assert report['launches']['fused_ensemble_stats'] > 0
+    assert report['launches']['pairwise_cross_sum'] > 0

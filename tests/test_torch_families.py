@@ -292,5 +292,5 @@ def test_the_guard_covers_the_new_modules():
   for m in ('parallel.evaluator', 'parallel.pipeline', 'observability',
             'data.latency_wrappers', 'test_utils', 'apps.combine_results',
             'apps.pyjs', 'apps.jsmini', 'apps.scorecard_logic',
-            'apps.scorecard_html', 'apps.scorecard_figure'):
+            'apps.scorecard_html', 'apps.scorecard_figure', 'parity_fuzz'):
     assert f'weatherbenchx_tpu_torch.{m}' in modules, m

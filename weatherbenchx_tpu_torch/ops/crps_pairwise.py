@@ -68,11 +68,15 @@ JAX_SORT_MEMBERS = 20
 
 LAUNCHES = {'fused_ensemble_stats': 0, 'pairwise_spread_sum': 0,
             'pairwise_cross_sum': 0}
+# The member counts each kernel was launched at: M, or (Mx, My) for the
+# cross kernel.
+MEMBER_COUNTS = {k: set() for k in LAUNCHES}
 
 
 def reset_launch_counts() -> None:
   for k in LAUNCHES:
     LAUNCHES[k] = 0
+    MEMBER_COUNTS[k].clear()
 
 
 # -- the kernels' routes ----------------------------------------------------------
@@ -227,6 +231,7 @@ def _launch_stats(x: torch.Tensor, y):
           *ptrs, n, dtype, fused, x.device.index, stream)
     _raise_on_error(rc, name)
     LAUNCHES[name] += 1
+    MEMBER_COUNTS[name].add(m)
   return outs if fused else outs[0]
 
 
@@ -248,6 +253,7 @@ def _launch_cross(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(rc, 'pairwise_cross_sum')
     LAUNCHES['pairwise_cross_sum'] += 1
+    MEMBER_COUNTS['pairwise_cross_sum'].add((mx, my))
   return out
 
 
