@@ -23,8 +23,9 @@ script exits nonzero:
    body below); every register kernel built, M = 2..64, in both dtypes;
    and 1,816, 1,817 and 4,000 members through the metrics (one, two and
    three shared-memory tiles: the fused pass, the spread and the
-   two-ensemble skill against the float64 broadcast, each launch counted),
-   with +-inf and NaN members on both sides of a tile's edge.
+   two-ensemble skill against the float64 broadcast, each launch counted,
+   and each of the three kernels timed there beside its bound), with +-inf
+   and NaN members on both sides of a tile's edge.
 4. Main path at full width: ChunkEvaluator with fair CRPS, the unbiased
    spread/skill ratio and the unbiased ensemble-mean RMSE over 3 chunks of
    a 50-member 0.25-degree ensemble (50 x 1 x 4 x 721 x 1440 float32,
@@ -213,6 +214,27 @@ script exits nonzero:
    kernels. Prints per family the configs, the largest gap, the seconds on
    the card and on the CPU, the launches per kernel with the member counts
    they saw, and for large_k the rows and bins.
+18. The drivers at full width, after phase 17, each evaluation run in a
+   process of its own (python -m weatherbenchx_tpu_torch.tools.<name>),
+   stores under DISK_STORE_DIR, deleted after: (a) stream_scale_demo's month, 31 inits
+   x 50 members x 721 x 1440 as zarr v2 blosc (6.4 GB) at 4 inits per
+   chunk: the fused launches equal to the CPU count per chunk times the
+   chunks, CRPS, spread/skill and ensemble-mean RMSE within 1e-5 relative
+   of a float64 run of the plain versions on the card over slabs made
+   again from the store's seed; run again checkpointing every chunk,
+   SIGKILLed once its manifest records 3 chunks, then rerun: its values
+   equal to the uninterrupted run's by np.array_equal; the RSS at the end
+   less the RSS after chunk 3 below one chunk's host bytes; one chunk's
+   predictions read with and without the latitude flip, the native
+   decode's share of the loads; (b) the 6-hourly year cut to 365 inits
+   (4.5 GB .wbx, chunks of 32): RMSE per lead and region within 1e-5 of
+   float64, the same RSS check; (c) the three examples in this process
+   with --device cuda, their printed lines equal to their CPU runs (the
+   ensemble example: one fused M = 8 launch per chunk), and the port's
+   fixtures (made on the card, equal to the CPU's) through the canonical
+   month drive of the benchmark CLI: RMSE within 2% of sqrt(2), ACC within
+   0.02 of 1/2 in the global bin. Prints each run's per-chunk seconds,
+   RSS, stage timers and native seconds.
 
 The whole script's seconds are printed before the last three lines: a
 JSON object describing the three kernels, the card's name and power
@@ -291,6 +313,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
 # Calls per timed sample (time_cuda), for kernels and plain versions alike.
 TIMING_REPS = 20
+# ... and for the tiled kernels at phase 3's shapes, which take 7-90 ms a
+# call: enough to hide the host's launch behind the device.
+MEMBER_TILE_TIMING_REPS = 2
 
 
 def log(msg: str) -> None:
@@ -633,6 +658,7 @@ def check_member_tiles(rng) -> None:
         f'{m + 3}): fused pass, spread and cross launched once each, max '
         f'rel err vs the float64 broadcast {worst:.3g} (tol '
         f'{KERNEL_RTOL["float32"]}) ok')
+    time_member_tiles(x.to(DEVICE), y.to(DEVICE), yt.to(DEVICE), tiles)
   m = 1817 + 370
   x = rng.standard_normal((m, n), dtype=np.float32)
   x[3, 0] = x[2000, 1] = np.inf
@@ -647,6 +673,30 @@ def check_member_tiles(rng) -> None:
                         f'member tiles M={m}', dname)
     log(f'member tiles check M={m} {dname}: +-inf and NaN members across '
         'two tiles give the plain version\'s points ok')
+
+
+def time_member_tiles(x, y, yt, tiles: int) -> None:
+  """The tiled kernels' times at phase 3's shapes (x (M, 96), the cross
+  against M + 3 members), each beside its bound: the larger of its bytes
+  over the HBM rate and its pair operations over the float32 rate (at
+  these shapes the operations bound it; the bytes' time is printed
+  too)."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  m, n = x.shape
+  res = time_cuda({'fused': lambda: cp.fused_ensemble_stats(x, y),
+                   'spread': lambda: cp.pairwise_spread_sum(x),
+                   'cross': lambda: cp.pairwise_cross_sum(x, yt)},
+                  rounds=6, reps=MEMBER_TILE_TIMING_REPS)
+  work = {'fused': stats_work(m, n, True), 'spread': stats_work(m, n, False),
+          'cross': cross_work(m, yt.shape[0], n)}
+  for name, (med, q1, q3, count) in res.items():
+    nbytes, ops = work[name]
+    ms, by = bound(nbytes, ops)
+    log(f'member tiles timing M={m} ({tiles} tile(s)) {name}: median '
+        f'{med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms over {count} runs; '
+        f'bound {ms:.4f} ms by {by} ({ms / med:.1%} of it; bytes alone '
+        f'{1e3 * nbytes / HBM_BYTES_PER_S:.6f} ms for {nbytes} bytes, '
+        f'{ops} operations); N={n}, float32')
 
 
 def build_report(build_log: str) -> None:
@@ -3694,6 +3744,470 @@ def fuzz_phase(card: str) -> dict:
   return dict(report, seconds=seconds)
 
 
+# -- Phase 18, the drivers at full width ----------------------------------------
+# Each run of the stream demo and the benchmark CLI is `python -m
+# weatherbenchx_tpu_torch.<package>.<name>`, a process of its own, so that
+# the RSS it reports is its own; the stores and fixtures are written, and
+# the examples run, through their main() in this process (the examples'
+# kernel launches are counted here). Stores
+# go under DISK_STORE_DIR and are deleted after use. The month is the JAX
+# tool's (31 inits x 50 members x 721 x 1440, zarr v2 blosc) at chunks of
+# DRIVER_MONTH_CHUNK inits, the store's own cells (the tool's default of
+# 32 would hold the whole month, 6.4 GB, on the host at once); the year is
+# cut to DRIVER_YEAR_INITS inits of its 1,460 (depth only: the grid and the
+# 2 leads stay) at the tool's chunks of 32. The kill-and-resume run is
+# killed once its checkpoint records DRIVER_KILL_AFTER chunks.
+DRIVER_GRID = (721, 1440)
+DRIVER_MONTH_INITS = 31
+DRIVER_MONTH_MEMBERS = 50
+DRIVER_MONTH_CHUNK = 4
+DRIVER_YEAR_INITS = 365
+DRIVER_YEAR_CHUNK = 32
+DRIVER_KILL_AFTER = 3
+DRIVER_NEEDS_BYTES = 10 * 2**30
+DRIVER_TIMEOUT_S = 600
+# The canonical month drive (the verify skill's): the fixtures' RMSE is
+# sqrt(2) and their ACC 1/2 by construction; the global bin over 62 inits
+# of 64 x 32 holds both to a few tenths of a percent.
+CANONICAL_RMSE_RTOL = 0.02
+CANONICAL_ACC_ATOL = 0.02
+
+
+def driver_report(module: str, args: list) -> dict:
+  """Runs ``python -m <module> <args>`` from the checkout; the JSON object
+  its last line prints (None if that is no JSON object)."""
+  out = subprocess.run(
+      [sys.executable, '-m', module] + list(args),
+      cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+      text=True, timeout=DRIVER_TIMEOUT_S)
+  if out.returncode != 0:
+    raise AssertionError(f'{module} {" ".join(args)} exited '
+                         f'{out.returncode}:\n{out.stdout[-4000:]}\n'
+                         f'{out.stderr[-4000:]}')
+  last = out.stdout.strip().splitlines()[-1]
+  return json.loads(last) if last.startswith('{') else None
+
+
+STREAM_DEMO = 'weatherbenchx_tpu_torch.tools.stream_scale_demo'
+
+
+def demo_tile(seed: int, nlat: int, nlon: int):
+  """The stream demo's random tile as its store writer draws it (numpy
+  default_rng(seed), 8 float32 fields), float64 on the card."""
+  import torch
+  rng = np.random.default_rng(seed)
+  tile = rng.standard_normal((8, nlat, nlon)).astype(np.float32)
+  return torch.from_numpy(tile).to(DEVICE, torch.float64)
+
+
+def demo_slab(tile, i: int):
+  """Slab i of the stream demo's stores: the tile's field i % 8, its first
+  point holding i."""
+  slab = tile[i % 8].clone()
+  slab[0, 0] = i
+  return slab
+
+
+def demo_lat_weights(nlat: int, nlon: int):
+  """Area weights (lat, 1), float64 on the card, of the stores' descending
+  latitudes."""
+  import torch
+  from weatherbenchx_tpu_torch import weighting
+  from weatherbenchx_tpu_torch.darray import DimArray
+  lats = np.linspace(90, -90, nlat)
+  da = DimArray(np.zeros((nlat, nlon), np.float32), ('latitude', 'longitude'),
+                {'latitude': lats,
+                 'longitude': np.linspace(0, 360, nlon, endpoint=False)})
+  w = weighting.GridAreaWeighting().weights(da)
+  return torch.from_numpy(np.asarray(w.values, np.float64)).to(DEVICE)[:, None]
+
+
+def month_f64_reference(n_init: int, members: int, nlat: int,
+                        nlon: int) -> dict:
+  """The month's metrics in float64 on the card: the stores' slabs made
+  again from the tile (not read back), the plain fused statistics over
+  the members, explicit area-weighted means over inits and the grid."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  tile = demo_tile(1, nlat, nlon)
+  w = demo_lat_weights(nlat, nlon)
+  sums = {'skill': 0.0, 'spread': 0.0, 'var': 0.0, 'umse': 0.0, 'se': 0.0}
+  for j in range(n_init):
+    x = torch.stack([demo_slab(tile, m * n_init + j) for m in range(members)])
+    y = demo_slab(tile, j)
+    spread, skill, mean, sq_dev = cp.fused_ensemble_stats_plain(x, y)
+    var = sq_dev / (members - 1)
+    se = (mean - y) ** 2
+    for k, s in (('skill', skill / members),
+                 ('spread', spread / (members * (members - 1))),
+                 ('var', var), ('umse', se - var / members), ('se', se)):
+      sums[k] = sums[k] + (s * w).sum()
+  mean = {k: (v / (w.sum() * nlon * n_init)).item() for k, v in sums.items()}
+  return {'crps': mean['skill'] - 0.5 * mean['spread'],
+          'spread_skill': math.sqrt(mean['var'] / mean['umse']),
+          'mean_rmse': math.sqrt(mean['se'])}
+
+
+def year_f64_reference(n_init: int, n_lead: int, nlat: int, nlon: int,
+                       regions: dict) -> dict:
+  """The year's RMSE in float64 on the card, {(lead index, region): value}:
+  the slabs made again from the tile, explicit weighted means."""
+  import torch
+  from weatherbenchx_tpu_torch import binning
+  from weatherbenchx_tpu_torch.darray import DimArray
+  tile = demo_tile(0, nlat, nlon)
+  w = demo_lat_weights(nlat, nlon)
+  lats = np.linspace(90, -90, nlat)
+  lons = np.linspace(0, 360, nlon, endpoint=False)
+  grid = DimArray(np.zeros((nlat, nlon), np.float32),
+                  ('latitude', 'longitude'),
+                  {'latitude': lats, 'longitude': lons})
+  names = list(regions)
+  bins = torch.from_numpy(binning.Regions(regions).create_bin_mask(
+      grid).values).to(DEVICE, torch.float64)
+  wb = w[None] * bins  # (region, lat, lon)
+  out = {}
+  for lead in range(n_lead):
+    acc = torch.zeros((nlat, nlon), dtype=torch.float64, device=DEVICE)
+    for j in range(n_init):
+      acc += (demo_slab(tile, j * n_lead + lead)
+              - demo_slab(tile, j + lead)) ** 2
+    mse = (acc[None] * wb).sum((1, 2)) / (wb.sum((1, 2)) * n_init)
+    for r, name in enumerate(names):
+      out[(lead, name)] = math.sqrt(mse[r].item())
+  return out
+
+
+def values_equal(path_a: str, path_b: str) -> bool:
+  from weatherbenchx_tpu_torch import io
+  a, b = io.load_dataset(path_a), io.load_dataset(path_b)
+  return sorted(a) == sorted(b) and all(
+      a[k].dims == b[k].dims and np.array_equal(a[k].values, b[k].values)
+      for k in a)
+
+
+def killed_and_resumed(args: list, manifest: str, total: int) -> dict:
+  """Runs the driver with ``args`` (checkpointing every chunk), SIGKILLs it
+  once its checkpoint records DRIVER_KILL_AFTER chunks, then runs the same
+  command again; returns the rerun's report with the kill's chunk."""
+  log_path = os.path.join(DISK_STORE_DIR, 'killed.log')
+  with open(log_path, 'w') as log_file:
+    proc = subprocess.Popen(
+        [sys.executable, '-m', STREAM_DEMO] + args,
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log_file,
+        stderr=subprocess.STDOUT)
+    try:
+      deadline = time.monotonic() + DRIVER_TIMEOUT_S
+      done = 0
+      while done < DRIVER_KILL_AFTER and proc.poll() is None:
+        if time.monotonic() > deadline:
+          raise AssertionError('the checkpointed run did not reach '
+                               f'{DRIVER_KILL_AFTER} chunks in time')
+        if os.path.exists(manifest):
+          with open(manifest) as f:
+            done = json.load(f)['next_chunk']
+        time.sleep(0.02)
+    finally:
+      proc.kill()
+      proc.wait(timeout=60)
+  if proc.returncode != -9:
+    with open(log_path) as f:
+      raise AssertionError(f'the checkpointed run ended by itself (exit '
+                           f'{proc.returncode}) before it was killed:\n'
+                           f'{f.read()[-4000:]}')
+  with open(manifest) as f:
+    killed_at = json.load(f)['next_chunk']
+  if not DRIVER_KILL_AFTER <= killed_at < total:
+    raise AssertionError(f'killed at chunk {killed_at} of {total}')
+  report = driver_report(STREAM_DEMO, args)
+  return dict(report, killed_at=killed_at)
+
+
+def time_month_flip(pred_path: str, inits, leads, card: str) -> dict:
+  """One month chunk's predictions read from the zarr store by the loader
+  without and with the latitude flip (one read each: the flip is several
+  times the read's run-to-run spread), each read's native decode seconds
+  beside it."""
+  import torch
+  from weatherbenchx_tpu_torch import native
+  from weatherbenchx_tpu_torch.apps import configs
+  from weatherbenchx_tpu_torch.data import loaders
+  out, chunks = {}, {}
+  for name in ('plain', 'flip'):
+    loader = loaders.PredictionsFromDataset(
+        path=pred_path, rename_dimensions=None,
+        preprocessing_fn=configs.sort_latitude if name == 'flip' else None)
+    loader.maybe_prepare_dataset()
+    native.reset_call_counts()
+    t0 = time.perf_counter()
+    chunks[name] = loader.load_chunk(inits, leads)
+    out[name] = {'seconds': time.perf_counter() - t0,
+                 'decode_cells_s': native.SECONDS['decode_cells']}
+  for k, da in chunks['plain'].items():
+    if not torch.equal(chunks['flip'][k].data,
+                       da.data.flip(da.dims.index('latitude'))):
+      raise AssertionError(f'{k}: the flipped month chunk is not the plain '
+                           'one reversed along latitude')
+  out['flip_share'] = 1 - out['plain']['seconds'] / out['flip']['seconds']
+  log(f'drivers: one month chunk ({len(inits)} inits) read with the latitude '
+      f'flip {out["flip"]["seconds"]:.3f} s (native decode '
+      f'{out["flip"]["decode_cells_s"]:.3f} s), without it '
+      f'{out["plain"]["seconds"]:.3f} s (decode '
+      f'{out["plain"]["decode_cells_s"]:.3f} s): the flip '
+      f'{100 * out["flip_share"]:.1f}% of the read; card {card}')
+  return out
+
+
+def check_rss_growth(label: str, report: dict) -> float:
+  growth = report['rss_end_gb'] - report['rss_after_chunk_3_gb']
+  if not growth < report['chunk_host_gb']:
+    raise AssertionError(
+        f'{label}: RSS grew {growth:.3f} GB from chunk 3 to the end, not '
+        f'below one chunk\'s host bytes ({report["chunk_host_gb"]:.3f} GB)')
+  return growth
+
+
+def log_stream(label: str, report: dict, card: str) -> None:
+  chunk_s = report['chunk_seconds']
+  log(f'{label}: {report["chunks_run"]} chunks in '
+      f'{report["wall_seconds"]:.2f} s, chunk seconds first '
+      f'{chunk_s[0]:.3f} / median 2-6 {report["chunk_s_median_2_6"]:.3f} / '
+      f'median last 5 {report["chunk_s_median_last_5"]:.3f} / mean 2-6 '
+      f'{report["chunk_s_mean_2_6"]:.3f} / mean last 5 '
+      f'{report["chunk_s_mean_last_5"]:.3f} / last {chunk_s[-1]:.3f} '
+      f'(each {[round(c, 3) for c in chunk_s]}); RSS after the imports '
+      f'{report["rss_start_gb"]:.3f}, before the first chunk '
+      f'{report["rss_before_gb"]:.3f} (peak by then '
+      f'{report["peak_rss_before_gb"]:.3f}), after chunk 3 '
+      f'{report["rss_after_chunk_3_gb"]:.3f}, end '
+      f'{report["rss_end_gb"]:.3f}, peak {report["peak_rss_gb"]:.3f} GB '
+      f'(one chunk {report["chunk_host_gb"]:.3f} GB); store '
+      f'{report["store_gb"]:.3f} GB; timers {json.dumps(report["timers"])}; '
+      f'native seconds {json.dumps(report["native_seconds"])}; launches '
+      f'{report["launches"]}; card {card}')
+
+
+def stream_month(card: str) -> dict:
+  """Phase 18(a): the month at full width, against float64, killed and
+  resumed."""
+  from weatherbenchx_tpu_torch.tools import stream_scale_demo as sd
+  sizes = sd.Sizes(DISK_STORE_DIR, DRIVER_MONTH_INITS, DRIVER_MONTH_MEMBERS,
+                   *DRIVER_GRID)
+  chunks = math.ceil(sizes.n_init / DRIVER_MONTH_CHUNK)
+  common = ['--ens', '--format', 'zarr', '--store_dir', DISK_STORE_DIR,
+            '--n_init', str(sizes.n_init), '--members', str(sizes.members),
+            '--grid', f'{sizes.nlon}x{sizes.nlat}']
+  t0 = time.perf_counter()
+  sd.main(['--make_store', '--compressor', 'blosc'] + common)
+  made_s = time.perf_counter() - t0
+  run = ['--run', '--device', DEVICE, '--chunk', str(DRIVER_MONTH_CHUNK)
+         ] + common
+  whole_path = os.path.join(DISK_STORE_DIR, 'month_whole.npz')
+  whole = driver_report(STREAM_DEMO, run + ['--output', whole_path])
+  log_stream('drivers: month', whole, card)
+  want = chunks * sd.FUSED_LAUNCHES_PER_CHUNK
+  if whole['launches'] != {'fused_ensemble_stats': want,
+                           'pairwise_spread_sum': 0, 'pairwise_cross_sum': 0}:
+    raise AssertionError(f'month: launches {whole["launches"]}, want {want} '
+                         'fused (the CPU count per chunk x chunks) and no '
+                         'other')
+  t0 = time.perf_counter()
+  ref = month_f64_reference(sizes.n_init, sizes.members, sizes.nlat,
+                            sizes.nlon)
+  ref_s = time.perf_counter() - t0
+  errors = {}
+  for key, name in (('crps_global', 'crps'), ('spread_skill', 'spread_skill'),
+                    ('mean_rmse', 'mean_rmse')):
+    errors[name] = abs(whole[key] - ref[name]) / abs(ref[name])
+    if not errors[name] <= F64_RTOL:
+      raise AssertionError(f'month {name}: {whole[key]} vs float64 '
+                           f'{ref[name]}: rel err {errors[name]:.3g}')
+  log(f'drivers: month crps {whole["crps_global"]:.7f}, spread/skill '
+      f'{whole["spread_skill"]:.7f}, ensemble-mean RMSE '
+      f'{whole["mean_rmse"]:.7f}; rel err vs float64 {errors} (tol '
+      f'{F64_RTOL}; reference {ref_s:.1f} s); store written in '
+      f'{made_s:.1f} s')
+  ckpt = os.path.join(DISK_STORE_DIR, 'month.ckpt')
+  resumed_path = os.path.join(DISK_STORE_DIR, 'month_resumed.npz')
+  resumed = killed_and_resumed(
+      run + ['--checkpoint_path', ckpt, '--checkpoint_every', '1',
+             '--output', resumed_path], f'{ckpt}.manifest.json', chunks)
+  if resumed['chunks_run'] != chunks - resumed['killed_at']:
+    raise AssertionError(f'the resumed run ran {resumed["chunks_run"]} '
+                         f'chunks after a kill at {resumed["killed_at"]}')
+  if not values_equal(resumed_path, whole_path):
+    raise AssertionError('the killed-and-resumed month differs from the '
+                         'uninterrupted one')
+  log_stream('drivers: month resumed', resumed, card)
+  log(f'drivers: month killed at chunk {resumed["killed_at"]} of {chunks}, '
+      f'resumed: values equal to the uninterrupted run by np.array_equal')
+  growth = check_rss_growth('month', whole)
+  init_times, lead_times = sd._ens_times(sizes)
+  flip = time_month_flip(sd.store_paths(sizes, 'zarr', True)[1],
+                         init_times[:DRIVER_MONTH_CHUNK], lead_times, card)
+  loads = sum(whole['timers'][f'load_{side}_seconds']['total']
+              for side in ('predictions', 'targets'))
+  decode_share = whole['native_seconds']['decode_cells'] / loads
+  log(f'drivers: month RSS growth from chunk 3 to the end {growth:.3f} GB '
+      f'(limit {whole["chunk_host_gb"]:.3f}); native decode '
+      f'{100 * decode_share:.1f}% of the loads\' seconds; card {card}')
+  return {'whole': whole, 'resumed': resumed, 'rel_err': errors,
+          'store_write_s': made_s, 'rss_growth_gb': growth, 'flip': flip,
+          'decode_share': decode_share}
+
+
+def stream_year(card: str) -> dict:
+  """Phase 18(b): the year, cut to DRIVER_YEAR_INITS inits, against
+  float64."""
+  from weatherbenchx_tpu_torch import io
+  from weatherbenchx_tpu_torch.tools import stream_scale_demo as sd
+  nlat, nlon = DRIVER_GRID
+  common = ['--store_dir', DISK_STORE_DIR, '--n_init', str(DRIVER_YEAR_INITS),
+            '--grid', f'{nlon}x{nlat}']
+  t0 = time.perf_counter()
+  sd.main(['--make_store'] + common)
+  made_s = time.perf_counter() - t0
+  out_path = os.path.join(DISK_STORE_DIR, 'year.npz')
+  report = driver_report(STREAM_DEMO, [
+      '--run', '--device', DEVICE, '--chunk', str(DRIVER_YEAR_CHUNK),
+      '--output', out_path] + common)
+  log_stream('drivers: year', report, card)
+  rmse = io.load_dataset(out_path)['rmse.2m_temperature']
+  if rmse.dims != ('lead_time', 'region'):
+    raise AssertionError(f'year rmse dims {rmse.dims}')
+  ref = year_f64_reference(DRIVER_YEAR_INITS, sd.N_LEAD, nlat, nlon,
+                           sd.YEAR_REGIONS)
+  regions = [str(r) for r in rmse.coord_values('region')]
+  worst = 0.0
+  for (lead, region), want in ref.items():
+    got = float(rmse.values[lead, regions.index(region)])
+    worst = max(worst, abs(got - want) / want)
+  if not worst <= F64_RTOL:
+    raise AssertionError(f'year rmse: rel err vs float64 {worst:.3g}')
+  growth = check_rss_growth('year', report)
+  log(f'drivers: year ({DRIVER_YEAR_INITS} inits) rmse_global '
+      f'{report["rmse_global"]:.7f}, rel err vs float64 {worst:.3g} (tol '
+      f'{F64_RTOL}); RSS growth from chunk 3 to the end {growth:.3f} GB '
+      f'(limit {report["chunk_host_gb"]:.3f}); store written in '
+      f'{made_s:.1f} s; card {card}')
+  return {'report': report, 'rel_err': worst, 'store_write_s': made_s,
+          'rss_growth_gb': growth}
+
+
+def example_lines(module, device: str) -> tuple:
+  """(printed lines, kernel launches) of one example run in this process."""
+  import contextlib
+  import io as io_std
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  cp.reset_launch_counts()
+  buf = io_std.StringIO()
+  with contextlib.redirect_stdout(buf):
+    module.main(['--device', device])
+  if device == 'cuda':
+    import torch
+    torch.cuda.synchronize()
+  return buf.getvalue().splitlines(), dict(cp.LAUNCHES)
+
+
+def examples_and_canonical(card: str) -> dict:
+  """Phase 18(c): the examples on the card against their CPU runs, and the
+  port's fixtures through the canonical month drive."""
+  import tempfile
+  from weatherbenchx_tpu_torch import io
+  from weatherbenchx_tpu_torch.examples import ensemble_zarr_pipeline
+  from weatherbenchx_tpu_torch.examples import quickstart
+  from weatherbenchx_tpu_torch.examples import significance_testing
+  from weatherbenchx_tpu_torch.tools import gen_demo_fixtures
+  out = {}
+  tempdir = tempfile.tempdir
+  tempfile.tempdir = DISK_STORE_DIR  # where the examples' stores go
+  try:
+    for name, module, fused in (
+        ('quickstart', quickstart, 0),
+        ('significance_testing', significance_testing, 0),
+        # 8 inits in chunks of 2: one M = 8 fused launch per chunk.
+        ('ensemble_zarr_pipeline', ensemble_zarr_pipeline, 4)):
+      t0 = time.perf_counter()
+      lines, launches = example_lines(module, DEVICE)
+      seconds = time.perf_counter() - t0
+      cpu_lines, _ = example_lines(module, 'cpu')
+      if lines != cpu_lines:
+        raise AssertionError(f'example {name} printed on the card {lines}, '
+                             f'on the CPU {cpu_lines}')
+      if launches['fused_ensemble_stats'] != fused:
+        raise AssertionError(f'example {name}: launches {launches}')
+      out[name] = {'seconds': seconds, 'launches': launches}
+      log(f'drivers: example {name} on the card in {seconds:.2f} s, its '
+          f'{len(lines)} lines equal to its CPU run, launches {launches}; '
+          f'card {card}')
+  finally:
+    tempfile.tempdir = tempdir
+  demo = os.path.join(DISK_STORE_DIR, 'demo')
+  t0 = time.perf_counter()
+  gen_demo_fixtures.main([demo, '--device', DEVICE])
+  fixtures_s = time.perf_counter() - t0
+  for name, ds in gen_demo_fixtures.make_fixtures('cpu').items():
+    got = io.load_dataset(os.path.join(demo, f'{name}.npz'))
+    if sorted(got) != sorted(ds) or not all(
+        np.array_equal(got[k].values, ds[k].values) for k in ds):
+      raise AssertionError(f'fixtures {name}: the card\'s differ from the '
+                           'CPU\'s')
+  results = os.path.join(DISK_STORE_DIR, 'demo_out')
+  t0 = time.perf_counter()
+  driver_report('weatherbenchx_tpu_torch.apps.run_benchmark_evaluation', [
+      '--prediction=hres', f'--prediction_path={demo}/hres.npz',
+      f'--target_path={demo}/era5.npz', f'--climatology_path={demo}/clim.npz',
+      '--resolution=64x32', '--year=2020', '--init_time_start=2020-01-01',
+      '--init_time_stop=2020-02-01', '--variables=geopotential,2m_temperature',
+      '--levels=500,700,850', f'--output_dir={results}',
+      f'--device={DEVICE}'])
+  canonical_s = time.perf_counter() - t0
+  values = io.load_dataset(os.path.join(
+      results, 'hres_vs_era5_64x32_2020-init12h.npz'))
+  spans = {}
+  for key, want, tol in (('rmse', math.sqrt(2), CANONICAL_RMSE_RTOL
+                          * math.sqrt(2)), ('acc', 0.5, CANONICAL_ACC_ATOL)):
+    for var in ('2m_temperature', 'geopotential'):
+      g = values[f'{key}.{var}'].sel(region='global').values
+      spans[f'{key}.{var}'] = (float(g.min()), float(g.max()))
+      if not (np.isfinite(g).all() and np.abs(g - want).max() <= tol):
+        raise AssertionError(f'canonical drive {key}.{var} global: '
+                             f'{spans[f"{key}.{var}"]}, want {want} +- {tol}')
+  log(f'drivers: fixtures on the card in {fixtures_s:.1f} s (equal to the '
+      f'CPU\'s array by array); canonical month drive in {canonical_s:.1f} s, '
+      f'global bin ranges {spans} (RMSE sqrt(2) within '
+      f'{CANONICAL_RMSE_RTOL:.0%}, ACC 1/2 within {CANONICAL_ACC_ATOL}); '
+      f'card {card}')
+  return dict(out, fixtures_s=fixtures_s, canonical_s=canonical_s,
+              canonical=spans)
+
+
+def driver_phase(card: str) -> dict:
+  """Phase 18: the drivers at full width, checked."""
+  import shutil
+  t0 = time.perf_counter()
+  shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  os.makedirs(DISK_STORE_DIR)
+  free = shutil.disk_usage(DISK_STORE_DIR).free
+  if free < DRIVER_NEEDS_BYTES:
+    raise AssertionError(f'{DISK_STORE_DIR}: {free} bytes free, the month\'s '
+                         f'stores need {DRIVER_NEEDS_BYTES}')
+  try:
+    month = stream_month(card)
+    shutil.rmtree(DISK_STORE_DIR)
+    os.makedirs(DISK_STORE_DIR)
+    year = stream_year(card)
+    shutil.rmtree(DISK_STORE_DIR)
+    os.makedirs(DISK_STORE_DIR)
+    examples = examples_and_canonical(card)
+  finally:
+    shutil.rmtree(DISK_STORE_DIR, ignore_errors=True)
+  seconds = time.perf_counter() - t0
+  log(f'phase 18 drivers: {seconds:.1f} s')
+  return {'month': month, 'year': year, 'examples': examples,
+          'seconds': seconds}
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -3760,6 +4274,8 @@ def main() -> int:
   log('phase 16 ranks: ok')
   fuzz = fuzz_phase(card)
   log('phase 17 parity fuzz: ok')
+  drivers = driver_phase(card)
+  log('phase 18 drivers: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
@@ -3772,6 +4288,7 @@ def main() -> int:
   log(f'batched dispatch: {json.dumps(batched)}; card {card}')
   log(f'ranks: {json.dumps(ranks)}; card {card}')
   log(f'parity fuzz: {json.dumps(fuzz)}; card {card}')
+  log(f'drivers: {json.dumps(drivers)}; card {card}')
   log(f'whole script: {time.perf_counter() - t_start:.1f} s '
       f'(the build included); card {card}')
 

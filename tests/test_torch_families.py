@@ -257,12 +257,14 @@ def _imported_roots(path, module_level=False):
   return roots
 
 
-# The Parquet reader alone may import pandas and pyarrow, inside the
-# functions that read Parquet (the card's machine has neither); the
-# scorecard figure alone matplotlib, inside the functions that draw (the
-# card's machine has none).
+# The Parquet reader and the station demo's Parquet writer alone may
+# import pandas and pyarrow, inside the functions that read or write
+# Parquet (the card's machine has neither); the scorecard figure alone
+# matplotlib, inside the functions that draw (the card's machine has none).
 PARQUET_READERS = {os.path.join('weatherbenchx_tpu_torch', 'data',
-                                'sparse_parquet')}
+                                'sparse_parquet'),
+                   os.path.join('weatherbenchx_tpu_torch', 'tools',
+                                'sparse_scale_demo')}
 FIGURE_DRAWERS = {os.path.join('weatherbenchx_tpu_torch', 'apps',
                                'scorecard_figure')}
 

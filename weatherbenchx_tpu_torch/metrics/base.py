@@ -218,6 +218,11 @@ class PerVariableMetric(Metric):
     """Compute metric value for a single variable."""
 
 
+# Deprecated backwards-compatibility shim: a Statistic implements Metric
+# directly (reference ``metrics/base.py:246-249``).
+NoOpMetric = lambda statistic: statistic
+
+
 def _host_array(v: Any) -> np.ndarray | None:
   """Numpy view of a host value or CPU tensor; None for device tensors."""
   if isinstance(v, torch.Tensor):
@@ -533,6 +538,13 @@ def attach_climatology_indices(
         f'{CLIM_INDEX_PREFIX}{d}': Coord(vt_dims, np.asarray(i, np.int32))
         for d, i in idx.items()})
   return out
+
+
+def align_climatology(clim: DimArray, predictions: DimArray) -> DimArray:
+  """The climatology at each of ``predictions``' valid times: the valid
+  time dims in place of the climatology's time dims, its other (spatial)
+  dims kept. A notebook call: :func:`aligned_climatology_for` does it."""
+  return aligned_climatology_for(clim, predictions)
 
 
 def aligned_climatology_for(clim: DimArray, pred: DimArray) -> DimArray:

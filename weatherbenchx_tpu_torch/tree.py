@@ -53,3 +53,14 @@ def flatten_with_paths(structure: Any, prefix: tuple = ()) -> dict:
       out.update(flatten_with_paths(v, prefix + (k,)))
     return out
   return {prefix: structure}
+
+
+def unflatten_from_paths(flat: dict) -> Any:
+  """Inverse of flatten_with_paths for dict-of-dict structures."""
+  root: dict = {}
+  for path, leaf in flat.items():
+    node = root
+    for k in path[:-1]:
+      node = node.setdefault(k, {})
+    node[path[-1]] = leaf
+  return root
