@@ -89,8 +89,10 @@ script exits nonzero:
 10. Timing with CUDA events: each kernel against its plain version at its
    path's shape (fused and spread at M = 50, spread at M = 10, cross 50 x
    10), beside its bound and beside a device-to-device copy of the 50-member
-   ensemble (the card's streaming rate); one whole eval_chunk, and the
-   pipeline's seconds per chunk.
+   ensemble (the card's streaming rate); the shared-memory form (fused and
+   spread-only) at M = 100 over 4 x 721 x 1440, checked against and timed
+   beside its plain versions, its bytes bound and its pair loop's; one
+   whole eval_chunk, and the pipeline's seconds per chunk.
 11. The metric families at full width (1 init x 4 leads x 721 x 1440,
    float32, from the seed), each through ChunkEvaluator.eval_chunk and
    metric_values over the 17 regions and their land parts (34 bins), area
@@ -235,6 +237,13 @@ script exits nonzero:
    month drive of the benchmark CLI: RMSE within 2% of sqrt(2), ACC within
    0.02 of 1/2 in the global bin. Prints each run's per-chunk seconds,
    RSS, stage timers and native seconds.
+19. The docs, after phase 18: each how-to notebook of
+   weatherbenchx_tpu_torch/tools/make_notebooks built with the device
+   cuda and its code cells run in this process (a fresh namespace each,
+   no nbformat), every array that reaches a metric's statistics on the
+   card, the printed numbers within 1e-5 relative (or one unit in the last
+   printed digit) of the committed CPU notebooks in docs/torch/notebooks/;
+   sparse_data (Parquet: pandas and pyarrow) is left out.
 
 The whole script's seconds are printed before the last three lines: a
 JSON object describing the three kernels, the card's name and power
@@ -316,6 +325,9 @@ TIMING_REPS = 20
 # ... and for the tiled kernels at phase 3's shapes, which take 7-90 ms a
 # call: enough to hide the host's launch behind the device.
 MEMBER_TILE_TIMING_REPS = 2
+# The shared-memory form's members at phase 10's wide shape, and its seed.
+SHARED_M = 100
+SHARED_SEED = 100
 
 
 def log(msg: str) -> None:
@@ -2081,6 +2093,50 @@ def time_kernels(x, y, yt, card: str) -> dict:
   return res
 
 
+def time_shared_form(card: str) -> dict:
+  """Phase 10's row of the shared-memory form (every M past the register
+  kernels): fused and spread-only at M = SHARED_M over GRID, float32,
+  iid N(0, 1), checked against their plain versions, then timed as
+  time_kernels times the others. Logs each beside its bytes bound, the
+  pair loop's (one operation per pair of members and point) and the
+  operations of stats_work. Returns {name: (median, q1, q3, runs)} in ms."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  m, n = SHARED_M, math.prod(GRID)
+  if cp.spread_form(m) != 'shared':
+    raise AssertionError(f'M = {m} routes to {cp.spread_form(m)}')
+  g = torch.Generator(device=DEVICE).manual_seed(SHARED_SEED)
+  x = torch.randn((m,) + GRID, generator=g, device=DEVICE)
+  y = torch.randn(GRID, generator=g, device=DEVICE)
+  stats_against_plain(x.reshape(m, n), y.reshape(n), f'shared form M={m}',
+                      'float32')
+  res = time_cuda({
+      'fused_kernel': lambda: cp.fused_ensemble_stats(x, y),
+      'spread_kernel': lambda: cp.pairwise_spread_sum(x),
+  }, rounds=12, reps=TIMING_REPS)
+  res.update(time_cuda({
+      'fused_plain': lambda: cp.fused_ensemble_stats_plain(x, y),
+      'spread_plain': lambda: cp.pairwise_spread_sum_plain(x),
+  }, rounds=6, reps=TIMING_REPS))
+  pairs = m * (m - 1) // 2
+  pair_ms = 1e3 * pairs * n / FP32_OPS_PER_S
+  for name, (med, q1, q3, count) in res.items():
+    key, kind = name.split('_')
+    nbytes, ops = stats_work(m, n, key == 'fused')
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    share = (f'{bytes_ms / med:.1%} of the bytes bound, '
+             f'{pair_ms / med:.1%} of the pair loop\'s; '
+             if kind == 'kernel' else '')
+    log(f'timing shared form {name} M={m}: median {med:.4f} ms, IQR '
+        f'[{q1:.4f}, {q3:.4f}] ms over {count} runs; {share}bytes bound '
+        f'{bytes_ms:.4f} ms ({nbytes} bytes), pair loop {pair_ms:.4f} ms '
+        f'({pairs} pairs per point), operations '
+        f'{1e3 * ops / FP32_OPS_PER_S:.4f} ms ({ops} by stats_work); N={n}, '
+        f'float32; card {card}')
+  del x, y
+  return {f'shared{m}_{k}': v for k, v in res.items()}
+
+
 def copy_share(res: dict, nbytes: int, ms: float, copy_bytes: int) -> float:
   """A kernel's bytes per ms over the copy's in the same run."""
   return (nbytes / ms) / (copy_bytes / res['copy'][0])
@@ -2097,6 +2153,7 @@ def timing(ev, chunks, stores, card: str) -> dict:
   yt = stores[1]['2m_temperature'].data[:, :GRID[1]][:, None].to(
       DEVICE).contiguous()
   res = time_kernels(x, y, yt, card)
+  res.update(time_shared_form(card))
   pair = ev.prepare_pair(p, t)
   steps = time_cuda({
       'eval_chunk (host chunk in)': lambda: ev.eval_chunk(p, t),
@@ -4208,6 +4265,77 @@ def driver_phase(card: str) -> dict:
           'seconds': seconds}
 
 
+# -- Phase 19, the docs -----------------------------------------------------------
+
+
+def docs_phase(card: str) -> dict:
+  """Phase 19: every how-to notebook's code cells on the card (the
+  builders of tools/make_notebooks with the device DEVICE, run in a fresh
+  namespace each, without nbformat), their printed numbers held to the
+  committed CPU notebooks' (make_notebooks.compare_printed: 1e-5 relative,
+  or one unit in the last printed digit). While they run, every array that
+  reaches a metric's statistics must be on the card; a notebook that
+  computes a metric must reach them. sparse_data is left out: it reads
+  Parquet through pandas and pyarrow, which the port does not require on
+  the GPU."""
+  import torch
+  from weatherbenchx_tpu_torch.metrics import base as metrics_base
+  from weatherbenchx_tpu_torch.tools import make_notebooks as mn
+  compute = metrics_base.generate_unique_statistics_for_all_metrics
+  reached = {'calls': 0, 'arrays': 0}
+
+  def on_card(metrics, predictions, targets):
+    for side in (predictions, targets):
+      for name, da in side.items():
+        if da.device.type != torch.device(DEVICE).type:
+          raise AssertionError(f'docs: {name} reached a metric on '
+                               f'{da.device}, not {DEVICE}')
+        reached['arrays'] += 1
+    reached['calls'] += 1
+    return compute(metrics, predictions, targets)
+
+  out = {}
+  t_phase = time.perf_counter()
+  metrics_base.generate_unique_statistics_for_all_metrics = on_card
+  try:
+    for name, build in mn.NOTEBOOKS.items():
+      if name in mn.NEEDS_PARQUET:
+        log(f'phase 19 docs: {name} left out (it reads Parquet through '
+            'pandas and pyarrow, which the port does not require on the '
+            'GPU; its committed notebook ran on the CPU)')
+        continue
+      cells = build(DEVICE)
+      reached.update(calls=0, arrays=0)
+      t0 = time.perf_counter()
+      printed = mn.run_cells(cells)
+      if DEVICE == 'cuda':
+        torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      want = mn.committed_outputs(os.path.join(mn.OUT, f'{name}.ipynb'))
+      if len(printed) != len(want):
+        raise AssertionError(f'docs {name}: {len(printed)} code cells, the '
+                             f'committed notebook has {len(want)}')
+      for k, (got, ref) in enumerate(zip(printed, want)):
+        diff = mn.compare_printed(got, ref)
+        if diff is not None:
+          raise AssertionError(f'docs {name} code cell {k}: {diff}')
+      computes = any('compute_' in src or 'evaluate(' in src
+                     for kind, src in cells if kind == 'code')
+      if computes and not reached['calls']:
+        raise AssertionError(f'docs {name}: no statistics computed')
+      out[name] = {'seconds': seconds, 'cells': len(printed),
+                   'statistics_calls': reached['calls'],
+                   'arrays_on_card': reached['arrays']}
+      log(f'phase 19 docs: {name} on the card in {seconds:.2f} s, its '
+          f'{len(printed)} code cells\' printed numbers within 1e-5 of the '
+          f'committed CPU notebook, {reached["calls"]} statistics passes '
+          f'over {reached["arrays"]} arrays, all on {DEVICE}; card {card}')
+  finally:
+    metrics_base.generate_unique_statistics_for_all_metrics = compute
+  out['seconds'] = time.perf_counter() - t_phase
+  return out
+
+
 def main() -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--seed', type=int, default=0)
@@ -4276,6 +4404,8 @@ def main() -> int:
   log('phase 17 parity fuzz: ok')
   drivers = driver_phase(card)
   log('phase 18 drivers: ok')
+  docs = docs_phase(card)
+  log('phase 19 docs: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
@@ -4289,6 +4419,7 @@ def main() -> int:
   log(f'ranks: {json.dumps(ranks)}; card {card}')
   log(f'parity fuzz: {json.dumps(fuzz)}; card {card}')
   log(f'drivers: {json.dumps(drivers)}; card {card}')
+  log(f'docs: {json.dumps(docs)}; card {card}')
   log(f'whole script: {time.perf_counter() - t_start:.1f} s '
       f'(the build included); card {card}')
 

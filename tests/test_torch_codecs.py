@@ -151,6 +151,61 @@ def test_native_cells_are_the_python_codecs_bytes(zarrcodec, tmp_path,
   assert native.CALLS['decode_ranges'] == 1
 
 
+def _reversed_blocks(frame: bytes) -> bytes:
+  """The same blosc frame with its blocks stored last to first."""
+  nbytes, blocksize = struct.unpack('<ii', frame[4:12])
+  nblocks = -(-nbytes // blocksize)
+  starts = list(struct.unpack(f'<{nblocks}i', frame[16:16 + 4 * nblocks]))
+  ends = starts[1:] + [len(frame)]
+  body_at = 16 + 4 * nblocks
+  body, new_starts = b'', [0] * nblocks
+  for b in reversed(range(nblocks)):
+    new_starts[b] = body_at + len(body)
+    body += frame[starts[b]:ends[b]]
+  return (frame[:16] + struct.pack(f'<{nblocks}i', *new_starts) + body)
+
+
+@pytest.mark.parametrize('cname,shuffle', [('lz4', True), ('zstd', True),
+                                           ('zlib', False), ('zstd', False)])
+@pytest.mark.parametrize('layout', ['in_order', 'reversed', 'truncated'])
+def test_native_blosc_cells_decode_a_block_at_a_time(zarrcodec, tmp_path,
+                                                     cname, shuffle, layout):
+  """A many-block blosc cell file decodes block by block into its buffer;
+  blocks stored out of order are read whole and decoded; a truncated file
+  is refused."""
+  cell = np.frombuffer(_raw(300_000, seed=4), np.float32).copy()
+  frame = codecs.blosc_compress(cell.tobytes(), 4, cname=cname,
+                                shuffle=shuffle)
+  nbytes, blocksize = struct.unpack('<ii', frame[4:12])
+  assert -(-nbytes // blocksize) > 2 and not frame[2] & 0x2  # compressed
+  if layout == 'reversed':
+    frame = _reversed_blocks(frame)
+    assert bytes(codecs.blosc_decompress(frame)) == cell.tobytes()
+  elif layout == 'truncated':
+    frame = frame[:-7]
+  path = str(tmp_path / 'cell')
+  with open(path, 'wb') as f:
+    f.write(frame)
+  out = np.empty_like(cell)
+  if layout == 'truncated':
+    with pytest.raises(OSError, match='cell'):
+      native.decode_cells([path], 'blosc', [out])
+    return
+  native.decode_cells([path], 'blosc', [out])
+  np.testing.assert_array_equal(out, cell)
+
+
+def test_native_blosc_memcpy_cell_reads_into_its_buffer(zarrcodec, tmp_path):
+  payload = np.random.default_rng(0).integers(0, 255, 4096, np.uint8)
+  header = bytes([2, 1, 0x2, 1]) + struct.pack('<iii', 4096, 4096, 4096 + 16)
+  path = str(tmp_path / 'cell')
+  with open(path, 'wb') as f:
+    f.write(header + payload.tobytes())
+  out = np.empty_like(payload)
+  native.decode_cells([path], 'blosc', [out])
+  np.testing.assert_array_equal(out, payload)
+
+
 @pytest.mark.parametrize('level', [0, 1, 9])
 def test_native_levels_decode_as_the_python_codecs(zarrcodec, level):
   """Every level gives a cell the Python codecs decode; the bytes are the

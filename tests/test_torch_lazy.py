@@ -177,3 +177,134 @@ def test_the_python_read_path_equals_the_native_one(tmp_path, monkeypatch):
     assert a.read() == b.read()
   got = io.load_dataset(str(tmp_path / 'python.wbx'))['t2m']
   np.testing.assert_array_equal(got.values, ds['t2m'].values)
+
+
+# -- A descending latitude (a store's north-to-south grid sorted ascending)
+# -- composes to a negative-step slice that the sources write in place.
+
+_CONTAINERS = {'wbx': {}, 'npz': {},
+               'zarr2': {'zarr_format': 2, 'compressor': 'blosc'},
+               'zarr3': {'zarr_format': 3, 'compressor': 'zstd'}}
+
+
+def _flip_store(tmp_path, container: str):
+  """(path, store): 6 inits x 2 leads x 9 descending latitudes x 12,
+  zarr in cells of 4 inits x 4 latitudes (a flip that crosses cells)."""
+  rng = np.random.default_rng(11)
+  ds = {'t2m': darray.DimArray(
+      rng.standard_normal((6, 2, 9, 12)).astype(np.float32),
+      ('init_time', 'lead_time', 'latitude', 'longitude'),
+      {'init_time': (np.datetime64('2020-01-01', 'ns')
+                     + np.arange(6) * np.timedelta64(6, 'h')),
+       'lead_time': np.arange(2) * np.timedelta64(6, 'h'),
+       'latitude': np.linspace(90, -90, 9),
+       'longitude': np.linspace(0, 360, 12, endpoint=False)})}
+  if container.startswith('zarr'):
+    from weatherbenchx_tpu_torch import zarr_io
+    path = str(tmp_path / f's.{container}.zarr')
+    zarr_io.save_dataset_zarr(path, ds, chunks={'init_time': 4,
+                                                'latitude': 4},
+                              **_CONTAINERS[container])
+  else:
+    path = str(tmp_path / f's.{container}')
+    io.save_dataset(path, ds)
+  return path, ds
+
+
+@pytest.mark.parametrize('container', sorted(_CONTAINERS))
+@pytest.mark.parametrize('select', [
+    {}, {'init_time': slice(1, 5)}, {'init_time': np.array([4, 0, 4])},
+    {'latitude': slice(2, 8)}, {'latitude': slice(7, 0, -2)},
+    {'longitude': slice(None, None, -1), 'init_time': 3}])
+def test_descending_latitude_reads_as_the_jax_package_does(
+    tmp_path, container, select):
+  path, ds = _flip_store(tmp_path, container)
+  got = io.open_dataset_auto(path)['t2m'].sortby('latitude')
+  assert got.is_lazy
+  assert got._data._index[2] == slice(8, None, -1)
+  got = got.isel(select)
+  assert got.is_lazy
+  want = j_io.open_dataset_auto(path)['t2m'].sortby('latitude').isel(select)
+  values = got.values
+  np.testing.assert_array_equal(values, np.asarray(want.data))
+  np.testing.assert_array_equal(
+      values, ds['t2m'].sortby('latitude').isel(select).values)
+  assert values.flags.c_contiguous
+
+
+@pytest.mark.parametrize('cur,new,n,step', [
+    (slice(None), np.arange(9)[::-1], 9, -1),
+    (slice(None), np.array([7, 5, 3, 1]), 9, -2),
+    (slice(2, 8), np.array([5, 4, 3, 2, 1, 0]), 9, -1),
+    (slice(8, None, -1), np.arange(9)[::-1], 9, 1),
+    (slice(8, None, -1), np.array([1, 2, 3]), 9, -1),
+    (np.array([3, 8, 1]), np.array([2, 0]), 9, 2),
+])
+def test_compose_one_gives_a_slice_for_an_evenly_spaced_range(cur, new, n,
+                                                             step):
+  got = lazy._compose_one(cur, new, n)
+  assert isinstance(got, slice) and got.step == step
+  np.testing.assert_array_equal(np.arange(n)[got],
+                                np.arange(n)[cur][new])
+
+
+def test_compose_one_keeps_an_uneven_index_an_array():
+  got = lazy._compose_one(slice(None), np.array([5, 3, 0]), 9)
+  np.testing.assert_array_equal(got, [5, 3, 0])
+
+
+@pytest.mark.parametrize('container', ['wbx', 'zarr2'])
+def test_a_flipped_read_makes_no_copy_of_its_own(tmp_path, container,
+                                                 monkeypatch):
+  """The source writes the flip into the array it returns (the block
+  source flips in place, the zarr source scatters cell slices into its
+  output with a negative step), and LazyArray.read returns that array."""
+  path, ds = _flip_store(tmp_path, container)
+  view = io.open_dataset_auto(path)['t2m'].sortby('latitude')._data
+  returned = []
+  source_cls = type(view.source)
+  orig = source_cls.read
+  monkeypatch.setattr(source_cls, 'read', lambda self, idx: returned.append(
+      orig(self, idx)) or returned[-1])
+  if container.startswith('zarr'):
+    plans = view.source._axis_plan(slice(8, None, -1), 9, 4)
+    assert all(isinstance(src, slice) and isinstance(dst, slice)
+               for _, src, dst in plans)
+  out = view.read()
+  assert out is returned[0] and out.flags.c_contiguous
+  np.testing.assert_array_equal(out, ds['t2m'].values[:, :, ::-1])
+
+
+@pytest.mark.parametrize('container', ['zarr2', 'zarr3'])
+@pytest.mark.parametrize('inits,whole', [
+    (slice(0, 4), True), (slice(4, 8), True), (slice(2, 6), False),
+    (np.array([3, 2, 1, 0]), True), (np.array([0, 2, 1, 3]), False)])
+def test_a_whole_cell_window_decodes_into_the_output(tmp_path, container,
+                                                     inits, whole,
+                                                     monkeypatch):
+  """A window that is one whole cell, latitudes flipped, is decoded into
+  the array returned (the month's chunk: one cell of 4 inits x every
+  member); any other window goes through a staging block."""
+  from weatherbenchx_tpu_torch import zarr_io
+  rng = np.random.default_rng(5)
+  ds = {'t': darray.DimArray(
+      rng.standard_normal((5, 8, 1, 7, 6)).astype(np.float32),
+      ('number', 'init_time', 'lead_time', 'latitude', 'longitude'),
+      {'number': np.arange(5), 'init_time': np.arange(8),
+       'lead_time': np.arange(1), 'latitude': np.linspace(90, -90, 7),
+       'longitude': np.arange(6.0)})}
+  path = str(tmp_path / 's.zarr')
+  zarr_io.save_dataset_zarr(path, ds, chunks={'init_time': 4, 'number': 5},
+                            **_CONTAINERS[container])
+  view = io.open_dataset_auto(path)['t'].sortby('latitude').isel(
+      init_time=inits)._data
+  given = []
+  orig = zarr_io.ZarrChunkSource._load_cells
+  monkeypatch.setattr(zarr_io.ZarrChunkSource, '_load_cells',
+                      lambda self, cells, blocks=None: given.append(
+                          blocks) or orig(self, cells, blocks))
+  out = view.read()
+  np.testing.assert_array_equal(
+      out, ds['t'].values[:, inits][:, :, :, ::-1])
+  assert out.flags.c_contiguous
+  assert (given == [[out]]) if whole else all(b is None for b in given)

@@ -13,6 +13,7 @@ JAX CLI.
 import json
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -585,3 +586,28 @@ def test_deterministic_rmse_through_the_pipeline_matches_direct():
       t_loader.load_chunk(INIT_TIMES, LEAD_TIMES))
   np.testing.assert_allclose(got['rmse.2m_temperature'].values,
                              want['rmse.2m_temperature'].values, rtol=1e-6)
+
+
+@pytest.mark.parametrize('prefetch', [1, 2, 3])
+def test_host_chunks_in_flight_are_at_most_prefetch(prefetch):
+  """As the JAX package's stream: the next load starts once the consumer
+  is done with its chunk, so the chunk it holds and the loads started are
+  at most ``prefetch``; the stream's order and contents are unchanged."""
+  times = time_chunks.TimeChunks(INIT_TIMES, LEAD_TIMES, 1, 1)
+  started = []
+  lock = threading.Lock()
+
+  def load(chunk):
+    with lock:
+      started.append(chunk)
+    return chunk
+
+  got = []
+  for k, (i, _, chunk) in enumerate(pipeline.stream_chunk_pairs(
+      load, times, prefetch=prefetch)):
+    time.sleep(0.02)  # lets a load already submitted start
+    with lock:
+      assert len(started) <= k + prefetch, (k, len(started))
+    got.append((i, chunk))
+  assert [i for i, _ in got] == list(range(len(times)))
+  assert [c for _, c in got] == list(times)

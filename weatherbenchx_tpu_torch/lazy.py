@@ -65,6 +65,33 @@ def _normalize_axis_index(e: Indexer, n: int) -> Optional[np.ndarray]:
   return e
 
 
+def _ascending(e: Indexer, n: int) -> tuple[Indexer, bool]:
+  """(indexer, flipped): a descending slice as the ascending slice over
+  the same indices, flipped; any other indexer as it is."""
+  if not isinstance(e, slice) or (e.step or 1) > 0:
+    return e, False
+  r = range(n)[e]
+  if len(r) < 2:
+    return slice(r.start, r.start + len(r)), False
+  return slice(r[-1], r[0] + 1, -r.step), True
+
+
+# The most bytes flip_in_place copies at a time.
+_FLIP_TEMP_BYTES = 8 << 20
+
+
+def flip_in_place(out: np.ndarray, axis: int) -> None:
+  """Reverses the C-contiguous ``out`` along ``axis`` in place, a group of
+  its outer slabs at a time, so that the temporary stays small."""
+  if out.size == 0 or out.shape[axis] < 2:
+    return
+  slabs = out.reshape((-1,) + out.shape[axis:])
+  group = max(1, _FLIP_TEMP_BYTES // max(slabs[0].nbytes, 1))
+  for i in range(0, len(slabs), group):
+    block = slabs[i:i + group]
+    block[...] = block[:, ::-1].copy()
+
+
 class BlockSource(ArraySource):
   """Windowed reads from one contiguous C-ordered block in a local file.
 
@@ -80,6 +107,16 @@ class BlockSource(ArraySource):
     self.dtype = np.dtype(dtype)
 
   def read(self, indexers: tuple[Indexer, ...]) -> np.ndarray:
+    # A descending slice reads as the ascending one over the same indices,
+    # flipped in place after: no second copy of the window.
+    ascending = [_ascending(e, n) for e, n in zip(indexers, self.shape)]
+    out = self._read(tuple(e for e, _ in ascending))
+    for axis, (_, flipped) in enumerate(ascending):
+      if flipped:
+        flip_in_place(out, axis)
+    return out
+
+  def _read(self, indexers: tuple[Indexer, ...]) -> np.ndarray:
     shape, dtype = self.shape, self.dtype
     itemsize = dtype.itemsize
     norm = [_normalize_axis_index(e, n) for e, n in zip(indexers, shape)]
@@ -136,10 +173,11 @@ class BlockSource(ArraySource):
 
     self._pread_runs(runs, flat, itemsize)
 
-    # In-memory subset of the non-full axes inside the span [t, end).
+    # In-memory subset of the non-full axes inside the span [t, end),
+    # C-contiguous (np.take; fancy indexing past axis 0 would not be).
     for a in range(t, len(shape)):
       if norm[a] is not None:
-        buf = buf[(slice(None),) * a + (norm[a],)]
+        buf = np.take(buf, norm[a], axis=a)
     return buf
 
   def _pread_runs(self, runs, flat: np.ndarray, itemsize: int) -> None:
@@ -182,13 +220,16 @@ def _compose_one(cur: Indexer, new, n: int) -> Indexer:
   if isinstance(new, np.ndarray) and new.dtype == bool:
     new = np.nonzero(new)[0]
   composed = base[new]
-  # Re-simplify to a slice when contiguous ascending (keeps windows
-  # coalescible and composition cheap).
+  # Re-simplify to a slice when evenly spaced: ascending keeps windows
+  # coalescible and composition cheap; descending (a flipped axis, e.g.
+  # latitudes sorted ascending from a descending store) lets the sources
+  # write the flip straight into their output.
   if composed.size > 1:
-    step = composed[1] - composed[0]
-    if step > 0 and np.array_equal(
-        composed, np.arange(composed[0], composed[-1] + 1, step)):
-      return slice(int(composed[0]), int(composed[-1]) + 1, int(step))
+    step = int(composed[1] - composed[0])
+    if step and np.array_equal(
+        composed, composed[0] + step * np.arange(composed.size)):
+      stop = int(composed[-1]) + step
+      return slice(int(composed[0]), stop if stop >= 0 else None, step)
   elif composed.size == 1:
     return slice(int(composed[0]), int(composed[0]) + 1)
   return composed

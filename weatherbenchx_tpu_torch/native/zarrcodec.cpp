@@ -32,6 +32,7 @@
 #include <vector>
 
 #include <fcntl.h>
+#include <sys/stat.h>
 #include <unistd.h>
 #include <zlib.h>
 
@@ -81,28 +82,55 @@ int read_file(const char* path, std::vector<uint8_t>* out) {
   return got == static_cast<size_t>(n) ? OK : E_READ;
 }
 
-// Reads exactly n bytes at offset (a full-length pread loop).
-int read_range(const char* path, int64_t offset, int64_t n,
-               std::vector<uint8_t>* out) {
-  int fd = ::open(path, O_RDONLY);
-  if (fd < 0) return E_OPEN;
-  out->resize(static_cast<size_t>(n));
-  uint8_t* buf = out->data();
-  int rc = OK;
+// Reads exactly n bytes at offset of fd into buf (a full-length pread loop).
+int pread_full(int fd, uint8_t* buf, int64_t n, int64_t offset) {
   while (n > 0) {
     ssize_t got = ::pread(fd, buf, static_cast<size_t>(n), offset);
     if (got <= 0) {
       if (got < 0 && errno == EINTR) continue;
-      rc = E_READ;
-      break;
+      return E_READ;
     }
     buf += got;
     offset += got;
     n -= got;
   }
+  return OK;
+}
+
+// Reads exactly n bytes at offset.
+int read_range(const char* path, int64_t offset, int64_t n,
+               std::vector<uint8_t>* out) {
+  int fd = ::open(path, O_RDONLY);
+  if (fd < 0) return E_OPEN;
+  out->resize(static_cast<size_t>(n));
+  int rc = pread_full(fd, out->data(), n, offset);
   ::close(fd);
   return rc;
 }
+
+// A blosc frame's bytes, whole in memory.
+struct MemoryFrame {
+  const uint8_t* p;
+  const uint8_t* span(uint64_t off, uint64_t) { return p + off; }
+  int copy(uint64_t off, uint64_t n, uint8_t* dst) {
+    std::memcpy(dst, p + off, n);
+    return OK;
+  }
+};
+
+// A blosc frame read from a file a span at a time, so that a cell's
+// compressed bytes are never staged whole.
+struct FileFrame {
+  int fd;
+  std::vector<uint8_t> buf;
+  const uint8_t* span(uint64_t off, uint64_t n) {
+    buf.resize(n);
+    return pread_full(fd, buf.data(), n, off) == OK ? buf.data() : nullptr;
+  }
+  int copy(uint64_t off, uint64_t n, uint8_t* dst) {
+    return pread_full(fd, dst, n, off);
+  }
+};
 
 int inflate_into(const uint8_t* src, size_t src_n, uint8_t* dst,
                  size_t dst_n, int window_bits) {
@@ -169,24 +197,38 @@ int blosc_inner(int compressor, const uint8_t* src, int32_t csize,
   }
 }
 
-int decode_blosc(const uint8_t* p, size_t size, uint8_t* dst, int64_t dst_n) {
+// Decodes the blosc frame of `size` bytes that `frame` serves. With
+// `blockwise`, each block's span runs to the next block's start (blocks in
+// order, as encoders write them; E_UNSUPPORTED otherwise), so a FileFrame
+// reads one block at a time; else each span runs to the frame's end.
+template <class Frame>
+int decode_blosc(Frame& frame, uint64_t size, uint8_t* dst, int64_t dst_n,
+                 bool blockwise) {
   if (size < 16) return E_FORMAT;
-  int flags = p[2], typesize = p[3];
-  int32_t nbytes = le32(p + 4), blocksize = le32(p + 8);
+  uint8_t head[16];
+  const uint8_t* h = frame.span(0, 16);
+  if (!h) return E_READ;
+  std::memcpy(head, h, 16);
+  int flags = head[2], typesize = head[3];
+  int32_t nbytes = le32(head + 4), blocksize = le32(head + 8);
   if (flags & 0x4) return E_UNSUPPORTED;  // bit-shuffle
   if (nbytes != dst_n) return E_SIZE;
   if (nbytes == 0) return OK;
   if (flags & 0x2) {  // pure memcpy chunk
     if (size < static_cast<size_t>(16 + nbytes)) return E_FORMAT;
-    std::memcpy(dst, p + 16, nbytes);
-    return OK;
+    return frame.copy(16, nbytes, dst);
   }
   if (blocksize <= 0) return E_FORMAT;
   int compressor = (flags >> 5) & 0x7;
   bool shuffled = (flags & 0x1) && typesize > 1;
   int nblocks = (nbytes + blocksize - 1) / blocksize;
   if (size < static_cast<size_t>(16 + 4 * nblocks)) return E_FORMAT;
-  const uint8_t* bstarts = p + 16;
+  // Unsigned reads: a corrupt negative bstart sign-extended into size_t
+  // would wrap the bounds checks below and read out of bounds.
+  std::vector<uint64_t> bstarts(nblocks);
+  const uint8_t* bs = frame.span(16, 4 * uint64_t(nblocks));
+  if (!bs) return E_READ;
+  for (int b = 0; b < nblocks; ++b) bstarts[b] = le32u(bs + 4 * b);
 
   std::vector<uint8_t> tmp(shuffled ? blocksize : 0);
   for (int b = 0; b < nblocks; ++b) {
@@ -200,20 +242,25 @@ int decode_blosc(const uint8_t* p, size_t size, uint8_t* dst, int64_t dst_n) {
         typesize <= kMaxSplits && bsize / typesize >= kMinBuffer)
       nsplits = typesize;
     int32_t neblock = bsize / nsplits;
-    // Unsigned read: a corrupt negative bstart sign-extended into size_t
-    // would wrap the pos+4 bounds check below and read out of bounds.
-    uint64_t pos = le32u(bstarts + 4 * b);
+    uint64_t start = bstarts[b];
+    uint64_t end = blockwise && b + 1 < nblocks ? bstarts[b + 1] : size;
+    if (start > end || end > size)
+      return blockwise ? E_UNSUPPORTED : E_FORMAT;
+    const uint8_t* q = frame.span(start, end - start);
+    if (!q) return E_READ;
+    uint64_t qn = end - start, pos = 0;
     uint8_t* block_out = shuffled ? tmp.data() : dst + int64_t(b) * blocksize;
     for (int s = 0; s < nsplits; ++s) {
-      if (pos + 4 > size) return E_FORMAT;
-      int32_t csize = le32(p + pos);
+      if (pos + 4 > qn) return blockwise ? E_UNSUPPORTED : E_FORMAT;
+      int32_t csize = le32(q + pos);
       pos += 4;
-      if (csize < 0 || pos + csize > size) return E_FORMAT;
+      if (csize < 0 || pos + csize > qn)
+        return blockwise ? E_UNSUPPORTED : E_FORMAT;
       uint8_t* dsplit = block_out + int64_t(s) * neblock;
       if (csize == neblock) {
-        std::memcpy(dsplit, p + pos, neblock);
+        std::memcpy(dsplit, q + pos, neblock);
       } else {
-        int rc = blosc_inner(compressor, p + pos, csize, dsplit, neblock);
+        int rc = blosc_inner(compressor, q + pos, csize, dsplit, neblock);
         if (rc != OK) return rc;
       }
       pos += csize;
@@ -222,6 +269,30 @@ int decode_blosc(const uint8_t* p, size_t size, uint8_t* dst, int64_t dst_n) {
       unshuffle(tmp.data(), dst + int64_t(b) * blocksize, bsize, typesize);
   }
   return OK;
+}
+
+// Decodes one blosc cell file into dst, reading it a block at a time; a
+// frame whose blocks are out of order is read whole and decoded then.
+int decode_blosc_file(const char* path, uint8_t* dst, int64_t dst_n) {
+  int fd = ::open(path, O_RDONLY);
+  if (fd < 0) return E_OPEN;
+  struct stat st;
+  int rc = ::fstat(fd, &st) == 0 ? OK : E_READ;
+  if (rc == OK) {
+    FileFrame frame{fd, {}};
+    rc = decode_blosc(frame, static_cast<uint64_t>(st.st_size), dst, dst_n,
+                      true);
+    if (rc == E_UNSUPPORTED) {
+      std::vector<uint8_t> raw(static_cast<size_t>(st.st_size));
+      rc = pread_full(fd, raw.data(), st.st_size, 0);
+      if (rc == OK) {
+        MemoryFrame whole{raw.data()};
+        rc = decode_blosc(whole, raw.size(), dst, dst_n, false);
+      }
+    }
+  }
+  ::close(fd);
+  return rc;
 }
 
 // Decodes one encoded cell payload into exactly dst_n bytes.
@@ -243,8 +314,10 @@ int decode_buffer(const std::vector<uint8_t>& raw, int codec, uint8_t* dst,
                  ? OK
                  : E_SIZE;
     }
-    case BLOSC:
-      return decode_blosc(raw.data(), raw.size(), dst, dst_n);
+    case BLOSC: {
+      MemoryFrame frame{raw.data()};
+      return decode_blosc(frame, raw.size(), dst, dst_n, false);
+    }
     default:
       return E_UNSUPPORTED;
   }
@@ -487,6 +560,9 @@ int wbx_decode_cells(int n, const char** paths, int codec, void** dests,
                      int64_t cell_nbytes, int threads) {
   return run_cells(n, threads, [&](int i) -> int {
     if (!paths[i]) return OK;
+    if (codec == BLOSC)
+      return decode_blosc_file(paths[i], static_cast<uint8_t*>(dests[i]),
+                               cell_nbytes);
     std::vector<uint8_t> raw;
     int rc = read_file(paths[i], &raw);
     return rc != OK ? rc

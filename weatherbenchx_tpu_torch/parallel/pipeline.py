@@ -166,7 +166,9 @@ def stream_chunk_pairs(
     distributed: bool = False,
     mesh=None,
 ):
-  """Yields (index, offsets, load_fn(chunk)) in order, ``prefetch`` ahead.
+  """Yields (index, offsets, load_fn(chunk)) in order, ``prefetch`` ahead:
+  the chunk the consumer holds and the loads in flight are at most
+  ``prefetch`` together.
 
   ``retry`` applies :class:`RetryPolicy` to each load; with
   ``retry.skip_failed`` a chunk whose transient-classified failure survives
@@ -206,12 +208,16 @@ def stream_chunk_pairs(
         if on_failure is not None:
           on_failure(i, offsets, e)
         result = None
+      if result is not None:
+        yield i, offsets, result
+      # As in the JAX package, the next load starts once the consumer is
+      # done with this chunk; dropped first, so that the host holds at most
+      # ``prefetch`` chunks, the one on the device included.
+      result = None
       nxt = next(queued, None)
       if nxt is not None:
         j, (offs, chunk) = nxt
         pending.append((j, offs, ex.submit(load_fn, chunk)))
-      if result is not None:
-        yield i, offsets, result
 
 
 def _partition(mesh=None) -> tuple[int, int]:
@@ -240,7 +246,8 @@ class EvaluationPipeline:
     predictions_loader / targets_loader: DataLoaders (host chunks).
     times: TimeChunks enumeration.
     device: the device chunks are evaluated on, e.g. 'cuda' or 'cpu'.
-    prefetch: number of chunks loaded ahead of the device (host threads).
+    prefetch: loader threads; the host chunks in flight (loading, and the
+      one the device works on) are at most this many.
     checkpoint_path: if set, running state is saved here every
       ``checkpoint_every`` chunks and resumed from on restart.
     retry: transient-failure policy for chunk loads. After a run with
@@ -484,6 +491,7 @@ class EvaluationPipeline:
                 f'{stat_name}.{var}': da
                 for stat_name, per_var in stats.items()
                 for var, da in per_var.items()})
+        del pair, stats  # the host chunk, before the next load is awaited
         bookkeeping(i)
       flush()
     # Final cross-bucket combine on the host, in float64: the outer join

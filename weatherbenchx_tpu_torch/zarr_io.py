@@ -657,10 +657,14 @@ class ZarrChunkSource(lazy.ArraySource):
     raw = wbx_codecs.decode_cell(raw, self._codec, self._cell_nbytes)
     return np.frombuffer(raw, self.dtype).reshape(self._chunks)
 
-  def _load_cells(self, cells: list[tuple[int, ...]]) -> list[np.ndarray]:
+  def _load_cells(self, cells: list[tuple[int, ...]],
+                  blocks: Optional[list[np.ndarray]] = None
+                  ) -> list[np.ndarray]:
     """Batch cell load: native threaded read+decode where it builds (a
     local store with a codec; v3 shard cells as byte ranges through the
-    shard index), else the Python codec path on a thread pool."""
+    shard index), else the Python codec path on a thread pool. ``blocks``
+    (C-contiguous, one cell's shape each) receive the cells, decoded
+    straight into them on the native path."""
     from weatherbenchx_tpu_torch import native
 
     # Raw cells stay on the Python path: frombuffer is zero-copy there,
@@ -668,7 +672,8 @@ class ZarrChunkSource(lazy.ArraySource):
     if (cells and self._cell_nbytes > 0 and self._codec is not None
         and not fileio.is_remote(self._adir)
         and native.zarrcodec_available()):
-      blocks = [np.empty(self._chunks, self.dtype) for _ in cells]
+      if blocks is None:
+        blocks = [np.empty(self._chunks, self.dtype) for _ in cells]
       if self._cells_per_shard is not None:
         ranges = [self._shard_range(c) for c in cells]
         for b, r in zip(blocks, ranges):
@@ -688,15 +693,20 @@ class ZarrChunkSource(lazy.ArraySource):
           [p if ok else None for p, ok in zip(paths, exists)],
           self._codec, blocks, threads=_READ_THREADS)
       return blocks
-    if len(cells) == 1:
-      return [self._load_cell(cells[0])]
-    return list(_read_pool().map(self._load_cell, cells))
+    loaded = ([self._load_cell(cells[0])] if len(cells) == 1
+              else list(_read_pool().map(self._load_cell, cells)))
+    if blocks is None:
+      return loaded
+    for block, cell in zip(blocks, loaded):
+      block[...] = cell
+    return blocks
 
   def _axis_plan(self, e, n: int, c: int) -> list[tuple]:
     """Per-cell (cell_id, within-cell sel, dest sel) for one axis.
 
-    Selections are slices whenever the axis indexer is a unit-step range —
-    the streaming case — keeping the scatter a strided copy.
+    Selections are slices whenever the axis indexer is a slice — the
+    streaming case, and a flipped axis (a descending slice) — keeping the
+    scatter a strided copy straight into the output.
     """
     if isinstance(e, slice):
       r = range(n)[e]
@@ -710,7 +720,19 @@ class ZarrChunkSource(lazy.ArraySource):
           plan.append((cell, slice(lo - cell * c, hi - cell * c),
                        slice(lo - start, hi - start)))
         return plan
-      e = np.arange(n, dtype=np.intp)[e]
+      # Any other step: the positions that fall in one cell are a run of
+      # the output and evenly spaced within the cell.
+      idx = np.asarray(r, np.intp)
+      cells = idx // c
+      cuts = np.flatnonzero(np.diff(cells)) + 1
+      plan = []
+      for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(idx)]):
+        cell = int(cells[lo])
+        first, last = int(idx[lo]) - cell * c, int(idx[hi - 1]) - cell * c
+        stop = last + r.step
+        plan.append((cell, slice(first, stop if stop >= 0 else None, r.step),
+                     slice(int(lo), int(hi))))
+      return plan
     e = np.asarray(e, np.intp)
     e = np.where(e < 0, e + n, e)
     cells = e // c
@@ -732,6 +754,18 @@ class ZarrChunkSource(lazy.ArraySource):
       return out
 
     combos = list(itertools.product(*plans))
+    if (len(combos) == 1 and out_shape == self._chunks
+        and all(isinstance(src, slice) and abs(src.step or 1) == 1
+                for _, src, _ in combos[0])):
+      # The window is one whole cell (each axis its full extent, in order
+      # or reversed): decoded straight into the output, a reversed axis
+      # then flipped in place, with no staging block.
+      (combo,) = combos
+      self._load_cells([tuple(x[0] for x in combo)], [out])
+      for axis, (_, src, _) in enumerate(combo):
+        if (src.step or 1) < 0:
+          lazy.flip_in_place(out, axis)
+      return out
     blocks = self._load_cells([tuple(x[0] for x in combo)
                                for combo in combos])
     for combo, block in zip(combos, blocks):
