@@ -12,8 +12,9 @@ working directory and first on ``sys.path``: it builds that checkout's
 kernels and calls its ``chip_smoke.time_kernels`` at the paths' shapes
 (fused and spread at M = 50, spread at M = 10, cross 50 x 10, float32,
 N = 4,152,960) on inputs made on the card from one seed, then times the
-shared-memory form of the fused and spread-only kernels, which those
-shapes do not reach, at 100 members over 1,038,240 gridpoints. The turns go A,
+fused and spread-only kernels past the register kernels' 64 members,
+which those shapes do not reach, at 100 members over 1,038,240
+gridpoints. The turns go A,
 B, B, A, so that drift of the card or its host weighs on both alike.
 Prints each turn's medians (ms) with the card's name and power limit, then
 per kernel B's median over A's.
@@ -41,13 +42,13 @@ x = torch.randn((50,) + shape, generator=gen, device='cuda')
 y = torch.randn(shape, generator=gen, device='cuda')
 yt = torch.randn((10,) + shape, generator=gen, device='cuda')
 res = cs.time_kernels(x, y, yt, cs.card_line())
-# The shared-memory form, which no path's shape reaches: 100 members.
+# Past the register kernels, which those shapes do not reach: 100 members.
 from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
 xs = torch.randn((100, 1038240), generator=gen, device='cuda')
 ys = torch.randn((1038240,), generator=gen, device='cuda')
 res.update(cs.time_cuda({
-    'fused_shared100_kernel': lambda: cp._launch_stats(xs, ys),
-    'spread_shared100_kernel': lambda: cp._launch_stats(xs, None),
+    'fused_m100_kernel': lambda: cp._launch_stats(xs, ys),
+    'spread_m100_kernel': lambda: cp._launch_stats(xs, None),
 }, rounds=12, reps=20))
 print('TURN ' + json.dumps({k: v[0] for k, v in res.items()}), flush=True)
 '''

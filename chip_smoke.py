@@ -10,28 +10,42 @@ script exits nonzero:
 
 1. Device: requires a CUDA device; prints the card's name and power limit.
 2. Build: compiles the port's CUDA kernels from ops/csrc with nvcc, the
-   register kernels' generated translation units in parallel; prints the
-   build time, the registers of every register kernel and fails unless
-   each shows 0 bytes of stack frame and spills.
+   register and sorted-runs kernels' generated translation units in
+   parallel; prints the build time, the registers of every register and
+   sorted-runs kernel and fails unless every kernel of the build shows 0
+   bytes of stack frame and spills.
 3. Kernels against their plain PyTorch versions on the card: several
    ensemble sizes and shapes, NaN members, |mean| >> std, float32 and
    bfloat16, 1-D input, and the main paths' own shapes; each route
-   boundary (2, 63, 64 and 65 members); a NaN at every member position
-   (the network route); +-inf members at 2, 3, 10, 19, 20, 21, 49, 50, 64,
-   65 and 100 members, every route, against the plain version and the JAX
+   boundary (2, 63 and 64 members on the network, 65, 100, 101, 128, 129
+   and 256 on the sorted runs, 257 on the tiled pair form); a NaN at every
+   member position (21 and 49 on the network, 101 and 256 on the sorted
+   runs); +-inf members at 2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101
+   and 256 members, every route, against the plain version and the JAX
    kernels' inf/NaN pattern (their sort body from 20 members, their pair
-   body below); every register kernel built, M = 2..64, in both dtypes;
-   and 1,816, 1,817 and 4,000 members through the metrics (one, two and
-   three shared-memory tiles: the fused pass, the spread and the
-   two-ensemble skill against the float64 broadcast, each launch counted,
-   and each of the three kernels timed there beside its bound), with +-inf
-   and NaN members on both sides of a tile's edge.
+   body below); NaN and +-inf members on both sides of a run's edge, at
+   the last member and on both sides of 256 members, in both dtypes;
+   every register kernel built, M = 2..64, and every run size of the
+   sorted runs, R = 33..64, in both dtypes; and 1,816, 1,817 and 4,000
+   members through the metrics (one, two and three shared-memory tiles:
+   the fused pass, the spread and the two-ensemble skill against the
+   float64 broadcast, each launch counted, and each of the three kernels
+   timed there beside its bound), with +-inf and NaN members on both sides
+   of a tile's edge.
 4. Main path at full width: ChunkEvaluator with fair CRPS, the unbiased
    spread/skill ratio and the unbiased ensemble-mean RMSE over 3 chunks of
    a 50-member 0.25-degree ensemble (50 x 1 x 4 x 721 x 1440 float32,
    iid N(0, 1) from the seed), area-weighted over 3 regions and their land
    parts, masked. Checks one fused kernel launch per chunk, agreement with
    a float64 recomputation, and the closed forms for iid normals.
+   4b. The same configuration at 101 members (ECMWF's extended-range
+   ensemble: 100 perturbed members and the control), 2 chunks of
+   101 x 1 x 4 x 721 x 1440 float32 (1.68 GB each on the card): the fused
+   kernel's sorted runs. Checks one fused launch per chunk at 101 members,
+   agreement within 1e-5 of a float64 recomputation, and each value
+   within 6 standard errors of its closed form (the errors estimated from
+   the points' own statistics); prints the seconds per chunk and the
+   kernel's median time at that shape beside its plain version's.
 5. Ensemble-vs-ensemble path at full width: pipeline.evaluate over
    in-memory stores, 50 forecast members (3 inits x 4 leads x 721 x 1440,
    iid N(0, 1)) against a 10-member ensemble analysis (8 valid times, iid
@@ -308,12 +322,18 @@ ENS_CLOSED_FORMS = {
 # tolerance is 7.9 of them.
 CLI_GRID = (121, 240)
 CLI_RMSE_TOL = 0.03
-# Member counts on the network route checked with a NaN at every member
-# position (odd: the median's weight is 0).
-NAN_POSITION_MEMBERS = (21, 49)
+# Member counts checked with a NaN at every member position: odd counts on
+# the network route (the median's weight is 0), and on the sorted runs
+# 101 (phase 4b's) and 256 (four full runs, the route's end).
+NAN_POSITION_MEMBERS = (21, 49, 101, 256)
 # Member counts checked with infinite members: both sides of the JAX
-# kernels' sort threshold (20) and of the register route's end (64).
-INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100)
+# kernels' sort threshold (20), of the register route's end (64) and of
+# the sorted runs' (256), and phase 4b's 101.
+INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101, 256)
+# Member counts checked with NaN and +-inf members at a run's edge: the
+# sorted runs' ends and their changes of run count, and 257 (the tiled
+# pair form, with the members on both sides of 256).
+RUN_EDGE_MEMBERS = (65, 100, 101, 128, 129, 192, 193, 256, 257)
 # The H100 SXM's HBM rate, and its float32 issue rate for operations that
 # are not FMAs (min, max, add, subtract): 128 per clock per SM x 132 SMs x
 # 1.98 GHz; the data sheet's 67 TFLOP/s counts an FMA as two. For the
@@ -325,9 +345,14 @@ TIMING_REPS = 20
 # ... and for the tiled kernels at phase 3's shapes, which take 7-90 ms a
 # call: enough to hide the host's launch behind the device.
 MEMBER_TILE_TIMING_REPS = 2
-# The shared-memory form's members at phase 10's wide shape, and its seed.
-SHARED_M = 100
-SHARED_SEED = 100
+# The sorted-runs form's members at phase 10's wide shape, and its seed.
+SORTED_M = 100
+SORTED_SEED = 100
+# Phase 4b: the main path's configuration at 101 members, 2 chunks, its
+# closed forms checked within LARGE_SIGMAS standard errors.
+M_LARGE = 101
+N_LARGE_CHUNKS = 2
+LARGE_SIGMAS = 6.0
 
 
 def log(msg: str) -> None:
@@ -369,13 +394,20 @@ def check_kernels(seed: int) -> dict:
       (21, (1, 2, 37, 71), (10, 500), 0.0, 1.0),
       (50, (4, 777), None, 288.0, 3.0),
       (50, (1, 2, 37, 71), (49, 0), 0.0, 1.0),
-      # The route boundaries (the network from 2 members, the shared form
-      # past 64) and the ensemble path's 10 members.
+      # The route boundaries (the network from 2 members, the sorted runs
+      # past 64, the tiled pair form past 256), the changes of run count,
+      # and the ensemble path's 10 members.
       (2, (2, 37, 71), (1, 700), 0.0, 1.0),
       (10, (2, 37, 71), (5, 700), 0.0, 1.0),
       (63, (2, 37, 71), (0, 700), 0.0, 1.0),
       (64, (2, 37, 71), (63, 700), 0.0, 1.0),
       (65, (2, 37, 71), (32, 700), 288.0, 3.0),
+      (100, (2, 37, 71), (50, 700), 0.0, 1.0),
+      (101, (2, 37, 71), (100, 700), 288.0, 3.0),
+      (128, (1, 37, 71), (64, 70), 0.0, 1.0),
+      (129, (1, 37, 71), (0, 70), 0.0, 1.0),
+      (256, (1, 37, 71), (255, 70), 288.0, 3.0),
+      (257, (1, 37, 71), (256, 70), 0.0, 1.0),
       (M, GRID, None, 0.0, 1.0),
   ]
   main_path_err = {}
@@ -415,7 +447,9 @@ def check_kernels(seed: int) -> dict:
           f'{worst:.3g} (tol {KERNEL_RTOL[dname]}) ok')
   check_nan_positions(rng)
   check_infinities(rng)
+  check_run_edges(rng)
   check_every_register_kernel(rng)
+  check_every_run_size(rng)
   main_path_err['cross'] = check_cross_kernel(rng)
   check_member_tiles(rng)
   return main_path_err
@@ -445,13 +479,15 @@ def stats_against_plain(x, y, label: str, dname: str) -> tuple:
 
 
 def check_nan_positions(rng) -> None:
-  """On the network route: point p holds a NaN at member p, for every p;
-  each output must be NaN there and nowhere else."""
+  """On the network and sorted-runs routes, whose sorts drop NaN through
+  fminf/fmaxf: point p holds a NaN at member p, for every p; each output
+  must be NaN there and nowhere else."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   for m in NAN_POSITION_MEMBERS:
-    if cp.spread_form(m) != 'network':
-      raise AssertionError(f'M={m} is not on the network route')
+    form = cp.spread_form(m)
+    if form not in ('network', 'sorted'):
+      raise AssertionError(f'M={m} takes the {form} route')
     x = rng.standard_normal((m, 4000), dtype=np.float32)
     for p in range(m):
       x[p, p] = np.nan
@@ -465,7 +501,7 @@ def check_nan_positions(rng) -> None:
       if not all(torch.equal(torch.isnan(g), want) for g in got):
         raise AssertionError(f'M={m}: a NaN member must poison its own '
                              'point, at every member position, and no other')
-      log(f'kernel check M={m} (network) {dname}: a NaN at each of the {m} '
+      log(f'kernel check M={m} ({form}) {dname}: a NaN at each of the {m} '
           'member positions poisons its own point only ok')
 
 
@@ -514,6 +550,69 @@ def check_infinities(rng) -> None:
       log(f'kernel check M={m} ({cp.spread_form(m)}) {dname}: +-inf members '
           f'give the plain version\'s and the JAX kernels\' inf/NaN points '
           f'{head.tolist()} ok')
+
+
+def check_run_edges(rng) -> None:
+  """The sorted runs (and 257 members, the tiled pair form past them) in
+  both dtypes: +inf, -inf and NaN members at the last member of the first
+  run, the first of the second, both, the last member, and (257) members
+  255 and 256, against the plain versions; each NaN poisons its point."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  for m in RUN_EDGE_MEMBERS:
+    form = cp.spread_form(m)
+    edge = (cp.sorted_runs(m)[1] if form == 'sorted'
+            else cp.SORTED_MAX_MEMBERS)
+    x = rng.standard_normal((m, 2000), dtype=np.float32)
+    cols = [((edge - 1,), np.inf), ((edge,), np.inf),
+            ((edge - 1, edge), np.inf), ((edge - 1,), -np.inf),
+            ((edge,), -np.inf), ((m - 1,), np.inf), ((m - 1,), -np.inf),
+            ((edge - 1,), np.nan), ((edge,), np.nan), ((m - 1,), np.nan)]
+    for col, (rows, value) in enumerate(cols):
+      x[list(rows), col] = value
+    y = rng.standard_normal(2000, dtype=np.float32)
+    nan_cols = [c for c, (_, v) in enumerate(cols) if np.isnan(v)]
+    for dtype in (torch.float32, torch.bfloat16):
+      dname = str(dtype).split('.')[-1]
+      got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
+                                torch.from_numpy(y).to(DEVICE, dtype),
+                                f'run edges M={m}', dname)
+      if not all(bool(torch.isnan(g[nan_cols]).all()) for g in got):
+        raise AssertionError(f'M={m} {dname}: a NaN member at a run edge '
+                             'did not poison its point')
+      log(f'kernel check M={m} ({form}) {dname}: +-inf and NaN members at '
+          f'members {edge - 1}, {edge} and {m - 1} give the plain '
+          'version\'s points ok')
+
+
+def check_every_run_size(rng) -> None:
+  """Each sorted-runs kernel built, R = 33..64, at the smallest member
+  count that takes it, fused and spread-only, against the plain versions:
+  a NaN member, a +inf and a -inf at other points, |mean| >> std."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  sizes = {}
+  for m in cp.SORTED_MEMBERS:
+    sizes.setdefault(cp.sorted_runs(m)[1], m)
+  if sorted(sizes) != list(cp.SORTED_RUN_SIZES):
+    raise AssertionError(f'run sizes {sorted(sizes)}')
+  for dtype in (torch.float32, torch.bfloat16):
+    dname = str(dtype).split('.')[-1]
+    for r, m in sorted(sizes.items()):
+      x = 288 + 3 * rng.standard_normal((m, 3000), dtype=np.float32)
+      x[m // 2, 0] = np.nan
+      x[0, 1] = np.inf
+      x[m - 1, 2] = -np.inf
+      y = 288 + 3 * rng.standard_normal(3000, dtype=np.float32)
+      got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
+                                torch.from_numpy(y).to(DEVICE, dtype),
+                                f'runs of {r} (M={m})', dname)
+      if not all(bool(torch.isnan(g[0])) for g in got):
+        raise AssertionError(f'runs of {r} {dname}: NaN member did not '
+                             'poison its point')
+    log(f'kernel check: {len(sizes)} sorted-runs kernels (R = '
+        f'{min(sizes)}..{max(sizes)}) {dname}, fused and spread-only, '
+        'against the plain versions ok')
 
 
 def check_every_register_kernel(rng) -> None:
@@ -712,18 +811,19 @@ def time_member_tiles(x, y, yt, tiles: int) -> None:
 
 
 def build_report(build_log: str) -> None:
-  """Phase 2's reading of nvcc's -Xptxas -v lines: the shared-memory and
-  cross kernels line by line; the register kernels as registers per
-  (dtype, output set) and M. Raises unless every register kernel was
-  compiled, with 0 bytes of stack frame and spills."""
+  """Phase 2's reading of nvcc's -Xptxas -v lines: the tiled pair and cross
+  kernels line by line; the register and sorted-runs kernels as registers
+  per (dtype, output set) and M or run size. Raises unless every register
+  and sorted-runs kernel was compiled, and unless every kernel of the
+  build has 0 bytes of stack frame and spills."""
   import re
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   entry = re.compile(r"Compiling entry function '(\S+)'")
   props = re.compile(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
                      r'(\d+) bytes spill loads')
   regs = re.compile(r'Used (\d+) registers')
-  name = re.compile(r'register_stats_kernelI(f|13__nv_bfloat16)Lb([01])E'
-                    r'Li(\d+)E')
+  generated = re.compile(r'(register|sorted)_stats_kernelI(f|13__nv_bfloat16)'
+                         r'Lb([01])ELi(\d+)E')
   kernels = {}  # mangled name -> [registers, stack + spill bytes]
   current = None
   for line in build_log.splitlines():
@@ -732,38 +832,39 @@ def build_report(build_log: str) -> None:
     if m := entry.search(line):
       current = m.group(1)
       kernels[current] = [None, None]
-      if 'register_stats_kernel' not in current:
-        log(f'  nvcc: {line.strip()}')
     elif current and (m := props.search(line)):
       kernels[current][1] = sum(int(g) for g in m.groups())
-      if 'register_stats_kernel' not in current:
-        log(f'  nvcc: {line.strip()}')
     elif current and (m := regs.search(line)):
       kernels[current][0] = int(m.group(1))
-      if 'register_stats_kernel' not in current:
-        log(f'  nvcc: {line.strip()}')
-  table = {}
-  for mangled, (nregs, spill) in kernels.items():
-    if 'register_stats_kernel' not in mangled:
+    else:
       continue
+    if not generated.search(current):
+      log(f'  nvcc: {line.strip()}')
+  table = {}
+  spilled = [f'{mangled}: {spill} bytes of stack frame and spills'
+             for mangled, (_, spill) in kernels.items() if spill]
+  if spilled:
+    raise AssertionError(f'{len(spilled)} kernels with a stack frame or '
+                         'spills:\n' + '\n'.join(spilled))
+  for mangled, (nregs, spill) in kernels.items():
     if nregs is None or spill is None:
       raise AssertionError(f'no ptxas properties for {mangled}')
-    if spill:
-      raise AssertionError(f'{mangled}: {spill} bytes of stack frame and '
-                           'spills on a register route')
-    if m := name.search(mangled):
-      dtype = 'f32' if m.group(1) == 'f' else 'bf16'
-      key = (dtype, ('spread', 'fused')[int(m.group(2))])
-      table.setdefault(key, {})[int(m.group(3))] = nregs
-  want = 4 * len(cp.REGISTER_MEMBERS)
-  got = sum(len(v) for v in table.values())
-  if got != want:
-    raise AssertionError(f'{got} register kernels in the build log, want '
-                         f'{want}')
-  for (dtype, outs), by_m in sorted(table.items()):
-    log(f'  nvcc: network {outs} {dtype} registers by M: '
+    if m := generated.search(mangled):
+      dtype = 'f32' if m.group(2) == 'f' else 'bf16'
+      key = (m.group(1), dtype, ('spread', 'fused')[int(m.group(3))])
+      table.setdefault(key, {})[int(m.group(4))] = nregs
+  for form, sizes in (('register', cp.REGISTER_MEMBERS),
+                      ('sorted', cp.SORTED_RUN_SIZES)):
+    got = sum(len(v) for k, v in table.items() if k[0] == form)
+    if got != 4 * len(sizes):
+      raise AssertionError(f'{got} {form} kernels in the build log, want '
+                           f'{4 * len(sizes)}')
+  for (form, dtype, outs), by_m in sorted(table.items()):
+    label = 'network' if form == 'register' else 'sorted runs'
+    by = 'M' if form == 'register' else 'run size'
+    log(f'  nvcc: {label} {outs} {dtype} registers by {by}: '
         + ' '.join(f'{m}:{r}' for m, r in sorted(by_m.items())))
-  log(f'  nvcc: {want} register kernels, every one with 0 bytes of stack '
+  log(f'  nvcc: {len(kernels)} kernels, every one with 0 bytes of stack '
       'frame, spill stores and spill loads')
 
 
@@ -774,8 +875,9 @@ def grid_coords():
           np.arange(nlon) * (360 / nlon))
 
 
-def make_chunk(seed: int, k: int):
-  """One host chunk (predictions, targets) of the main-path configuration."""
+def make_chunk(seed: int, k: int, members: int = M):
+  """One host chunk (predictions, targets) of the main-path configuration
+  at ``members`` ensemble members."""
   from weatherbenchx_tpu_torch.darray import Coord, DimArray
   rng = np.random.default_rng([seed, k])
   lat, lon = grid_coords()
@@ -791,11 +893,11 @@ def make_chunk(seed: int, k: int):
   mask = np.ones(GRID[2:], bool)
   mask[[0, -1]] = False
   coords['mask'] = Coord(('latitude', 'longitude'), mask)
-  x = rng.standard_normal((M,) + GRID, dtype=np.float32)
+  x = rng.standard_normal((members,) + GRID, dtype=np.float32)
   y = rng.standard_normal(GRID, dtype=np.float32)
   dims = ('init_time', 'lead_time', 'latitude', 'longitude')
   preds = {'2m_temperature': DimArray(
-      x, ('number',) + dims, dict(coords, number=np.arange(M)))}
+      x, ('number',) + dims, dict(coords, number=np.arange(members)))}
   tgts = {'2m_temperature': DimArray(y, dims, coords)}
   return preds, tgts
 
@@ -837,22 +939,34 @@ def weighted_means(stat_chunks, wb) -> dict:
   return {k: v / den for k, v in num.items()}
 
 
-def f64_reference(chunks, aggregator) -> dict:
-  """Metric values recomputed in float64 with the plain versions on the card.
-
-  Independent of the port's aggregation: explicit weighted sums over
-  (init_time, latitude, longitude) per region and lead time.
-  """
+def main_path_statistics(chunks) -> list:
+  """Per chunk, the main path's per-point statistics in float64 with the
+  plain versions on the card: {'skill', 'spread' (fair CRPS terms), 'var',
+  'umse'}, each (init, lead, lat, lon)."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   stat_chunks = []
   for preds, tgts in chunks:
     x = preds['2m_temperature'].data.to(DEVICE, torch.float64)
     y = tgts['2m_temperature'].data.to(DEVICE, torch.float64)
+    m = x.shape[0]
     spread, skill, mean, sq_dev = cp.fused_ensemble_stats_plain(x, y)
-    var = sq_dev / (M - 1)
-    stat_chunks.append({'skill': skill / M, 'spread': spread / (M * (M - 1)),
-                        'var': var, 'umse': (mean - y) ** 2 - var / M})
+    del x
+    var = sq_dev / (m - 1)
+    stat_chunks.append({'skill': skill / m, 'spread': spread / (m * (m - 1)),
+                        'var': var, 'umse': (mean - y) ** 2 - var / m})
+  return stat_chunks
+
+
+def f64_reference(chunks, aggregator, stat_chunks=None) -> dict:
+  """Metric values recomputed in float64 with the plain versions on the card.
+
+  Independent of the port's aggregation: explicit weighted sums over
+  (init_time, latitude, longitude) per region and lead time.
+  """
+  import torch
+  if stat_chunks is None:
+    stat_chunks = main_path_statistics(chunks)
   mean_stat = weighted_means(stat_chunks,
                              bin_weights(aggregator, chunks[0][1][
                                  '2m_temperature']))
@@ -932,6 +1046,139 @@ def main_path(seed: int):
   check_values('main path', values, f64_reference(chunks, aggregator),
                CLOSED_FORMS)
   return ev, chunks, launches, values
+
+
+def closed_form_sigmas(stat_chunks, wb, values: dict) -> dict:
+  """Per metric of the main path, the largest |value - closed form| over
+  (lead, region) in standard errors: each estimated from the points' own
+  float64 statistics (stat_chunks, main_path_statistics) as a weighted
+  mean's, sigma^2 sum w^2 / (sum w)^2 with sigma^2 the weighted variance
+  over (init, lat, lon), through the delta method for the square roots
+  (RMSE = sqrt(U); spread/skill = sqrt(V / U), whose per-point influence
+  is R/2 (v / V - u / U))."""
+  import torch
+  w = wb[None, None]  # (1, 1, region, lat, lon)
+
+  def standard_error(per_point):
+    """(lead, region) standard errors of the weighted means of per-point
+    values, (init, lead, lat, lon) or (init, lead, region, lat, lon)."""
+    per_point = [z if z.dim() == 5 else z[:, :, None] for z in per_point]
+    den = sum(w.sum((0, 3, 4)) * z.shape[0] for z in per_point)
+    w2 = sum((w ** 2).sum((0, 3, 4)) * z.shape[0] for z in per_point)
+    mean = sum((z * w).sum((0, 3, 4)) for z in per_point) / den
+    var = sum(((z - mean[None, :, :, None, None]) ** 2 * w).sum((0, 3, 4))
+              for z in per_point) / den
+    return torch.sqrt(var * w2) / den
+
+  means = weighted_means(stat_chunks, wb)
+  u, v = means['umse'], means['var']
+  ratio = torch.sqrt(v / u)
+  influence = [0.5 * ratio[None, :, :, None, None]
+               * (s['var'][:, :, None] / v[None, :, :, None, None]
+                  - s['umse'][:, :, None] / u[None, :, :, None, None])
+               for s in stat_chunks]
+  ses = {
+      'crps': standard_error([s['skill'] - 0.5 * s['spread']
+                              for s in stat_chunks]),
+      'spread_skill': standard_error(influence),
+      'unbiased_mean_rmse': standard_error([s['umse'] for s in stat_chunks])
+                            / (2 * torch.sqrt(u)),
+  }
+  out = {}
+  for name, se in ses.items():
+    got = values[f'{name}.2m_temperature'].data.to(DEVICE).double()
+    out[name] = ((got - CLOSED_FORMS[name][0]).abs() / se).max().item()
+  return out
+
+
+def large_ensemble_path(seed: int, card: str) -> dict:
+  """Phase 4b: the main path's configuration at M_LARGE members, checked
+  as phase 4 is, the closed forms within LARGE_SIGMAS standard errors; the
+  fused kernel's sorted runs timed at that shape."""
+  import torch
+  from weatherbenchx_tpu_torch import aggregation
+  from weatherbenchx_tpu_torch.metrics import probabilistic
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  if cp.spread_form(M_LARGE) != 'sorted':
+    raise AssertionError(f'M={M_LARGE} routes to {cp.spread_form(M_LARGE)}')
+  metrics = {
+      'crps': probabilistic.CRPSEnsemble(use_sort=True),
+      'spread_skill': probabilistic.UnbiasedSpreadSkillRatio(),
+      'unbiased_mean_rmse': probabilistic.UnbiasedEnsembleMeanRMSE(),
+  }
+  aggregator = region_aggregator()
+  ev = evaluator.ChunkEvaluator(metrics, aggregator, device=DEVICE)
+  t0 = time.perf_counter()
+  chunks = [make_chunk(seed + 4, k, M_LARGE) for k in range(N_LARGE_CHUNKS)]
+  log(f'phase 4b large ensemble: made {N_LARGE_CHUNKS} chunks of {M_LARGE} x '
+      f'{GRID} float32 in {time.perf_counter() - t0:.1f} s')
+  cp.reset_launch_counts()
+  states, seconds = [], []
+  for p, t in chunks:
+    t0 = time.perf_counter()
+    states.append(ev.eval_chunk(p, t))
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+  launches = dict(cp.LAUNCHES)
+  members = sorted(cp.MEMBER_COUNTS['fused_ensemble_stats'])
+  values = aggregation.AggregationState.sum(states).metric_values(metrics)
+  log(f'phase 4b large ensemble: {N_LARGE_CHUNKS} chunks evaluated in '
+      f'{sum(seconds):.2f} s ({", ".join(f"{s:.3f}" for s in seconds)} s '
+      f'per chunk), kernel launches {launches}, fused at M = {members}')
+  if launches != {'fused_ensemble_stats': N_LARGE_CHUNKS,
+                  'pairwise_spread_sum': 0, 'pairwise_cross_sum': 0}:
+    raise AssertionError(f'expected {N_LARGE_CHUNKS} fused launches (one '
+                         f'per chunk) and no other, got {launches}')
+  if members != [M_LARGE]:
+    raise AssertionError(f'the fused kernel ran at M = {members}')
+  stat_chunks = main_path_statistics(chunks)
+  ref = f64_reference(chunks, aggregator, stat_chunks)
+  wb = bin_weights(aggregator, chunks[0][1]['2m_temperature'])
+  sigmas = closed_form_sigmas(stat_chunks, wb, values)
+  del stat_chunks
+  for name in CLOSED_FORMS:
+    da = values[f'{name}.2m_temperature']
+    if da.dims != ('lead_time', 'region') or da.shape != (GRID[1], 6):
+      raise AssertionError(f'phase 4b {name}: dims {da.dims} shape '
+                           f'{da.shape}')
+    got = da.data.to(DEVICE).double()
+    if not bool(torch.isfinite(got).all()):
+      raise AssertionError(f'phase 4b {name}: non-finite values {got}')
+    rel = ((got - ref[name]).abs() / ref[name].abs()).max().item()
+    if rel > F64_RTOL:
+      raise AssertionError(f'phase 4b {name}: rel err vs float64 {rel:.3g} '
+                           f'> {F64_RTOL}')
+    if sigmas[name] > LARGE_SIGMAS:
+      raise AssertionError(f'phase 4b {name}: {sigmas[name]:.2f} standard '
+                           f'errors from the closed form '
+                           f'{CLOSED_FORMS[name][0]:.6f}')
+    log(f'phase 4b large ensemble {name}: mean {got.mean().item():.6f}, '
+        f'closed form {CLOSED_FORMS[name][0]:.6f} (at most '
+        f'{sigmas[name]:.2f} standard errors, limit {LARGE_SIGMAS}); rel err '
+        f'vs float64 {rel:.3g} (tol {F64_RTOL}) ok')
+  p, t = chunks[0]
+  x = p['2m_temperature'].data.to(DEVICE)
+  y = t['2m_temperature'].data.to(DEVICE)
+  n = y.numel()
+  got = cp.fused_ensemble_stats(x, y)
+  want = cp.fused_ensemble_stats_plain(x, y)
+  err = max(rel_err(g, w)[2] for g, w in zip(got, want))
+  res = time_cuda({'fused_kernel': lambda: cp.fused_ensemble_stats(x, y)},
+                  rounds=12, reps=TIMING_REPS)
+  res.update(time_cuda(
+      {'fused_plain': lambda: cp.fused_ensemble_stats_plain(x, y)},
+      rounds=6, reps=TIMING_REPS))
+  nbytes, ops = stats_work(M_LARGE, n, True)
+  bound_ms, by = bound(nbytes, ops)
+  for name, (med, q1, q3, count) in res.items():
+    log(f'phase 4b timing {name} M={M_LARGE}: median {med:.4f} ms, IQR '
+        f'[{q1:.4f}, {q3:.4f}] ms over {count} runs; bound {bound_ms:.4f} ms '
+        f'by {by} ({bound_ms / med:.1%} of it; bytes {nbytes}, operations '
+        f'{ops}); N={n}, float32; card {card}')
+  del x, y, chunks
+  return {'launches': launches, 'members': members, 'seconds': seconds,
+          'max_abs_err': err, 'sigmas': sigmas, 'timing': res}
 
 
 def ensemble_stores(seed: int):
@@ -2017,12 +2264,18 @@ def stats_work(m: int, n: int, fused: bool) -> tuple:
   """(bytes, operations) of the fused or spread-only kernel on float32
   x (m, n), in the form spread_form(m): each input read once, each output
   written once; per point the compare-exchanges' min and max, the shift
-  and weighted sum and the NaN test (network), or a difference and an add
-  per pair (shared); fused adds the sum, skill, mean and squared
-  deviations."""
+  and weighted sum and the NaN test (network); the compare-exchanges of
+  each sorted run, a compare per further run head and member taken by the
+  merge walks, a difference and a multiply-add per pair of mirrored ranks
+  and the NaN test (sorted); or a difference and an add per pair
+  (shared); fused adds the sum, skill, mean and squared deviations."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
-  if cp.spread_form(m) == 'network':
+  form = cp.spread_form(m)
+  if form == 'network':
     ops = 2 * len(cp.sort_network(m)) + 3 * m
+  elif form == 'sorted':
+    runs, size = cp.sorted_runs(m)
+    ops = runs * 2 * len(cp.sort_network(size)) + (runs - 1) * m + 2 * m
   else:
     ops = m * (m - 1)
   if fused:
@@ -2093,22 +2346,22 @@ def time_kernels(x, y, yt, card: str) -> dict:
   return res
 
 
-def time_shared_form(card: str) -> dict:
-  """Phase 10's row of the shared-memory form (every M past the register
-  kernels): fused and spread-only at M = SHARED_M over GRID, float32,
-  iid N(0, 1), checked against their plain versions, then timed as
-  time_kernels times the others. Logs each beside its bytes bound, the
-  pair loop's (one operation per pair of members and point) and the
-  operations of stats_work. Returns {name: (median, q1, q3, runs)} in ms."""
+def time_sorted_form(card: str) -> dict:
+  """Phase 10's row of the sorted-runs form (65..256 members): fused and
+  spread-only at M = SORTED_M over GRID, float32, iid N(0, 1), checked
+  against their plain versions, then timed as time_kernels times the
+  others. Logs each beside its bytes bound, the replaced pair loop's (one
+  operation per pair of members and point) and the operations of
+  stats_work. Returns {name: (median, q1, q3, runs)} in ms."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
-  m, n = SHARED_M, math.prod(GRID)
-  if cp.spread_form(m) != 'shared':
+  m, n = SORTED_M, math.prod(GRID)
+  if cp.spread_form(m) != 'sorted':
     raise AssertionError(f'M = {m} routes to {cp.spread_form(m)}')
-  g = torch.Generator(device=DEVICE).manual_seed(SHARED_SEED)
+  g = torch.Generator(device=DEVICE).manual_seed(SORTED_SEED)
   x = torch.randn((m,) + GRID, generator=g, device=DEVICE)
   y = torch.randn(GRID, generator=g, device=DEVICE)
-  stats_against_plain(x.reshape(m, n), y.reshape(n), f'shared form M={m}',
+  stats_against_plain(x.reshape(m, n), y.reshape(n), f'sorted form M={m}',
                       'float32')
   res = time_cuda({
       'fused_kernel': lambda: cp.fused_ensemble_stats(x, y),
@@ -2120,21 +2373,21 @@ def time_shared_form(card: str) -> dict:
   }, rounds=6, reps=TIMING_REPS))
   pairs = m * (m - 1) // 2
   pair_ms = 1e3 * pairs * n / FP32_OPS_PER_S
+  runs, size = cp.sorted_runs(m)
   for name, (med, q1, q3, count) in res.items():
     key, kind = name.split('_')
     nbytes, ops = stats_work(m, n, key == 'fused')
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    share = (f'{bytes_ms / med:.1%} of the bytes bound, '
-             f'{pair_ms / med:.1%} of the pair loop\'s; '
+    share = (f'{bytes_ms / med:.1%} of the bytes bound; '
              if kind == 'kernel' else '')
-    log(f'timing shared form {name} M={m}: median {med:.4f} ms, IQR '
-        f'[{q1:.4f}, {q3:.4f}] ms over {count} runs; {share}bytes bound '
-        f'{bytes_ms:.4f} ms ({nbytes} bytes), pair loop {pair_ms:.4f} ms '
-        f'({pairs} pairs per point), operations '
+    log(f'timing sorted form {name} M={m} ({runs} runs of {size}): median '
+        f'{med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms over {count} runs; '
+        f'{share}bytes bound {bytes_ms:.4f} ms ({nbytes} bytes), the pair '
+        f'loop\'s {pair_ms:.4f} ms ({pairs} pairs per point), operations '
         f'{1e3 * ops / FP32_OPS_PER_S:.4f} ms ({ops} by stats_work); N={n}, '
         f'float32; card {card}')
   del x, y
-  return {f'shared{m}_{k}': v for k, v in res.items()}
+  return {f'sorted{m}_{k}': v for k, v in res.items()}
 
 
 def copy_share(res: dict, nbytes: int, ms: float, copy_bytes: int) -> float:
@@ -2153,7 +2406,7 @@ def timing(ev, chunks, stores, card: str) -> dict:
   yt = stores[1]['2m_temperature'].data[:, :GRID[1]][:, None].to(
       DEVICE).contiguous()
   res = time_kernels(x, y, yt, card)
-  res.update(time_shared_form(card))
+  res.update(time_sorted_form(card))
   pair = ev.prepare_pair(p, t)
   steps = time_cuda({
       'eval_chunk (host chunk in)': lambda: ev.eval_chunk(p, t),
@@ -2188,13 +2441,15 @@ def timing_fields(res: dict, key: str, work: tuple, form: str,
 
 
 def kernels_line(main_launches, ens_launches, main_err, res, n,
-                 station, batched) -> dict:
+                 station, batched, large) -> dict:
   """The `kernels` JSON: fused and spread at M = 50, cross at 50 x 10, and
   the spread's M = 10 launch (the ensemble path's analysis) beside it; the
   fused kernel's launch and error on the station path (phase 12) and its
   launch on the batched main path (phase 15(a): 3 chunks, one launch)
-  beside its main path's. No single PyTorch call computes any of the three
-  functions, so library_ms is null."""
+  beside its main path's; the fused kernel's sorted runs on phase 4b's
+  path at M = 101, with phase 10's M = 100 row beside it, and the
+  spread-only sorted runs' M = 100 row (on no path). No single PyTorch call
+  computes any of the three functions, so library_ms is null."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   csrc = 'weatherbenchx_tpu_torch/ops/csrc/'
   replaced = 'weatherbenchx_tpu/ops/crps_pairwise.py'
@@ -2231,6 +2486,22 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
               **timing_fields(res, 'spread10',
                               stats_work(M_TARGETS, n, False), f10,
                               copy_bytes)},
+      f'm{SORTED_M}': {
+          'source': csrc + 'sorted_stats.cuh', 'launches': 0,
+          **timing_fields(res, f'sorted{SORTED_M}_spread',
+                          stats_work(SORTED_M, n, False), 'sorted',
+                          copy_bytes)},
+  }, {
+      'name': 'fused_ensemble_stats_sorted_runs', 'route': 'cuda',
+      'source': csrc + 'sorted_stats.cuh', 'replaces': f'{replaced}:238',
+      'launches': large['launches']['fused_ensemble_stats'],
+      'max_abs_err': large['max_abs_err'],
+      **timing_fields({**large['timing'], 'copy': res['copy']}, 'fused',
+                      stats_work(M_LARGE, n, True), 'sorted', copy_bytes),
+      'members': M_LARGE,
+      f'm{SORTED_M}': timing_fields(res, f'sorted{SORTED_M}_fused',
+                                    stats_work(SORTED_M, n, True), 'sorted',
+                                    copy_bytes),
   }, {
       'name': 'pairwise_cross_sum', 'route': 'cuda',
       'source': csrc + 'crps_pairwise.cu', 'replaces': f'{replaced}:426',
@@ -4367,6 +4638,8 @@ def main() -> int:
   log('phase 3 kernels: all checks within tolerance')
   ev, chunks, main_launches, main_values = main_path(args.seed)
   log('phase 4 main path: ok')
+  large = large_ensemble_path(args.seed, card)
+  log('phase 4b large ensemble: ok')
   stores, ens_launches = ensemble_path(args.seed)
   log('phase 5 ensemble path: ok')
   bench, bstores, bstate, in_memory = benchmark_path(args.seed, card)
@@ -4425,7 +4698,7 @@ def main() -> int:
 
   n = math.prod(GRID)
   print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,
-                                n, station['ensemble'], batched_main)),
+                                n, station['ensemble'], batched_main, large)),
         flush=True)
   print(card, flush=True)
   print(json.dumps({'ok': True, 'device': {

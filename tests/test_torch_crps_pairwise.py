@@ -321,33 +321,6 @@ def _emulate_network_spread(x):
   return out
 
 
-def _emulate_shared_spread(x):
-  """The shared-memory form (past 64 members), in float32: rows i0..i0+3
-  held in four accumulators, the pairs within them, then every later row
-  streamed past them; the four summed and doubled. Where a member is
-  infinite and none NaN, the counts of +inf and -inf members give the
-  result (``infinite_spread`` in csrc/common.cuh), not |inf − inf|."""
-  m = x.shape[0]
-  acc = np.zeros((4,) + x.shape[1:], np.float32)
-  with np.errstate(invalid='ignore'):
-    for i0 in range(0, m, 4):
-      rows = [r for r in range(4) if i0 + r < m]
-      for r in rows:
-        for r2 in rows[r + 1:]:
-          acc[r] += np.abs(x[i0 + r] - x[i0 + r2])
-      for j in range(i0 + 4, m):
-        for r in rows:
-          acc[r] += np.abs(x[i0 + r] - x[j])
-  out = np.float32(2) * (((acc[0] + acc[1]) + acc[2]) + acc[3])
-  n_pos, n_neg = (x == np.inf).sum(0), (x == -np.inf).sum(0)
-  nan = (2 * n_pos > m + 1) | (2 * n_neg > m + 1)
-  if m < crps_pairwise.JAX_SORT_MEMBERS:
-    nan |= (n_pos > 1) | (n_neg > 1)
-  infinite = ~np.isnan(x).any(0) & (n_pos + n_neg > 0)
-  out[infinite] = np.where(nan, np.nan, np.inf).astype(np.float32)[infinite]
-  return out
-
-
 @pytest.mark.parametrize('m,offset,scale', [
     (20, 0.0, 1.0), (21, 0.0, 1.0), (50, 0.0, 1.0), (64, 0.0, 1.0),
     (50, 288.0, 3.0)])
@@ -426,9 +399,10 @@ def _assert_same_spread(got, want, label):
 
 @pytest.mark.parametrize('m', INFINITY_MEMBERS)
 def test_infinite_members_give_the_jax_kernels_result(m):
-  """The plain versions (spread and fused), the emulations of the network
-  and shared kernels and the JAX kernel (interpret) agree on every inf and
-  NaN point of the seven columns, whichever JAX body runs at m."""
+  """The plain versions (spread and fused), the emulation of the kernel
+  form that m takes (the network to 64 members, the sorted runs past them)
+  and the JAX kernel (interpret) agree on every inf and NaN point of the
+  seven columns, whichever JAX body runs at m."""
   x = _infinite_members(m)
   y = np.random.default_rng(m + 1).standard_normal(7).astype(np.float32)
   jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
@@ -438,9 +412,8 @@ def test_infinite_members_give_the_jax_kernels_result(m):
       torch.from_numpy(x), torch.from_numpy(y))[0].numpy()
   _assert_same_spread(plain, jax_, 'plain')
   _assert_same_spread(fused, jax_, 'fused plain')
-  _assert_same_spread(_emulate_shared_spread(x), jax_, 'shared')
-  if m in crps_pairwise.REGISTER_MEMBERS:
-    _assert_same_spread(_emulate_network_spread(x), jax_, 'network')
+  _assert_same_spread(_emulate_form_spread(x), jax_,
+                      crps_pairwise.spread_form(m))
   assert np.isnan(jax_[6]) and np.isinf(jax_[:3]).all()
 
 
@@ -463,29 +436,26 @@ def test_network_emulation_infinities_follow_the_plain_version(m):
 def test_pair_forms_give_nan_for_two_infinities_of_one_sign(m):
   """Below 20 members the JAX package's pair body takes |inf − inf| = NaN
   for two members at one infinity, and every form of the port gives it
-  too; from 20 on its sort body gives inf there, and so does the port's
-  shared-memory pair form, whose counts of infinite members, not its
-  |inf − inf|, decide."""
+  too; from 20 on its sort body gives inf there, and so do the port's
+  network and its sorted runs past 64 members."""
   x = _infinite_members(m)
   plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
-  pairs = _emulate_shared_spread(x)
   jax_ = np.asarray(j_crps.pairwise_spread_sum(jnp.asarray(x),
                                                interpret=True))
   want = ([np.inf] * 3 + [np.nan] * 4 if m < 20
           else [np.inf] * 6 + [np.nan])
-  for out in (plain, pairs, jax_, _emulate_network_spread(x)):
+  for out in (plain, jax_, _emulate_form_spread(x)):
     np.testing.assert_array_equal(out, want)
 
 
-@pytest.mark.parametrize('m', [2, 65, 66, 67, 100])
-def test_shared_emulation_matches_plain(m):
-  """Every m % 4 of the shared form's row groups, and 2 members."""
-  x = np.random.default_rng(m).standard_normal((m, 300)).astype(np.float32)
-  x[m // 2, 7] = np.nan
-  plain = crps_pairwise.pairwise_spread_sum_plain(torch.from_numpy(x)).numpy()
-  got = _emulate_shared_spread(x)
-  np.testing.assert_array_equal(np.isnan(got), np.isnan(plain))
-  np.testing.assert_allclose(got, plain, rtol=RTOL, atol=ATOL)
+def _emulate_form_spread(x):
+  """The spread of the kernel form that x's member count takes: the
+  network's emulation here, the sorted runs' in
+  ``test_torch_sorted_runs.py``."""
+  if crps_pairwise.spread_form(x.shape[0]) == 'network':
+    return _emulate_network_spread(x)
+  from test_torch_sorted_runs import _emulate_sorted_stats
+  return _emulate_sorted_stats(x)[0]
 
 
 @pytest.mark.parametrize('m', [2, 3, 4])
@@ -509,17 +479,20 @@ def test_network_emulation_infinities_at_few_members(m):
 
 
 def test_spread_form_routes_by_member_count():
-  """The network for every count 2..64, the shared form past it."""
+  """The network for every count 2..64, the sorted runs for 65..256, the
+  tiled pair form past them."""
   assert list(crps_pairwise.REGISTER_MEMBERS) == list(range(2, 65))
-  assert [crps_pairwise.spread_form(m) for m in range(2, 66)] == (
-      ['network'] * 63 + ['shared'])
+  assert list(crps_pairwise.SORTED_MEMBERS) == list(range(65, 257))
+  assert [crps_pairwise.spread_form(m) for m in range(2, 259)] == (
+      ['network'] * 63 + ['sorted'] * 192 + ['shared'] * 2)
   assert crps_pairwise.spread_form(400) == 'shared'
+  assert crps_pairwise.spread_form(4000) == 'shared'
 
 
 def test_generated_header_writes_each_network_in_order():
   """wbx_sort_networks.cuh holds sort_network(M), compare-exchange by
   compare-exchange, for every M of REGISTER_MEMBERS; the parts instantiate
-  every register kernel once."""
+  every register kernel and every sorted-runs kernel once."""
   header = _build.network_header()
   bodies = {}
   for block in header.split('void sort_network<')[1:]:
@@ -533,11 +506,11 @@ def test_generated_header_writes_each_network_in_order():
   for m in members:
     assert bodies[m] == crps_pairwise.sort_network(m), m
   entries = [line for text in _build.part_sources().values()
-             for line in text.splitlines()
-             if line.startswith('WBX_REGISTER_ENTRY(')]
+             for line in text.splitlines() if '_ENTRY(' in line]
   assert len(_build.part_sources()) == _build.PARTS
-  assert sorted(entries) == sorted(f'WBX_REGISTER_ENTRY({m})'
-                                   for m in members)
+  assert sorted(entries) == sorted(
+      [f'WBX_REGISTER_ENTRY({m})' for m in members]
+      + [f'WBX_SORTED_ENTRY({r})' for r in crps_pairwise.SORTED_RUN_SIZES])
 
 
 def test_library_name_covers_the_generated_networks(monkeypatch):
@@ -556,3 +529,17 @@ def test_register_symbols_name_the_generated_entries():
     text = f.read()
   assert 'extern "C" int wbx_ensemble_stats_registers_##M(' in text
   assert _build.register_symbol(50) == 'wbx_ensemble_stats_registers_50'
+
+
+def test_sorted_symbols_name_the_generated_entries():
+  """The launcher's symbol for runs of R is the one WBX_SORTED_ENTRY(R)
+  defines (``wbx_ensemble_stats_sorted_##R`` in sorted_stats.cuh), and the
+  parts include that header."""
+  with open(_build.SOURCE.replace('crps_pairwise.cu',
+                                  'sorted_stats.cuh')) as f:
+    text = f.read()
+  assert 'extern "C" int wbx_ensemble_stats_sorted_##R(' in text
+  assert '#include "register_stats.cuh"' in text
+  assert _build.sorted_symbol(51) == 'wbx_ensemble_stats_sorted_51'
+  assert all('#include "sorted_stats.cuh"' in part
+             for part in _build.part_sources().values())

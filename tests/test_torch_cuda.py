@@ -34,15 +34,16 @@ def _rel(got, want):
   return ((got[ok] - want[ok]).abs() / want[ok].abs().clamp(min=1)).max().item()
 
 
-# The route boundaries: the network from 2 to 64 members, the
-# shared-memory form past 64.
+# The route boundaries: the network from 2 to 64 members, the sorted runs
+# from 65 to 256 (two runs to 128, three to 192, four to 256), the tiled
+# pair form past 256.
 @pytest.mark.parametrize('m,rest', [(2, (5,)), (3, (33,)), (21, (2, 3, 65)),
                                     (50, (1, 129)), (400, (40,)),
                                     (10, (3, 70)), (16, (3, 70)),
                                     (63, (2, 99)), (64, (2, 99)),
-                                    (65, (2, 99)),
-                                    # four accumulators to 256 members,
-                                    # the two-level sum past them
+                                    (65, (2, 99)), (100, (2, 99)),
+                                    (101, (2, 99)), (128, (2, 99)),
+                                    (129, (2, 99)), (193, (2, 40)),
                                     (256, (2, 40)), (257, (2, 40))])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
@@ -111,7 +112,8 @@ def _infinite_members(m):
   return x
 
 
-@pytest.mark.parametrize('m', [2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100])
+@pytest.mark.parametrize('m', [2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100,
+                               101, 256, 257])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_infinite_members_match_plain(cuda, m, dtype):
   """Every kernel form gives the plain version's inf and NaN points, the
@@ -127,6 +129,71 @@ def test_infinite_members_match_plain(cuda, m, dtype):
     for f in (torch.isnan, torch.isposinf, torch.isneginf):
       assert torch.equal(f(g), f(want)), (m, g, want)
   assert torch.isnan(want[6]) and torch.isposinf(want[:3]).all()
+
+
+@pytest.mark.parametrize('m', [65, 101, 129, 193, 256, 257])
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_run_edges_match_plain(cuda, m, dtype, tol):
+  """+inf, -inf and NaN members on both sides of the first runs' edge
+  (past 256: of member 256), at the last member and beside the last run's
+  +inf pads, fused and spread-only: the plain version's points."""
+  edge = (crps_pairwise.sorted_runs(m)[1]
+          if crps_pairwise.spread_form(m) == 'sorted'
+          else crps_pairwise.SORTED_MAX_MEMBERS)
+  rng = np.random.default_rng(m)
+  x = rng.standard_normal((m, 300)).astype(np.float32)
+  cols = [((edge - 1,), np.inf), ((edge,), np.inf),
+          ((edge - 1, edge), np.inf), ((edge - 1,), -np.inf),
+          ((edge,), -np.inf), ((m - 1,), np.inf), ((m - 1,), -np.inf),
+          ((edge - 1,), np.nan), ((edge,), np.nan), ((m - 1,), np.nan)]
+  for col, (rows, value) in enumerate(cols):
+    x[list(rows), col] = value
+  xd = torch.from_numpy(x).to(cuda, dtype)
+  yd = torch.from_numpy(rng.standard_normal(300).astype(np.float32)).to(
+      cuda, dtype)
+  got = crps_pairwise._launch_stats(xd, yd) + (
+      crps_pairwise._launch_stats(xd, None),)
+  want = crps_pairwise.fused_ensemble_stats_plain(xd, yd) + (
+      crps_pairwise.pairwise_spread_sum_plain(xd),)
+  torch.cuda.synchronize()
+  for g, w in zip(got, want):
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+      assert torch.equal(f(g), f(w)), (m, f.__name__)
+    assert torch.isnan(g[7:10]).all()
+    fin = torch.isfinite(w)
+    assert _rel(g[fin], w[fin]) <= tol
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_every_run_size_matches_plain(cuda, dtype, tol):
+  """Each sorted-runs kernel built (run sizes 33..64), at every member
+  count that takes it with two runs, three and four, near 288 K, with a
+  NaN member and a +-inf member at other points."""
+  for m in crps_pairwise.SORTED_MEMBERS:
+    rng = np.random.default_rng(m)
+    x = (288 + 3 * rng.standard_normal((m, 200))).astype(np.float32)
+    x[m // 2, 0] = np.nan
+    x[0, 1] = np.inf
+    x[m - 1, 2] = -np.inf
+    xd = torch.from_numpy(x).to(cuda, dtype)
+    yd = torch.from_numpy(
+        (288 + 3 * rng.standard_normal(200)).astype(np.float32)).to(
+            cuda, dtype)
+    crps_pairwise.reset_launch_counts()
+    got = crps_pairwise.fused_ensemble_stats(xd, yd) + (
+        crps_pairwise.pairwise_spread_sum(xd),)
+    want = crps_pairwise.fused_ensemble_stats_plain(xd, yd) + (
+        crps_pairwise.pairwise_spread_sum_plain(xd),)
+    torch.cuda.synchronize()
+    assert crps_pairwise.MEMBER_COUNTS['fused_ensemble_stats'] == {m}
+    for g, w in zip(got, want):
+      assert torch.equal(torch.isnan(g), torch.isnan(w)), m
+      assert torch.equal(torch.isinf(g), torch.isinf(w)), m
+      fin = torch.isfinite(w)
+      assert _rel(g[fin], w[fin]) <= tol, m
+      assert torch.isnan(g[0]), m
 
 
 def test_native_io_builds_and_a_lazy_zarr_window_lands_on_the_card(

@@ -14,6 +14,7 @@ import json
 import os
 import threading
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -611,3 +612,114 @@ def test_host_chunks_in_flight_are_at_most_prefetch(prefetch):
     got.append((i, chunk))
   assert [i for i, _ in got] == list(range(len(times)))
   assert [c for _, c in got] == list(times)
+
+
+# -- each side of a chunk placed in the loader (the host's memory) ------------------
+
+
+class _HostLedger:
+  """A stand-in for the card on the CPU: ``place`` clones each side, as a
+  copy to the device would, and the ledger counts the host sides and the
+  placed sides alive (weakref finalizers on their tensors) and the order
+  of loads and placements."""
+
+  def __init__(self, evaluator):
+    self._place = evaluator.place
+    self.lock = threading.Lock()
+    self.alive = {'host': 0, 'placed': 0}
+    self.peak = {'host': 0, 'placed': 0}
+    self.events = []
+
+  def _track(self, side, kind):
+    with self.lock:
+      for da in side.values():
+        self.alive[kind] += 1
+        self.peak[kind] = max(self.peak[kind], self.alive[kind])
+        weakref.finalize(da.data, self._drop, kind)
+    return side
+
+  def _drop(self, kind):
+    with self.lock:
+      self.alive[kind] -= 1
+
+  def loader(self, inner, name):
+    """``inner`` whose every load is a fresh host tensor, as a store read
+    makes one, counted and recorded."""
+    ledger = self
+
+    class Tracked:
+      def load_chunk(self, init_times, lead_times=None, reference=None):
+        side = inner.load_chunk(init_times, lead_times, reference)
+        ledger.events.append(('load', name))
+        return ledger._track({k: da.copy(data=da.data.clone())
+                              for k, da in side.items()}, 'host')
+    return Tracked()
+
+  def place(self, side):
+    self.events.append(('place', 'side'))
+    placed = self._place({k: da.copy(data=da.data.clone())
+                          for k, da in side.items()})
+    return self._track(placed, 'placed')
+
+
+def _ledger_pipe(**kwargs):
+  pipe = _pipe(**kwargs)
+  ledger = _HostLedger(pipe._evaluator)
+  pipe.predictions_loader = ledger.loader(pipe.predictions_loader, 'preds')
+  pipe.targets_loader = ledger.loader(pipe.targets_loader, 'targets')
+  pipe._evaluator.place = ledger.place
+  return pipe, ledger
+
+
+@pytest.mark.parametrize('prefetch', [1, 2, 3])
+def test_loader_places_each_side_before_reading_the_next(prefetch):
+  """The targets go to the device before the predictions are read, and the
+  predictions once prepared: each loader holds one host side at a time,
+  and the placed chunks alive (the consumer's and the loads in flight)
+  are at most ``prefetch``."""
+  pipe, ledger = _ledger_pipe(prefetch=prefetch)
+  state = pipe.run()
+  n = len(pipe.times)
+  if prefetch == 1:  # one loader: the order is exact
+    assert ledger.events == [('load', 'targets'), ('place', 'side'),
+                             ('load', 'preds'), ('place', 'side')] * n
+  assert ledger.events.count(('place', 'side')) == 2 * n
+  assert ledger.peak['host'] <= prefetch
+  assert ledger.peak['placed'] <= 2 * prefetch
+  assert ledger.alive['host'] == 0
+  assert pipe._obs.timings['to_device_seconds'].count == n
+  _assert_states_equal(state, _pipe(prefetch=prefetch).run())
+
+
+@pytest.mark.parametrize('chunks_per_dispatch', [1, 2, 4])
+def test_placed_stream_gives_the_host_stream_state(chunks_per_dispatch,
+                                                   monkeypatch):
+  """Chunks placed in the loader give, bit for bit, the state of chunks
+  kept on the host until the evaluator places them, one chunk or several
+  stacked per dispatch (to_device_stacked of tensors already placed)."""
+  placed = _pipe(chunks_per_dispatch=chunks_per_dispatch).run()
+  load = pipeline.load_chunk_pair
+  monkeypatch.setattr(
+      pipeline, 'load_chunk_pair',
+      lambda *args, place=None, **kwargs: load(*args, **kwargs))
+  host = _pipe(chunks_per_dispatch=chunks_per_dispatch)
+  _assert_states_equal(placed, host.run())
+  assert 'to_device_seconds' not in host._obs.timings
+
+
+def test_placed_pair_is_not_copied_again():
+  """``to_device`` of a pair that ``place`` already put on the device
+  keeps its tensors: the consumer copies nothing."""
+  pipe = _pipe()
+  ev = pipe._evaluator
+  init, lead = next(iter(pipe.times))
+  t = ev.place(pipe.targets_loader.load_chunk(init, lead))
+  p = ev.place(ev.prepare_host(
+      pipe.predictions_loader.load_chunk(init, lead, reference=t), t)[0])
+  again = ev.to_device(p, t)
+  for side, before in zip(again, (p, t)):
+    for var, da in side.items():
+      assert da.data is before[var].data
+  mask = t['2m_temperature'].coords['mask'].values
+  assert isinstance(mask, torch.Tensor)
+  assert again[1]['2m_temperature'].coords['mask'].values is mask

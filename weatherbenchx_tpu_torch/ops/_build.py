@@ -4,10 +4,12 @@ At first use, ``load_library`` compiles the sources in ``csrc/`` into one
 shared library with a plain C interface, for Hopper (``sm_90a``), into
 ``build/wbx_torch_kernels/`` beside the package (a directory git ignores):
 
-* ``csrc/crps_pairwise.cu``: the cross kernel and the shared-memory form
-  of the fused and spread-only kernels;
+* ``csrc/crps_pairwise.cu``: the cross kernel and the tiled pair form of
+  the fused and spread-only kernels;
 * the register form (``csrc/register_stats.cuh``), one entry point per M
-  of ``crps_pairwise.REGISTER_MEMBERS``, spread over ``PARTS`` generated
+  of ``crps_pairwise.REGISTER_MEMBERS``, and the sorted-runs form
+  (``csrc/sorted_stats.cuh``), one entry point per run size of
+  ``crps_pairwise.SORTED_RUN_SIZES``, spread over ``PARTS`` generated
   translation units so that nvcc compiles them in parallel. The sorting
   networks are generated too: ``wbx_sort_networks.cuh`` writes
   ``crps_pairwise.sort_network(M)`` out as straight-line compare-exchanges.
@@ -66,6 +68,11 @@ def register_symbol(m: int) -> str:
   return f'wbx_ensemble_stats_registers_{m}'
 
 
+def sorted_symbol(run_size: int) -> str:
+  """The C entry point of the sorted-runs kernels of runs of run_size."""
+  return f'wbx_ensemble_stats_sorted_{run_size}'
+
+
 def network_header() -> str:
   """``wbx_sort_networks.cuh``: ``sort_network<M>`` for every M of
   ``REGISTER_MEMBERS``, one compare-exchange per line in list order."""
@@ -85,28 +92,37 @@ def network_header() -> str:
 
 
 def _kernel_cost(m: int) -> int:
-  """Instructions per gridpoint, roughly: what a part's compile time
-  grows with."""
+  """Instructions per gridpoint of a network of m wires and its loads,
+  roughly: what a part's compile time grows with."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise
   return 2 * len(crps_pairwise.sort_network(m)) + 8 * m
 
 
-def part_sources() -> dict:
-  """{file name: text} of the PARTS translation units of register kernels,
-  each M in one of them, balanced by ``_kernel_cost``."""
+def part_entries() -> list:
+  """Every generated entry line: ``WBX_REGISTER_ENTRY(M)`` per M of
+  ``REGISTER_MEMBERS`` and ``WBX_SORTED_ENTRY(R)`` per run size of
+  ``SORTED_RUN_SIZES``, with its ``_kernel_cost``."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise
+  return ([(f'WBX_REGISTER_ENTRY({m})', _kernel_cost(m))
+           for m in crps_pairwise.REGISTER_MEMBERS]
+          + [(f'WBX_SORTED_ENTRY({r})', _kernel_cost(r))
+             for r in crps_pairwise.SORTED_RUN_SIZES])
+
+
+def part_sources() -> dict:
+  """{file name: text} of the PARTS translation units of register and
+  sorted-runs kernels, each entry in one of them, balanced by
+  ``_kernel_cost``."""
   parts = [[] for _ in range(PARTS)]
   loads = [0] * PARTS
-  for m in sorted(crps_pairwise.REGISTER_MEMBERS, key=_kernel_cost,
-                  reverse=True):
+  for line, cost in sorted(part_entries(), key=lambda e: -e[1]):
     i = loads.index(min(loads))
-    parts[i].append(m)
-    loads[i] += _kernel_cost(m)
+    parts[i].append(line)
+    loads[i] += cost
   return {f'wbx_register_part{i}.cu': '\n'.join(
       ['// Generated by weatherbenchx_tpu_torch/ops/_build.py; do not edit.',
-       '#include "register_stats.cuh"', '']
-      + [f'WBX_REGISTER_ENTRY({m})' for m in sorted(part)]
-      + ['']) for i, part in enumerate(parts)}
+       '#include "sorted_stats.cuh"', ''] + sorted(part) + [''])
+          for i, part in enumerate(parts)}
 
 
 def generated_sources() -> dict:
@@ -208,6 +224,8 @@ def load_library() -> ctypes.CDLL:
       }
       for m in crps_pairwise.REGISTER_MEMBERS:
         entries[register_symbol(m)] = [p] * 6 + [i64, i32, i32, i32, p]
+      for r in crps_pairwise.SORTED_RUN_SIZES:
+        entries[sorted_symbol(r)] = [p] * 6 + [i64, i64, i32, i32, i32, p]
       for name, argtypes in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

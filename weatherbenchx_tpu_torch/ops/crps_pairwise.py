@@ -12,19 +12,26 @@ array and y as (N) (or (My, N) for the cross sum), N = prod(rest). (The
 TPU kernel's rule against reshapes, which retile its memory layout, has no
 counterpart here.)
 
-The fused and spread-only kernels take one of two forms, picked from the
-member count M alone (``spread_form``), both hand-written CUDA:
+The fused and spread-only kernels take one of three forms, picked from the
+member count M alone (``spread_form``), all hand-written CUDA:
 
-* ``network`` (M in ``REGISTER_MEMBERS``): one thread per gridpoint, the M
-  members in registers, sorted there by the compare-exchange list
-  ``sort_network(M)``; the spread is the weighted sum of order statistics
-  that ``pairwise_spread_sum_plain`` computes;
-* ``shared`` (larger M): the members staged in shared memory and a pair
-  loop run over them; past 256 members the pair sum is added in two
-  levels, and past ``TILE_MEMBERS`` the ensemble is walked tile by tile.
+* ``network`` (M in ``REGISTER_MEMBERS``, 2..64): one thread per
+  gridpoint, the M members in registers, sorted there by the
+  compare-exchange list ``sort_network(M)``; the spread is the weighted sum
+  of order statistics that ``pairwise_spread_sum_plain`` computes;
+* ``sorted`` (M in ``SORTED_MEMBERS``, 65..256): one thread per gridpoint,
+  the members cut into ``sorted_runs(M)`` runs of at most 64, each sorted
+  in registers by ``sort_network`` and stored to shared memory; two merge
+  walks, up from the smallest members and down from the largest, pair rank
+  k with rank M − 1 − k for the same weighted sum, shifted by the median
+  (which drops out of each pair);
+* ``shared`` (past 256): the members staged in shared memory and a pair
+  loop run over them, the pair sum added in two levels; past
+  ``TILE_MEMBERS`` the ensemble is walked tile by tile.
 
-``_build`` compiles one network kernel per M of ``REGISTER_MEMBERS``, the
-networks written out as straight-line code from ``sort_network``.
+``_build`` compiles one network kernel per M of ``REGISTER_MEMBERS`` and
+one sorted-runs kernel per run size of ``SORTED_RUN_SIZES``, the networks
+written out as straight-line code from ``sort_network``.
 
 ``LAUNCHES`` counts kernel launches per kernel, so that a run can show its
 main path went through the kernels; the plain versions do not count. Each
@@ -58,6 +65,28 @@ def member_tiles(m: int) -> int:
 # memory bound) and fell 8-9% behind at 32 (PERF.md, PR 4).
 REGISTER_MAX_MEMBERS = 64
 REGISTER_MEMBERS = range(2, REGISTER_MAX_MEMBERS + 1)
+
+# The member counts of the sorted-runs kernels: runs of at most
+# REGISTER_MAX_MEMBERS, sorted by the register kernels' networks, and at
+# most four of them. 256 members is where shared memory ends the form: the
+# runs take 1 KB a gridpoint, 64 KB for a block of 64 threads, so no more
+# than three blocks (192 gridpoints) fit an SM's 228 KB, and the merge's
+# run heads stay in registers at compile-time indices. Past it, the tiled
+# pair form.
+SORTED_MAX_MEMBERS = 4 * REGISTER_MAX_MEMBERS
+SORTED_MEMBERS = range(REGISTER_MAX_MEMBERS + 1, SORTED_MAX_MEMBERS + 1)
+
+
+def sorted_runs(m: int) -> tuple:
+  """(runs, run size) of the sorted-runs kernel for m members: the fewest
+  runs of at most 64 members, all but the last of one size."""
+  runs = -(-m // REGISTER_MAX_MEMBERS)
+  return runs, -(-m // runs)
+
+
+# The run sizes the sorted-runs kernels are compiled for, 33..64: each is
+# a template constant, so that its network unrolls into registers.
+SORTED_RUN_SIZES = tuple(sorted({sorted_runs(m)[1] for m in SORTED_MEMBERS}))
 
 # The member count from which the JAX package's spread kernel takes its sort
 # body, below it its pair body (weatherbenchx_tpu/ops/crps_pairwise.py:90).
@@ -112,8 +141,10 @@ def sort_network(m: int) -> list:
 
 
 def spread_form(m: int) -> str:
-  """The kernel form for m members: 'network' or 'shared'."""
-  return 'network' if m in REGISTER_MEMBERS else 'shared'
+  """The kernel form for m members: 'network', 'sorted' or 'shared'."""
+  if m in REGISTER_MEMBERS:
+    return 'network'
+  return 'sorted' if m in SORTED_MEMBERS else 'shared'
 
 
 # -- plain versions -----------------------------------------------------------
@@ -223,9 +254,13 @@ def _launch_stats(x: torch.Tensor, y):
             *(o.data_ptr() for o in outs), *(None,) * (4 - len(outs)))
     dtype = KERNEL_DTYPES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if spread_form(m) == 'shared':
+    form = spread_form(m)
+    if form == 'shared':
       rc = lib.wbx_ensemble_stats_shared(*ptrs, m, n, dtype, fused,
                                          x.device.index, stream)
+    elif form == 'sorted':
+      rc = getattr(lib, _build.sorted_symbol(sorted_runs(m)[1]))(
+          *ptrs, m, n, dtype, fused, x.device.index, stream)
     else:
       rc = getattr(lib, _build.register_symbol(m))(
           *ptrs, n, dtype, fused, x.device.index, stream)

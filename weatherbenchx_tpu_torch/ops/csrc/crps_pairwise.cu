@@ -1,26 +1,27 @@
 // Ensemble statistics for the CRPS family: CUDA C++ for Hopper (sm_90a).
 //
-// The shared-memory form of the fused and spread-only kernels, for
-// ensembles of more than 64 members (register_stats.cuh holds the register
-// form for 2..64, which ops/crps_pairwise.py:spread_form picks first).
-// Replaces, in weatherbenchx_tpu/ops/crps_pairwise.py, _fused_kernel (via
-// _fused_stats_impl -> pl.pallas_call) and _spread_kernel /
-// _spread_kernel_sort (via _pairwise_spread_sum_impl): spread_sum =
-// sum_{i != j} |x_i - x_j|, and with the target y skill_sum = sum_i
-// |x_i - y|, mean and the two-pass sq_dev_sum = sum_i (x_i - mean)^2.
+// The tiled pair form of the fused and spread-only kernels, for ensembles
+// of more than 256 members (register_stats.cuh holds the register form for
+// 2..64 members and sorted_stats.cuh the sorted runs for 65..256, which
+// ops/crps_pairwise.py:spread_form picks first). Replaces, in
+// weatherbenchx_tpu/ops/crps_pairwise.py, _fused_kernel (via
+// _fused_stats_impl -> pl.pallas_call) and _spread_kernel_sort (via
+// _pairwise_spread_sum_impl): spread_sum = sum_{i != j} |x_i - x_j|, and
+// with the target y skill_sum = sum_i |x_i - y|, mean and the two-pass
+// sq_dev_sum = sum_i (x_i - mean)^2.
 //
 // What bounds it on the H100: the pair loop. At M members it does
 // M(M-1)/2 pairs per gridpoint, each two FP32 adds (the difference, then
 // the add of its absolute value), and FADD runs at 128 per clock per SM
-// with no FMA pairing: at M = 50 over 4.15 M gridpoints that is 10.2 G
-// adds, ~0.30 ms at 1.98 GHz, as long as reading the 830 MB ensemble at
-// 3.35 TB/s, and growing as M^2 past it. The design:
+// with no FMA pairing: past 256 members that is more than 32,000 adds per
+// gridpoint, so the operations bound it, growing as M^2. The design:
 //   * one thread per gridpoint, so every member row is read from device
 //     memory exactly once, coalesced (consecutive threads, consecutive
 //     gridpoints);
-//   * the block stages its (M, blockDim) tile in dynamic shared memory as
-//     float32; each thread reads back only its own column, so the kernel
-//     needs no barrier and the ragged last block just returns early;
+//   * the block stages its (tile_rows, blockDim) tile in dynamic shared
+//     memory as float32; each thread reads back only its own column, so
+//     the kernel needs no barrier and the ragged last block just returns
+//     early;
 //   * the pair loop holds kRowGroup members in registers and streams the
 //     later members past them, cutting shared-memory reads per pair by
 //     kRowGroup;
@@ -30,12 +31,10 @@
 //     whose rows stream past from device memory kRowGroup at a time. Every
 //     pair is met once, in the tile of its earlier member; a row is read
 //     once per tile before it;
-//   * past 256 members the pair sum is added in two levels, a short
-//     float32 run per group of kRowGroup members (at most one tile's
-//     members long) and the runs into the total, so the rounding error
-//     grows with the square root of M and not of M^2. Up to 256 members
-//     four accumulators take all pairs: at 100 members the two-level
-//     form read 13-25% slower on an H100.
+//   * the pair sum is added in two levels, a short float32 run per group
+//     of kRowGroup members (at most one tile's members long) and the runs
+//     into the total, so the rounding error grows with the square root of
+//     M and not of M^2.
 // The pair form needs no sort, and it propagates NaN by plain arithmetic:
 // a NaN member poisons only its own gridpoint (no fminf/fmaxf, which drop
 // NaN). Infinite members are counted on load, and the counts, not the pair
@@ -63,11 +62,9 @@ namespace {
 constexpr int kMaxThreads = 128;
 constexpr int kMinThreads = 32;
 constexpr int kRowGroup = 4;
-// The sizes up to which the kernels add all of a gridpoint's pairs in
-// four float32 accumulators: 256 members (8,192 terms each) and 8,192
-// cross pairs (2,048 each). Past them the runs would cost float32 digits
-// (1.8e-5 from float64 at 1,816 members), and the tiled forms take over.
-constexpr int kShortStatsMembers = 256;
+// The cross pairs up to which the cross kernel adds all of a gridpoint's
+// pairs in four float32 accumulators (2,048 terms each). Past them the runs
+// would cost float32 digits, and its tiled form takes over.
 constexpr int64_t kShortCrossPairs = 8192;
 // Shared memory one block may use on Hopper (227 KB).
 constexpr size_t kMaxSharedBytes = 232448;
@@ -82,10 +79,8 @@ __device__ __forceinline__ float group_sum(const float (&acc)[kRowGroup]) {
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
-// kTiled = false: the whole ensemble in one tile (tile_rows == m) and four
-// float32 accumulators over all pairs, for up to kShortStatsMembers
-// members. kTiled = true: tile by tile, in two levels (above).
-template <typename T, bool kFused, bool kTiled>
+// Tile by tile, in two levels (above): tile_rows members staged at a time.
+template <typename T, bool kFused>
 __global__ void ensemble_stats_kernel(const T* __restrict__ x,
                                       const T* __restrict__ y,
                                       T* __restrict__ spread_out,
@@ -105,10 +100,8 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
   int n_neg = 0;
   float half_spread = 0.f;  // sum_{i<j} |x_i - x_j|
   float acc[kRowGroup];
-#pragma unroll
-  for (int r = 0; r < kRowGroup; ++r) acc[r] = 0.f;
   for (int c0 = 0; c0 < m; c0 += tile_rows) {
-    const int mc = kTiled ? min(tile_rows, m - c0) : m;
+    const int mc = min(tile_rows, m - c0);
     for (int i = 0; i < mc; ++i) {
       const float v = load(x + static_cast<int64_t>(c0 + i) * n + g);
       col[i * stride] = v;
@@ -123,7 +116,7 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
       float xi[kRowGroup];
 #pragma unroll
       for (int r = 0; r < kRowGroup; ++r) {
-        if constexpr (kTiled) acc[r] = 0.f;
+        acc[r] = 0.f;
         xi[r] = (i0 + r < mc) ? col[(i0 + r) * stride] : 0.f;
       }
 #pragma unroll
@@ -138,38 +131,29 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
 #pragma unroll
         for (int r = 0; r < kRowGroup; ++r) acc[r] += fabsf(xi[r] - xj);
       }
-      if constexpr (kTiled) half_spread += group_sum(acc);
+      half_spread += group_sum(acc);
     }
-    if constexpr (!kTiled) {
-      break;  // tile_rows == m
-    } else {
-      // The tile's members against every later member, streamed from
-      // device memory (no trip when one tile holds the ensemble).
-      for (int j0 = c0 + mc; j0 < m; j0 += kRowGroup) {
-        float xj[kRowGroup];
-        bool live[kRowGroup];
+    // The tile's members against every later member, streamed from device
+    // memory (no trip when one tile holds the ensemble).
+    for (int j0 = c0 + mc; j0 < m; j0 += kRowGroup) {
+      float xj[kRowGroup];
+      bool live[kRowGroup];
 #pragma unroll
-        for (int r = 0; r < kRowGroup; ++r) {
-          acc[r] = 0.f;
-          live[r] = j0 + r < m;
-          xj[r] =
-              live[r] ? load(x + static_cast<int64_t>(j0 + r) * n + g) : 0.f;
-        }
-        for (int i = 0; i < mc; ++i) {
-          const float xi = col[i * stride];
-#pragma unroll
-          for (int r = 0; r < kRowGroup; ++r) acc[r] += fabsf(xj[r] - xi);
-        }
-#pragma unroll
-        for (int r = 0; r < kRowGroup; ++r)
-          if (!live[r]) acc[r] = 0.f;
-        half_spread += group_sum(acc);
+      for (int r = 0; r < kRowGroup; ++r) {
+        acc[r] = 0.f;
+        live[r] = j0 + r < m;
+        xj[r] = live[r] ? load(x + static_cast<int64_t>(j0 + r) * n + g) : 0.f;
       }
-    }
-  }
-  if constexpr (!kTiled) {
+      for (int i = 0; i < mc; ++i) {
+        const float xi = col[i * stride];
 #pragma unroll
-    for (int r = 0; r < kRowGroup; ++r) half_spread += acc[r];
+        for (int r = 0; r < kRowGroup; ++r) acc[r] += fabsf(xj[r] - xi);
+      }
+#pragma unroll
+      for (int r = 0; r < kRowGroup; ++r)
+        if (!live[r]) acc[r] = 0.f;
+      half_spread += group_sum(acc);
+    }
   }
   // Infinite members: |inf - inf| must not decide the result; the counts
   // give the JAX kernels' inf or NaN. A NaN member keeps the loop's NaN.
@@ -180,7 +164,7 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
   if constexpr (kFused) {
     const float yv = load(y + g);
     const float mean = sum / static_cast<float>(m);
-    const bool staged = !kTiled || m <= tile_rows;  // else the last tile is
+    const bool staged = m <= tile_rows;  // else the last tile is in shared
     float skill = 0.f;
     float sq_dev = 0.f;
     for (int i = 0; i < m; ++i) {
@@ -288,15 +272,17 @@ int prepare_launch(Kernel kernel, size_t smem, int threads, int64_t n,
   return cudaSuccess;
 }
 
-template <typename T, bool kFused, bool kTiled>
-int launch_stats(const void* x, const void* y, void* spread, void* skill,
-                 void* mean, void* sq_dev, int64_t m, int64_t n, int device,
-                 void* stream) {
+template <typename T, bool kFused>
+int launch(const void* x, const void* y, void* spread, void* skill,
+           void* mean, void* sq_dev, int64_t m, int64_t n, int device,
+           void* stream) {
+  if (m < 2 || m > (1 << 20) || n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
   int threads;
   int tile_rows;
   size_t smem;
   tile_config(m, &threads, &tile_rows, &smem);
-  auto kernel = ensemble_stats_kernel<T, kFused, kTiled>;
+  auto kernel = ensemble_stats_kernel<T, kFused>;
   unsigned blocks;
   const int err = prepare_launch(kernel, smem, threads, n, device, &blocks);
   if (err != cudaSuccess) return err;
@@ -305,19 +291,6 @@ int launch_stats(const void* x, const void* y, void* spread, void* skill,
       static_cast<T*>(spread), static_cast<T*>(skill), static_cast<T*>(mean),
       static_cast<T*>(sq_dev), static_cast<int>(m), tile_rows, n);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool kFused>
-int launch(const void* x, const void* y, void* spread, void* skill,
-           void* mean, void* sq_dev, int64_t m, int64_t n, int device,
-           void* stream) {
-  if (m < 2 || m > (1 << 20) || n < 0) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  if (m <= kShortStatsMembers)
-    return launch_stats<T, kFused, false>(x, y, spread, skill, mean, sq_dev, m,
-                                          n, device, stream);
-  return launch_stats<T, kFused, true>(x, y, spread, skill, mean, sq_dev, m, n,
-                                       device, stream);
 }
 
 template <typename T, bool kTiled>

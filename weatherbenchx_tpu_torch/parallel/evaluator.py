@@ -508,6 +508,17 @@ class ChunkEvaluator:
         {var: self._place(da, shard) for var, da in predictions.items()},
         {var: self._place(da, shard) for var, da in targets.items()}, shard)
 
+  def place(self, side: Mapping[Hashable, DimArray]) -> dict:
+    """One side of a chunk on the evaluator's device, as ``to_device``
+    places it off a mesh (its data, validity mask and climatology index
+    and value coords), so that the host copy can go before the other side
+    is read. ``to_device`` of a placed pair copies nothing. On a mesh the
+    two sides are cut by one shard: use ``to_device``."""
+    if self.mesh is not None:
+      raise ValueError('on a mesh, place both sides with to_device: they '
+                       'are cut by one shard')
+    return {var: self._place(da, None) for var, da in side.items()}
+
   def prepare_pair(self, predictions: Mapping[Hashable, DimArray],
                    targets: Mapping[Hashable, DimArray]) -> PlacedPair:
     """Host preparation, then the chunk on the device."""

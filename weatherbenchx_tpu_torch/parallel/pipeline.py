@@ -4,10 +4,12 @@ The port of ``weatherbenchx_tpu/parallel/pipeline.py:52-204, 262-652,
 659-790``, one process per device:
 
 * host enumeration of ``TimeChunks``, with threaded prefetch: loader
-  threads do host work only (selection, gathers, numpy, and the
+  threads do the host work (selection, gathers, numpy, and the
   statistics' host preparation ``ChunkEvaluator.prepare_host``, i.e.
-  climatology alignment indices and host-gathered climatology slices);
-  every device operation runs on the calling thread;
+  climatology alignment indices and host-gathered climatology slices)
+  and, off a mesh, copy each side of a chunk to the device as soon as it
+  is ready (``ChunkEvaluator.place``), so that the host holds at most one
+  side per loader; the evaluation runs on the calling thread;
 * per chunk, ``ChunkEvaluator.eval_host_prepared`` on the pipeline's
   device, its state added to a running bucket per (init_time, lead_time)
   offset of the dims the aggregator keeps;
@@ -131,25 +133,45 @@ def load_chunk_pair(
     chunk: time_chunks_lib.TimeChunk,
     obs: Optional[observability.Metrics] = None,
     prepare: Optional[Callable] = None,
+    place: Optional[Callable] = None,
 ):
-  """Loads one (predictions, targets) chunk pair on the host.
+  """Loads one (predictions, targets) chunk pair.
 
   ``prepare(predictions, targets)``, host work on the loaded pair (the
   evaluator's ``prepare_host``), runs as the last step of loading the
-  predictions and is timed with them.
+  predictions and is timed with them. ``place(side)`` (the evaluator's
+  ``place``) copies each side to the device as soon as it is ready, the
+  targets before the predictions are read, so that the host holds one side
+  of the chunk at a time, not both (as the JAX package's worker thread
+  places each prepared pair, ``_prepared_stream``); its seconds are
+  ``to_device_seconds``. Without it the pair stays on the host.
   """
   init_times, lead_times = chunk
+  placing = 0.0
+
+  def placed(side):
+    nonlocal placing
+    if place is None:
+      return side
+    t = time.monotonic()
+    side = place(side)
+    placing += time.monotonic() - t
+    return side
+
   t0 = time.monotonic()
-  targets = targets_loader.load_chunk(init_times, lead_times)
+  targets = placed(targets_loader.load_chunk(init_times, lead_times))
   t1 = time.monotonic()
   predictions = predictions_loader.load_chunk(
       init_times, lead_times, reference=targets)
   if prepare is not None:
     predictions, targets = prepare(predictions, targets)
+  predictions = placed(predictions)
   t2 = time.monotonic()
   if obs is not None:
     obs.record('load_targets_seconds', t1 - t0)
     obs.record('load_predictions_seconds', t2 - t1)
+    if place is not None:
+      obs.record('to_device_seconds', placing)
   logger.info('loaded chunk: targets %.0fms predictions %.0fms',
               (t1 - t0) * 1e3, (t2 - t1) * 1e3)
   return predictions, targets
@@ -211,9 +233,9 @@ def stream_chunk_pairs(
       if result is not None:
         yield i, offsets, result
       # As in the JAX package, the next load starts once the consumer is
-      # done with this chunk; dropped first, so that the host holds at most
-      # ``prefetch`` chunks, the one on the device included.
-      result = None
+      # done with this chunk; dropped first (the future holds it too), so
+      # that at most ``prefetch`` chunks are alive, the consumer's included.
+      result = fut = None
       nxt = next(queued, None)
       if nxt is not None:
         j, (offs, chunk) = nxt
@@ -291,6 +313,10 @@ class EvaluationPipeline:
 
   def __post_init__(self):
     self.device = torch.device(self.device)
+    if self.device.type == 'cuda' and self.device.index is None:
+      # The loader threads place chunks, and a new thread starts on card
+      # 0: name the card the calling thread has current.
+      self.device = torch.device('cuda', torch.cuda.current_device())
     if self.distributed:
       _partition(self.mesh)  # raises without a process group or a bad mesh
     self._obs = self.metrics_registry or observability.default_metrics
@@ -305,13 +331,18 @@ class EvaluationPipeline:
   # -- chunk loading ---------------------------------------------------------
 
   def _load(self, chunk: time_chunks_lib.TimeChunk):
-    return load_chunk_pair(self.predictions_loader, self.targets_loader,
-                           chunk, obs=self._obs,
-                           prepare=self._evaluator.prepare_host)
+    # Off a mesh each side goes to the device in the loader thread; on a
+    # mesh the two sides are cut by one shard, so they stay on the host
+    # until the evaluator places them together.
+    return load_chunk_pair(
+        self.predictions_loader, self.targets_loader, chunk, obs=self._obs,
+        prepare=self._evaluator.prepare_host,
+        place=self._evaluator.place if self.mesh is None else None)
 
   def _chunk_stream(self, start_chunk: int = 0):
-    """Yields (index, offsets, (predictions, targets)), host chunks
-    already through the evaluator's host preparation.
+    """Yields (index, offsets, (predictions, targets)), chunks already
+    through the evaluator's host preparation and, off a mesh, on the
+    device.
 
     ``start_chunk`` drops completed chunks before their loads are
     submitted, so a resumed run does not re-read them.
