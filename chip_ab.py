@@ -13,11 +13,13 @@ kernels and calls its ``chip_smoke.time_kernels`` at the paths' shapes
 (fused and spread at M = 50, spread at M = 10, cross 50 x 10, float32,
 N = 4,152,960) on inputs made on the card from one seed, then times the
 fused and spread-only kernels past the register kernels' 64 members,
-which those shapes do not reach, at 100 members over 1,038,240
-gridpoints. The turns go A,
-B, B, A, so that drift of the card or its host weighs on both alike.
-Prints each turn's medians (ms) with the card's name and power limit, then
-per kernel B's median over A's.
+which those shapes do not reach, at each member count of ``SORTED_M``
+over the same 4,152,960 gridpoints (iid N(0, 1)). The turns go A, B, B,
+A, so that drift of the card or its host weighs on both alike. Prints
+each turn's medians (ms) with the card's name and power limit, then per
+kernel B's median over A's and, past 64 members, each median's share of
+its bytes bound (each input read once, each output written once, at
+3.35 TB/s).
 """
 
 import argparse
@@ -27,6 +29,14 @@ import subprocess
 import sys
 
 import numpy as np
+
+# The member counts timed past 64: both ends of the sorted runs, a count
+# whose last run is padded most (67), the paths' 100 and 101, and the
+# first and last count of two, three and four runs, and 150 and 200 (full
+# runs of 50).
+SORTED_M = (65, 67, 100, 101, 128, 129, 150, 192, 193, 200, 256)
+HBM_BYTES_PER_S = 3.35e12
+N_POINTS = 4 * 721 * 1440
 
 _TURN = r'''
 import json, sys
@@ -42,20 +52,35 @@ x = torch.randn((50,) + shape, generator=gen, device='cuda')
 y = torch.randn(shape, generator=gen, device='cuda')
 yt = torch.randn((10,) + shape, generator=gen, device='cuda')
 res = cs.time_kernels(x, y, yt, cs.card_line())
-# Past the register kernels, which those shapes do not reach: 100 members.
+# Past the register kernels, which those shapes do not reach.
 from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
-xs = torch.randn((100, 1038240), generator=gen, device='cuda')
-ys = torch.randn((1038240,), generator=gen, device='cuda')
-res.update(cs.time_cuda({
-    'fused_m100_kernel': lambda: cp._launch_stats(xs, ys),
-    'spread_m100_kernel': lambda: cp._launch_stats(xs, None),
-}, rounds=12, reps=20))
+del x, yt
+n = y.numel()
+for m in SORTED_M:
+  xs = torch.randn((m, n), generator=gen, device='cuda')
+  res.update(cs.time_cuda({
+      f'fused_m{m}_kernel': lambda: cp._launch_stats(xs, y.reshape(n)),
+      f'spread_m{m}_kernel': lambda: cp._launch_stats(xs, None),
+  }, rounds=12, reps=20))
+  del xs
 print('TURN ' + json.dumps({k: v[0] for k, v in res.items()}), flush=True)
 '''
 
 
+def bytes_bound_ms(key: str):
+  """The bytes bound of a timed kernel past 64 members, else None."""
+  parts = key.split('_')
+  if len(parts) != 3 or not parts[1].startswith('m'):
+    return None
+  name, m = parts[0], int(parts[1][1:])
+  outputs = 4 if name == 'fused' else 1
+  inputs = m + (1 if name == 'fused' else 0)
+  return 1e3 * 4 * N_POINTS * (inputs + outputs) / HBM_BYTES_PER_S
+
+
 def run_turn(root: str) -> dict:
-  proc = subprocess.run([sys.executable, '-c', _TURN], cwd=root,
+  code = f'SORTED_M = {SORTED_M!r}\n' + _TURN
+  proc = subprocess.run([sys.executable, '-c', code], cwd=root,
                         capture_output=True, text=True, timeout=900,
                         check=False)
   if proc.returncode != 0:
@@ -90,6 +115,10 @@ def main() -> int:
     a = float(np.median([t[key] for t in turns['A']]))
     b = float(np.median([t[key] for t in turns['B']]))
     summary[key] = {'A_ms': a, 'B_ms': b, 'B_over_A': b / a}
+    bound = bytes_bound_ms(key)
+    if bound is not None:
+      summary[key].update(bytes_bound_ms=bound, A_share=bound / a,
+                          B_share=bound / b)
   print(json.dumps({'card': card, 'kernels': summary}), flush=True)
   return 0
 

@@ -25,8 +25,10 @@ script exits nonzero:
    kernels' inf/NaN pattern (their sort body from 20 members, their pair
    body below); NaN and +-inf members on both sides of a run's edge, at
    the last member and on both sides of 256 members, in both dtypes;
-   every register kernel built, M = 2..64, and every run size of the
-   sorted runs, R = 33..64, in both dtypes; and 1,816, 1,817 and 4,000
+   members all +inf or all -inf (or all but one) at each run count, with
+   padded runs, at 256 and 257; every register kernel built, M = 2..64,
+   and every run size of the sorted runs (33, 43, 50, 51, 64) at each run
+   count it serves, in both dtypes; and 1,816, 1,817 and 4,000
    members through the metrics (one, two and three shared-memory tiles:
    the fused pass, the spread and the two-ensemble skill against the
    float64 broadcast, each launch counted, and each of the three kernels
@@ -334,6 +336,10 @@ INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101, 256)
 # sorted runs' ends and their changes of run count, and 257 (the tiled
 # pair form, with the members on both sides of 256).
 RUN_EDGE_MEMBERS = (65, 100, 101, 128, 129, 192, 193, 256, 257)
+# Member counts checked with every member (or all but one) at one
+# infinity, where a merge walk exhausts a run and then meets only that
+# infinity: each run count and padded runs, the sorted runs' end and 257.
+ONE_INFINITY_MEMBERS = (65, 67, 100, 128, 129, 130, 192, 193, 205, 256, 257)
 # The H100 SXM's HBM rate, and its float32 issue rate for operations that
 # are not FMAs (min, max, add, subtract): 128 per clock per SM x 132 SMs x
 # 1.98 GHz; the data sheet's 67 TFLOP/s counts an FMA as two. For the
@@ -448,6 +454,7 @@ def check_kernels(seed: int) -> dict:
   check_nan_positions(rng)
   check_infinities(rng)
   check_run_edges(rng)
+  check_one_infinity(rng)
   check_every_register_kernel(rng)
   check_every_run_size(rng)
   main_path_err['cross'] = check_cross_kernel(rng)
@@ -585,20 +592,59 @@ def check_run_edges(rng) -> None:
           'version\'s points ok')
 
 
-def check_every_run_size(rng) -> None:
-  """Each sorted-runs kernel built, R = 33..64, at the smallest member
-  count that takes it, fused and spread-only, against the plain versions:
-  a NaN member, a +inf and a -inf at other points, |mean| >> std."""
+def check_one_infinity(rng) -> None:
+  """Both dtypes: a point whose members are all +inf (or all -inf), all
+  but one finite member (in the first run, in the last), all but one of
+  the other infinity (in the second run), and m//2 + 2 at one infinity.
+  A merge walk toward that infinity exhausts a run and then meets only the
+  infinity, so the exhausted run keeps winning the tie and must read no
+  row past its end: each point NaN, as the plain version's, and the
+  finite points within KERNEL_RTOL."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
-  sizes = {}
+  for m in ONE_INFINITY_MEMBERS:
+    edge = (cp.sorted_runs(m)[1] if cp.spread_form(m) == 'sorted'
+            else cp.SORTED_MAX_MEMBERS)
+    for value in (np.inf, -np.inf):
+      x = rng.standard_normal((m, 2000), dtype=np.float32)
+      x[:, :4] = value
+      x[0, 1] = 0.0
+      x[m - 1, 2] = 0.0
+      x[edge, 3] = -value
+      x[:m // 2 + 2, 4] = value
+      y = rng.standard_normal(2000, dtype=np.float32)
+      for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split('.')[-1]
+        got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
+                                  torch.from_numpy(y).to(DEVICE, dtype),
+                                  f'one infinity {value} M={m}', dname)
+        if not (bool(torch.isnan(got[0][:5]).all())
+                and bool(torch.isnan(got[4][:5]).all())
+                and bool(torch.isfinite(got[4][5:]).all())):
+          raise AssertionError(f'M={m} {dname} {value}: spread at the '
+                               'infinite points not NaN')
+    log(f'kernel check M={m} ({cp.spread_form(m)}): members all +inf, all '
+        '-inf, all but one, float32 and bfloat16, give the plain '
+        'version\'s NaN points ok')
+
+
+def check_every_run_size(rng) -> None:
+  """Each sorted-runs kernel built (``SORTED_RUN_SIZES``), at the smallest
+  member count that takes it at each run count, fused and spread-only,
+  against the plain versions: a NaN member, a +inf and a -inf at other
+  points, |mean| >> std."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  cases = {}
   for m in cp.SORTED_MEMBERS:
-    sizes.setdefault(cp.sorted_runs(m)[1], m)
-  if sorted(sizes) != list(cp.SORTED_RUN_SIZES):
-    raise AssertionError(f'run sizes {sorted(sizes)}')
+    runs, r = cp.sorted_runs(m)
+    cases.setdefault((r, runs), m)
+  sizes = sorted({r for r, _ in cases})
+  if sizes != list(cp.SORTED_RUN_SIZES):
+    raise AssertionError(f'run sizes {sizes}')
   for dtype in (torch.float32, torch.bfloat16):
     dname = str(dtype).split('.')[-1]
-    for r, m in sorted(sizes.items()):
+    for (r, runs), m in sorted(cases.items()):
       x = 288 + 3 * rng.standard_normal((m, 3000), dtype=np.float32)
       x[m // 2, 0] = np.nan
       x[0, 1] = np.inf
@@ -608,11 +654,12 @@ def check_every_run_size(rng) -> None:
                                 torch.from_numpy(y).to(DEVICE, dtype),
                                 f'runs of {r} (M={m})', dname)
       if not all(bool(torch.isnan(g[0])) for g in got):
-        raise AssertionError(f'runs of {r} {dname}: NaN member did not '
-                             'poison its point')
+        raise AssertionError(f'{runs} runs of {r} {dname}: NaN member did '
+                             'not poison its point')
     log(f'kernel check: {len(sizes)} sorted-runs kernels (R = '
-        f'{min(sizes)}..{max(sizes)}) {dname}, fused and spread-only, '
-        'against the plain versions ok')
+        f'{", ".join(map(str, sizes))}) at M = '
+        f'{", ".join(str(m) for _, m in sorted(cases.items()))} {dname}, '
+        'fused and spread-only, against the plain versions ok')
 
 
 def check_every_register_kernel(rng) -> None:

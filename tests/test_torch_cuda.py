@@ -165,10 +165,49 @@ def test_run_edges_match_plain(cuda, m, dtype, tol):
     assert _rel(g[fin], w[fin]) <= tol
 
 
+@pytest.mark.parametrize('m', [65, 67, 100, 128, 129, 130, 192, 193, 205,
+                               256, 257])
+@pytest.mark.parametrize('value', [np.inf, -np.inf])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_all_members_one_infinity_match_plain(cuda, m, value, dtype):
+  """Points whose members are all one infinity, all but one finite member
+  (in the first run, in the last), all but one of the other infinity, and
+  m//2 + 2 at it: a merge walk toward that infinity exhausts a run and
+  then meets only the infinity, and must read no row past the run's end.
+  Fused and spread-only: the plain version's NaN points, the finite point
+  within its tolerance."""
+  edge = (crps_pairwise.sorted_runs(m)[1]
+          if crps_pairwise.spread_form(m) == 'sorted'
+          else crps_pairwise.SORTED_MAX_MEMBERS)
+  rng = np.random.default_rng(m)
+  x = rng.standard_normal((m, 300)).astype(np.float32)
+  x[:, :4] = value
+  x[0, 1] = 0.0
+  x[m - 1, 2] = 0.0
+  x[edge, 3] = -value
+  x[:m // 2 + 2, 4] = value
+  xd = torch.from_numpy(x).to(cuda, dtype)
+  yd = torch.from_numpy(rng.standard_normal(300).astype(np.float32)).to(
+      cuda, dtype)
+  got = crps_pairwise._launch_stats(xd, yd) + (
+      crps_pairwise._launch_stats(xd, None),)
+  want = crps_pairwise.fused_ensemble_stats_plain(xd, yd) + (
+      crps_pairwise.pairwise_spread_sum_plain(xd),)
+  torch.cuda.synchronize()
+  tol = 1e-5 if dtype == torch.float32 else 1e-2
+  for g, w in zip(got, want):
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+      assert torch.equal(f(g), f(w)), (m, f.__name__)
+    fin = torch.isfinite(w)
+    assert _rel(g[fin], w[fin]) <= tol
+  for spread in (got[0], got[4]):
+    assert torch.isnan(spread[:5]).all() and torch.isfinite(spread[5:]).all()
+
+
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_every_run_size_matches_plain(cuda, dtype, tol):
-  """Each sorted-runs kernel built (run sizes 33..64), at every member
+  """Each sorted-runs kernel built (``SORTED_RUN_SIZES``), at every member
   count that takes it with two runs, three and four, near 288 K, with a
   NaN member and a +-inf member at other points."""
   for m in crps_pairwise.SORTED_MEMBERS:

@@ -723,3 +723,57 @@ def test_placed_pair_is_not_copied_again():
   mask = t['2m_temperature'].coords['mask'].values
   assert isinstance(mask, torch.Tensor)
   assert again[1]['2m_temperature'].coords['mask'].values is mask
+
+
+class _Clock:
+  """A stand-in for the ``time`` module whose clock moves only when a
+  loader, the preparation or a placement says so."""
+
+  def __init__(self):
+    self.now = 0.0
+
+  def monotonic(self):
+    return self.now
+
+
+@pytest.mark.parametrize('placed', [True, False])
+def test_load_timers_leave_the_copy_to_to_device_seconds(placed,
+                                                         monkeypatch):
+  """``load_targets_seconds`` times the targets' read, and
+  ``load_predictions_seconds`` the predictions' read and their host
+  preparation; the copy of each side to the device is timed in
+  ``to_device_seconds`` alone, so the load timers mean the same with the
+  placement in the loader or without it."""
+  clock = _Clock()
+  monkeypatch.setattr(pipeline, 'time', clock)
+
+  class Loader:
+
+    def __init__(self, seconds, name):
+      self.seconds, self.name = seconds, name
+
+    def load_chunk(self, init_times, lead_times=None, reference=None):
+      clock.now += self.seconds
+      return {self.name: init_times}
+
+  def prepare(predictions, targets):
+    clock.now += 10.0
+    return predictions, targets
+
+  def place(side):
+    clock.now += 100.0
+    return side
+
+  obs = observability.Metrics()
+  got = pipeline.load_chunk_pair(
+      Loader(2.0, 'p'), Loader(1.0, 't'), ([0], [0]), obs=obs,
+      prepare=prepare, place=place if placed else None)
+  assert got == ({'p': [0]}, {'t': [0]})
+  timings = obs.timings
+  assert timings['load_targets_seconds'].total == 1.0
+  assert timings['load_predictions_seconds'].total == 12.0
+  if placed:
+    assert timings['to_device_seconds'].total == 200.0
+  else:
+    assert 'to_device_seconds' not in timings
+  assert clock.now == (213.0 if placed else 13.0)

@@ -62,15 +62,18 @@ class _RunWalk:
   """The kernel's merge walk (``RunWalk`` in sorted_stats.cuh) over the
   sorted runs s (runs * size, n), every point at once: up from the runs'
   first members or down from their last, the lowest run on a tie, an
-  exhausted run's head +inf going up and -inf going down."""
+  exhausted run's head +inf going up and -inf going down. An exhausted run
+  that wins a tie (every head left its infinity) is not advanced, and every
+  row read is asserted to lie inside its run, as the kernel must keep it."""
 
   def __init__(self, s, runs, size, m, up):
     self.s, self.runs, self.up = s, runs, up
     self.cols = np.arange(s.shape[1])
-    first = np.arange(runs) * size
-    last = np.minimum(first + size, m) - 1
-    self.pos = np.repeat((first if up else last)[:, None], s.shape[1], 1)
-    self.stop = last + 1 if up else first - 1
+    self.first = np.arange(runs) * size
+    self.last = np.minimum(self.first + size, m) - 1
+    self.pos = np.repeat((self.first if up else self.last)[:, None],
+                         s.shape[1], 1)
+    self.stop = self.last + 1 if up else self.first - 1
     self.head = s[self.pos, self.cols]
 
   def take(self):
@@ -80,9 +83,13 @@ class _RunWalk:
       better = self.head[r] < v if self.up else self.head[r] > v
       v = np.where(better, self.head[r], v)
       best = np.where(better, r, best)
-    nxt = self.pos[best, self.cols] + (1 if self.up else -1)
-    live = nxt != self.stop[best]
-    h = np.where(live, self.s[np.clip(nxt, 0, len(self.s) - 1), self.cols],
+    end = self.stop[best]
+    nxt = self.pos[best, self.cols]
+    nxt = np.minimum(nxt + 1, end) if self.up else np.maximum(nxt - 1, end)
+    read = nxt != end
+    inside = (self.first[best] <= nxt) & (nxt <= self.last[best])
+    assert inside[read].all(), 'a walk read a row outside its run'
+    h = np.where(read, self.s[np.where(read, nxt, 0), self.cols],
                  np.float32(np.inf if self.up else -np.inf))
     self.pos[best, self.cols] = nxt
     self.head[best, self.cols] = h
@@ -153,16 +160,23 @@ def test_sorted_runs_cut_into_runs_of_at_most_64(m):
   assert crps_pairwise.spread_form(m) == 'sorted'
   assert runs == -(-m // 64) and size <= 64 and runs <= 4
   assert size in crps_pairwise.SORTED_RUN_SIZES
+  # The smallest compiled size that holds the runs: every run but the last
+  # full, and the last holding at least one member.
+  assert size == min(r for r in crps_pairwise.SORTED_RUN_SIZES
+                     if runs * r >= m)
   last = m - (runs - 1) * size
-  # Every run holds a member, and the last is at most runs - 1 short.
-  assert size - runs < last <= size
+  assert 1 <= last <= size
   if m in (100, 101):
     assert (runs, size) == (2, 50 if m == 100 else 51)
 
 
 def test_sorted_run_sizes_are_33_to_64():
-  assert crps_pairwise.SORTED_RUN_SIZES == tuple(range(33, 65))
+  """Five compiled run sizes from 33 to 64 serve every count of the route,
+  each used by some count, the largest 64 (full runs)."""
+  assert crps_pairwise.SORTED_RUN_SIZES == (33, 43, 50, 51, 64)
   assert list(crps_pairwise.SORTED_MEMBERS) == list(range(65, L + 1))
+  used = {crps_pairwise.sorted_runs(m)[1] for m in crps_pairwise.SORTED_MEMBERS}
+  assert used == set(crps_pairwise.SORTED_RUN_SIZES)
 
 
 @pytest.mark.parametrize('m', SORTED_CASES)
@@ -292,6 +306,32 @@ def test_sorted_emulation_infinities_at_a_run_edge(m):
   _assert_same_spread(got, plain, f'm={m}')
   _assert_same_spread(got, _jax_sort_body(x), f'jax m={m}')
   assert np.isposinf(got[:8]).all() and np.isnan(got[8])
+
+
+@pytest.mark.parametrize('m', [65, 100, 128, 129, 130, 192, 193, 205, L])
+@pytest.mark.parametrize('value', [np.inf, -np.inf])
+def test_sorted_emulation_all_members_one_infinity(m, value):
+  """Every member of a point one infinity, or all but one: the walk going
+  toward it exhausts run 0 and then meets only that infinity, so the used-up
+  run keeps winning the tie; it must not be advanced past its end (the
+  walk asserts every row it reads lies in its run). Each point is NaN, as
+  the plain version and the JAX sort body give."""
+  rng = np.random.default_rng(m + 3)
+  x = rng.standard_normal((m, 6)).astype(np.float32)
+  x[:, :4] = value
+  runs, size = crps_pairwise.sorted_runs(m)
+  x[0, 1] = 0.0  # one finite member in the first run
+  x[m - 1, 2] = 0.0  # in the last run
+  x[size, 3] = -value  # one of the other infinity, in the second run
+  x[:m // 2 + 2, 4] = value  # more than half
+  y = rng.standard_normal(6).astype(np.float32)
+  got = _emulate_sorted_stats(x, y)
+  plain = crps_pairwise.fused_ensemble_stats_plain(torch.from_numpy(x),
+                                                   torch.from_numpy(y))
+  for name, g, p in zip(('spread', 'skill', 'mean', 'sq_dev'), got, plain):
+    _assert_same_spread(g, p.numpy(), f'{name} m={m}')
+  _assert_same_spread(got[0], _jax_sort_body(x), f'jax m={m}')
+  assert np.isnan(got[0][:5]).all() and np.isfinite(got[0][5])
 
 
 # -- the main path at 101 members, small width -------------------------------------

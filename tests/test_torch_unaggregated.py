@@ -42,6 +42,7 @@ from weatherbenchx_tpu_torch import time_chunks
 from weatherbenchx_tpu_torch.data import base as data_base
 from weatherbenchx_tpu_torch.data import loaders
 from weatherbenchx_tpu_torch.metrics import deterministic
+from weatherbenchx_tpu_torch.parallel import evaluator
 from weatherbenchx_tpu_torch.parallel import pipeline
 from weatherbenchx_tpu_torch.parallel import unaggregated
 
@@ -160,6 +161,31 @@ def test_standalone_store_bytes_match_jax(tmp_path, store):
     assert da.sizes['init_time'] == len(INIT)
     np.testing.assert_array_equal(da.values, np.asarray(j_loaded[k].values))
     np.testing.assert_array_equal(da.coord_values('init_time'), INIT)
+
+
+@pytest.mark.parametrize('store', ['v2', 'wbx_shards'])
+def test_loader_places_each_side_off_a_mesh(tmp_path, store, monkeypatch):
+  """Off a mesh each side of a chunk goes to the device in its loader
+  thread (``ChunkEvaluator.place``), as in the evaluation pipeline, and
+  the store's bytes equal those of a run whose pairs stay on the host
+  until the evaluator places them."""
+  calls = []
+  place = evaluator.ChunkEvaluator.place
+
+  def counted(self, side):
+    calls.append(sorted(side))
+    return place(self, side)
+  monkeypatch.setattr(evaluator.ChunkEvaluator, 'place', counted)
+  got, pipe = _run_standalone(PKG['torch'], tmp_path / 'placed', store)
+  assert calls == [[VAR]] * (2 * len(pipe.times))
+  load = pipeline.load_chunk_pair
+  monkeypatch.setattr(
+      pipeline, 'load_chunk_pair',
+      lambda *args, place=None, **kwargs: load(*args, **kwargs))
+  calls.clear()
+  host, _ = _run_standalone(PKG['torch'], tmp_path / 'host', store)
+  assert not calls
+  _assert_same_bytes(got, host)
 
 
 @pytest.mark.parametrize('store', ['v2', 'v3_sharded', 'wbx_shards'])

@@ -77,16 +77,25 @@ SORTED_MAX_MEMBERS = 4 * REGISTER_MAX_MEMBERS
 SORTED_MEMBERS = range(REGISTER_MAX_MEMBERS + 1, SORTED_MAX_MEMBERS + 1)
 
 
+# The run sizes the sorted-runs kernels are compiled for: each is a
+# template constant, so that its network unrolls into registers, and each
+# costs four kernels to build. A run count's runs take the smallest size
+# that holds ceil(M / runs) members, the last run padded with +inf: 33 is
+# exact at 65 members (the form's first), 43 at 129 (three runs' first),
+# 50 at 100, 150 and 200 (full runs: a padded run's loads cost 12%), 51 at
+# 101 (ECMWF's extended-range ensemble) and 64 at 128, 192 and 256. The
+# networks then do at most 1.35 times the compare-exchanges of runs cut to
+# size (at 67 and 68 members).
+SORTED_RUN_SIZES = (33, 43, 50, 51, 64)
+
+
 def sorted_runs(m: int) -> tuple:
   """(runs, run size) of the sorted-runs kernel for m members: the fewest
-  runs of at most 64 members, all but the last of one size."""
+  runs of at most 64 members, each of the smallest of ``SORTED_RUN_SIZES``
+  that holds them; all but the last full, the last padded."""
   runs = -(-m // REGISTER_MAX_MEMBERS)
-  return runs, -(-m // runs)
-
-
-# The run sizes the sorted-runs kernels are compiled for, 33..64: each is
-# a template constant, so that its network unrolls into registers.
-SORTED_RUN_SIZES = tuple(sorted({sorted_runs(m)[1] for m in SORTED_MEMBERS}))
+  need = -(-m // runs)
+  return runs, next(r for r in SORTED_RUN_SIZES if r >= need)
 
 # The member count from which the JAX package's spread kernel takes its sort
 # body, below it its pair body (weatherbenchx_tpu/ops/crps_pairwise.py:90).

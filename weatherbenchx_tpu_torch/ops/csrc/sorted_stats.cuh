@@ -17,13 +17,17 @@
 // so it could never come near the bytes bound. Sorting is O(M log^2 M):
 //   * one thread per gridpoint: every member row is read from device
 //     memory once, coalesced (consecutive threads, consecutive gridpoints);
-//   * the members are cut into K = ceil(M / 64) runs of R = ceil(M / K)
-//     (R a template constant, 33..64; the last run is padded with +inf in
-//     registers, and a pad never sorts below a real value). Each run is
-//     loaded into registers, sorted there by the generated network
-//     (sort_network<R>, wbx_sort_networks.cuh) and stored to shared memory
-//     member-major, each thread its own column (no barrier, no bank
-//     conflict). At M = 100: two runs of 50, 2 x 403 compare-exchanges;
+//   * the members are cut into K = ceil(M / 64) runs of R, the smallest
+//     compiled run size (crps_pairwise.SORTED_RUN_SIZES: 33, 43, 50, 51,
+//     64)
+//     that holds ceil(M / K) (R a template constant; the last run is
+//     padded with +inf in registers, and a pad never sorts below a real
+//     value). Each run is loaded into registers, sorted there by the
+//     generated network (sort_network<R>, wbx_sort_networks.cuh) and
+//     stored to shared memory member-major, each thread its own column (no
+//     barrier, no bank conflict). At M = 100: two full runs of 50, 2 x 403
+//     compare-exchanges (a padded run costs its loads' row test and its
+//     pads' selects, 12% at 101 members against 100);
 //   * the K runs are merged in order by walks over their heads, held in
 //     registers at compile-time indices (K = 2, 3 or 4): one up from the
 //     smallest members and one down from the largest, two independent
@@ -87,7 +91,9 @@ struct RunWalk {
   }
 
   // The smallest head (kUp) or the largest, the lowest run on a tie; its
-  // run advanced.
+  // run advanced, saturating at its end. An exhausted run wins a tie when
+  // every head left is its infinity (all members -inf, walking down), and
+  // then stays where it is: it reads no row past its end.
   __device__ __forceinline__ float take(const float* col, int stride) {
     int best = 0;
     float v = head[0];
@@ -107,7 +113,7 @@ struct RunWalk {
         end = stop[r];
       }
     }
-    next += kUp ? 1 : -1;
+    next = kUp ? min(next + 1, end) : max(next - 1, end);
     const float h = next != end ? col[next * stride]
                                 : (kUp ? infinity() : -infinity());
 #pragma unroll
@@ -245,7 +251,8 @@ int launch_sorted_typed(const void* x, const void* y, void* spread,
 }
 
 // dtype: 0 = float32, 1 = bfloat16; fused: 0 writes the spread alone. m
-// must cut into runs of R: ceil(m / 64) runs, R = ceil(m / runs). Returns
+// must cut into ceil(m / 64) runs of at most R, R >= ceil(m / runs): every
+// run but the last is full, and the last holds at least one member. Returns
 // a cudaError_t (0 on success) after the asynchronous launch.
 template <int R>
 int launch_sorted(const void* x, const void* y, void* spread, void* skill,
@@ -255,7 +262,7 @@ int launch_sorted(const void* x, const void* y, void* spread, void* skill,
       (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   const int runs = static_cast<int>((m + 63) / 64);
-  if ((m + runs - 1) / runs != R) return cudaErrorInvalidValue;
+  if ((m + runs - 1) / runs > R) return cudaErrorInvalidValue;
   if (x == nullptr || spread == nullptr ||
       (fused && (y == nullptr || skill == nullptr || mean == nullptr ||
                  sq_dev == nullptr)))
@@ -288,7 +295,7 @@ int launch_sorted(const void* x, const void* y, void* spread, void* skill,
 }  // namespace wbx
 
 // One C entry point per run size R: wbx_ensemble_stats_sorted_<R>, for the
-// member counts m that cut into runs of R. x (m, n) and y, spread, skill,
+// member counts m whose runs R holds. x (m, n) and y, spread, skill,
 // mean, sq_dev (n) are contiguous device arrays of one dtype; y and the
 // last three are null for the spread alone.
 #define WBX_SORTED_ENTRY(R)                                                  \

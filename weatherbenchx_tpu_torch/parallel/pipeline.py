@@ -127,6 +127,16 @@ def _load_with_retries(load_fn, chunk, retry: RetryPolicy, obs=None):
       time.sleep(delay)
 
 
+def loader_device(device) -> torch.device:
+  """``device`` with its card named: the loader threads place chunks, and
+  a new thread starts on card 0, so a bare 'cuda' becomes the card the
+  calling thread has current."""
+  device = torch.device(device)
+  if device.type == 'cuda' and device.index is None:
+    device = torch.device('cuda', torch.cuda.current_device())
+  return device
+
+
 def load_chunk_pair(
     predictions_loader: data_base.DataLoader,
     targets_loader: data_base.DataLoader,
@@ -144,7 +154,8 @@ def load_chunk_pair(
   targets before the predictions are read, so that the host holds one side
   of the chunk at a time, not both (as the JAX package's worker thread
   places each prepared pair, ``_prepared_stream``); its seconds are
-  ``to_device_seconds``. Without it the pair stays on the host.
+  ``to_device_seconds``, and not in the load timers. Without it the pair
+  stays on the host.
   """
   init_times, lead_times = chunk
   placing = 0.0
@@ -159,21 +170,24 @@ def load_chunk_pair(
     return side
 
   t0 = time.monotonic()
-  targets = placed(targets_loader.load_chunk(init_times, lead_times))
+  targets = targets_loader.load_chunk(init_times, lead_times)
+  load_targets = time.monotonic() - t0
+  targets = placed(targets)
   t1 = time.monotonic()
   predictions = predictions_loader.load_chunk(
       init_times, lead_times, reference=targets)
   if prepare is not None:
     predictions, targets = prepare(predictions, targets)
+  load_predictions = time.monotonic() - t1
   predictions = placed(predictions)
-  t2 = time.monotonic()
   if obs is not None:
-    obs.record('load_targets_seconds', t1 - t0)
-    obs.record('load_predictions_seconds', t2 - t1)
+    obs.record('load_targets_seconds', load_targets)
+    obs.record('load_predictions_seconds', load_predictions)
     if place is not None:
       obs.record('to_device_seconds', placing)
-  logger.info('loaded chunk: targets %.0fms predictions %.0fms',
-              (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+  logger.info('loaded chunk: targets %.0fms predictions %.0fms placed '
+              '%.0fms', load_targets * 1e3, load_predictions * 1e3,
+              placing * 1e3)
   return predictions, targets
 
 
@@ -312,11 +326,7 @@ class EvaluationPipeline:
   failed_chunks: list = dataclasses.field(default_factory=list, init=False)
 
   def __post_init__(self):
-    self.device = torch.device(self.device)
-    if self.device.type == 'cuda' and self.device.index is None:
-      # The loader threads place chunks, and a new thread starts on card
-      # 0: name the card the calling thread has current.
-      self.device = torch.device('cuda', torch.cuda.current_device())
+    self.device = loader_device(self.device)
     if self.distributed:
       _partition(self.mesh)  # raises without a process group or a bad mesh
     self._obs = self.metrics_registry or observability.default_metrics

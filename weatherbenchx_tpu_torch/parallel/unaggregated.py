@@ -371,6 +371,7 @@ class UnaggregatedPipeline:
   failed_chunks: list = dataclasses.field(default_factory=list, init=False)
 
   def __post_init__(self):
+    self.device = pipeline_lib.loader_device(self.device)
     if self.distributed:
       distributed_lib.require_process_group()
     # The evaluator's host preparation and device placement; only the step
@@ -389,9 +390,12 @@ class UnaggregatedPipeline:
         for var_name, da in stat_vars.items()})
 
   def _load(self, chunk):
+    # As EvaluationPipeline's: off a mesh each side goes to the device in
+    # the loader thread, on a mesh the pair stays on the host.
     return pipeline_lib.load_chunk_pair(
         self.predictions_loader, self.targets_loader, chunk,
-        prepare=self._evaluator.prepare_host)
+        prepare=self._evaluator.prepare_host,
+        place=self._evaluator.place if self.mesh is None else None)
 
   def _stream(self):
     return pipeline_lib.stream_chunk_pairs(
