@@ -10,30 +10,36 @@ script exits nonzero:
 
 1. Device: requires a CUDA device; prints the card's name and power limit.
 2. Build: compiles the port's CUDA kernels from ops/csrc with nvcc, the
-   register and sorted-runs kernels' generated translation units in
-   parallel; prints the build time, the registers of every register and
-   sorted-runs kernel and fails unless every kernel of the build shows 0
-   bytes of stack frame and spills.
+   register and sorted-runs kernels' generated translation units and the
+   block sorts' source in parallel; prints the build time, the registers
+   of every register and sorted-runs kernel (and of each other kernel, a
+   line each) and fails unless every kernel of the build shows 0 bytes of
+   stack frame and spills.
 3. Kernels against their plain PyTorch versions on the card: several
    ensemble sizes and shapes, NaN members, |mean| >> std, float32 and
    bfloat16, 1-D input, and the main paths' own shapes; each route
    boundary (2, 63 and 64 members on the network, 65, 100, 101, 128, 129
-   and 256 on the sorted runs, 257 on the tiled pair form); a NaN at every
-   member position (21 and 49 on the network, 101 and 256 on the sorted
-   runs); +-inf members at 2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101
-   and 256 members, every route, against the plain version and the JAX
-   kernels' inf/NaN pattern (their sort body from 20 members, their pair
-   body below); NaN and +-inf members on both sides of a run's edge, at
-   the last member and on both sides of 256 members, in both dtypes;
+   and 256 on the sorted runs, 257, 300, 1,817 and 7,424 on the block
+   sort); a NaN at every member position (21 and 49 on the network, 101
+   and 256 on the sorted runs, 300 and 7,424 on the block sort); +-inf
+   members at 2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101, 256, 257,
+   300 and 7,424 members, every route, against the plain version and the
+   JAX kernels' inf/NaN pattern (their sort body from 20 members, their
+   pair body below); NaN and +-inf members on both sides of a run's edge,
+   at the last member and on both sides of 256 members, in both dtypes;
    members all +inf or all -inf (or all but one) at each run count, with
-   padded runs, at 256 and 257; every register kernel built, M = 2..64,
-   and every run size of the sorted runs (33, 43, 50, 51, 64) at each run
-   count it serves, in both dtypes; and 1,816, 1,817 and 4,000
-   members through the metrics (one, two and three shared-memory tiles:
-   the fused pass, the spread and the two-ensemble skill against the
-   float64 broadcast, each launch counted, and each of the three kernels
-   timed there beside its bound), with +-inf and NaN members on both sides
-   of a tile's edge.
+   padded runs, at 256, and on the block sort at 257, 300, 1,817, 7,424
+   and 58,112; every register kernel built, M = 2..64, and every run size
+   of the sorted runs (33, 43, 50, 51, 64) at each run count it serves, in
+   both dtypes; the cross kernel's tiled form at 160 x 300, 300 x 257,
+   1,816 x 1,819 (one tile) and 1,900 x 2,000 (two); and the block sort's
+   edges through the metrics (257, both sides of the first change of
+   gridpoints per block, 7,424, one gridpoint's capacity 58,112, and
+   58,113 on the tiled pair form: the fused pass, the spread and, to 8,192
+   members, the two-ensemble skill against float64, each launch counted;
+   the block sorts timed there beside their bound), with +-inf and NaN
+   members on both sides of a run's edge and of the first shared stage's
+   half.
 4. Main path at full width: ChunkEvaluator with fair CRPS, the unbiased
    spread/skill ratio and the unbiased ensemble-mean RMSE over 3 chunks of
    a 50-member 0.25-degree ensemble (50 x 1 x 4 x 721 x 1440 float32,
@@ -48,6 +54,22 @@ script exits nonzero:
    within 6 standard errors of its closed form (the errors estimated from
    the points' own statistics); prints the seconds per chunk and the
    kernel's median time at that shape beside its plain version's.
+   4c. HENS (Mahesh et al. 2024, arXiv:2408.03100) at its published width:
+   7,424 members x 1 lead x 721 x 1440 float32 (30.83 GB a chunk), 2
+   chunks (depth cut to 2 leads and one variable), each made on the card
+   from the seed with a CUDA torch.Generator and dropped after its
+   evaluation, through ChunkEvaluator: (a) fair CRPS, spread/skill and
+   ensemble-mean RMSE against a deterministic target (one fused block-sort
+   launch a chunk); (b) fair CRPS against a 10-member N(0.5, 1) analysis
+   ensemble (one staged cross launch, 7,424 x 10, and one spread-only
+   block-sort launch a chunk). Checks the launches and member counts; each
+   kernel output on 16,384 points gathered across the grid within 1e-5 of
+   its plain version and of float64; two launches on a chunk equal bit for
+   bit; the metrics against float64 means of the kernels' per-point
+   statistics and within 6 standard errors of the closed forms. Times the
+   three kernels (median and IQR of 10 CUDA-event samples) beside their
+   bytes bounds and the plain versions (over the chunk in 16 slices);
+   prints the peak device memory.
 5. Ensemble-vs-ensemble path at full width: pipeline.evaluate over
    in-memory stores, 50 forecast members (3 inits x 4 leads x 721 x 1440,
    iid N(0, 1)) against a 10-member ensemble analysis (8 valid times, iid
@@ -325,21 +347,26 @@ ENS_CLOSED_FORMS = {
 CLI_GRID = (121, 240)
 CLI_RMSE_TOL = 0.03
 # Member counts checked with a NaN at every member position: odd counts on
-# the network route (the median's weight is 0), and on the sorted runs
-# 101 (phase 4b's) and 256 (four full runs, the route's end).
-NAN_POSITION_MEMBERS = (21, 49, 101, 256)
+# the network route (the median's weight is 0), on the sorted runs 101
+# (phase 4b's) and 256 (four full runs, the route's end), and on the block
+# sort 300 and phase 4c's 7,424.
+NAN_POSITION_MEMBERS = (21, 49, 101, 256, 300, 7424)
 # Member counts checked with infinite members: both sides of the JAX
 # kernels' sort threshold (20), of the register route's end (64) and of
-# the sorted runs' (256), and phase 4b's 101.
-INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101, 256)
+# the sorted runs' (256), phase 4b's 101, and on the block sort 300 and
+# phase 4c's 7,424.
+INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101, 256, 257,
+                    300, 7424)
 # Member counts checked with NaN and +-inf members at a run's edge: the
-# sorted runs' ends and their changes of run count, and 257 (the tiled
-# pair form, with the members on both sides of 256).
-RUN_EDGE_MEMBERS = (65, 100, 101, 128, 129, 192, 193, 256, 257)
+# sorted runs' ends and their changes of run count, and on the block sort
+# 257, 300 and 1,817 (members on both sides of 256, a run's edge there).
+RUN_EDGE_MEMBERS = (65, 100, 101, 128, 129, 192, 193, 256, 257, 300, 1817)
 # Member counts checked with every member (or all but one) at one
 # infinity, where a merge walk exhausts a run and then meets only that
-# infinity: each run count and padded runs, the sorted runs' end and 257.
-ONE_INFINITY_MEMBERS = (65, 67, 100, 128, 129, 130, 192, 193, 205, 256, 257)
+# infinity: each run count and padded runs, the sorted runs' end; on the
+# block sort 257, 300, 1,817, 7,424 and one point's capacity, 58,112.
+ONE_INFINITY_MEMBERS = (65, 67, 100, 128, 129, 130, 192, 193, 205, 256, 257,
+                        300, 1817, 7424, 58112)
 # The H100 SXM's HBM rate, and its float32 issue rate for operations that
 # are not FMAs (min, max, add, subtract): 128 per clock per SM x 132 SMs x
 # 1.98 GHz; the data sheet's 67 TFLOP/s counts an FMA as two. For the
@@ -348,8 +375,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
 # Calls per timed sample (time_cuda), for kernels and plain versions alike.
 TIMING_REPS = 20
-# ... and for the tiled kernels at phase 3's shapes, which take 7-90 ms a
-# call: enough to hide the host's launch behind the device.
+# ... and for the block sorts at phase 3's shapes (96 points).
 MEMBER_TILE_TIMING_REPS = 2
 # The sorted-runs form's members at phase 10's wide shape, and its seed.
 SORTED_M = 100
@@ -359,6 +385,21 @@ SORTED_SEED = 100
 M_LARGE = 101
 N_LARGE_CHUNKS = 2
 LARGE_SIGMAS = 6.0
+# Phase 4c: HENS (Mahesh et al. 2024, "Huge Ensembles Part I",
+# arXiv:2408.03100): 7,424 SFNO members at 0.25 degrees, scored by CRPS and
+# spread/skill; depth cut to one variable and 2 leads, one a chunk (30.83
+# GB of float32 each), made on the card; the CRPS against ensemble targets
+# takes a 10-member analysis ensemble (ERA5's EDA count), N(0.5, 1).
+M_HENS = 7424
+HENS_GRID = (1, 1, 721, 1440)
+N_HENS_CHUNKS = 2
+# Gridpoints gathered across the grid where each kernel output is held to
+# its plain version and float64; slices of the chunk the plain versions
+# are timed over (a whole chunk's sort would not fit the card twice); CUDA
+# event samples per kernel.
+HENS_GATHER = 16384
+HENS_PLAIN_SLICES = 16
+HENS_TIMING_SAMPLES = 10
 
 
 def log(msg: str) -> None:
@@ -401,8 +442,9 @@ def check_kernels(seed: int) -> dict:
       (50, (4, 777), None, 288.0, 3.0),
       (50, (1, 2, 37, 71), (49, 0), 0.0, 1.0),
       # The route boundaries (the network from 2 members, the sorted runs
-      # past 64, the tiled pair form past 256), the changes of run count,
-      # and the ensemble path's 10 members.
+      # past 64, the block sort past 256), the changes of run count, the
+      # block sort at 300, 1,817 and phase 4c's 7,424, and the ensemble
+      # path's 10 members.
       (2, (2, 37, 71), (1, 700), 0.0, 1.0),
       (10, (2, 37, 71), (5, 700), 0.0, 1.0),
       (63, (2, 37, 71), (0, 700), 0.0, 1.0),
@@ -414,6 +456,9 @@ def check_kernels(seed: int) -> dict:
       (129, (1, 37, 71), (0, 70), 0.0, 1.0),
       (256, (1, 37, 71), (255, 70), 288.0, 3.0),
       (257, (1, 37, 71), (256, 70), 0.0, 1.0),
+      (300, (2, 99), (150, 7), 288.0, 3.0),
+      (1817, (1, 99), (1816, 98), 0.0, 1.0),
+      (7424, (1, 40), (3712, 3), 288.0, 3.0),
       (M, GRID, None, 0.0, 1.0),
   ]
   main_path_err = {}
@@ -486,25 +531,26 @@ def stats_against_plain(x, y, label: str, dname: str) -> tuple:
 
 
 def check_nan_positions(rng) -> None:
-  """On the network and sorted-runs routes, whose sorts drop NaN through
-  fminf/fmaxf: point p holds a NaN at member p, for every p; each output
-  must be NaN there and nowhere else."""
+  """On the network, sorted-runs and block-sort routes, whose sorts drop
+  NaN through fminf/fmaxf: point p holds a NaN at member p, for every p;
+  each output must be NaN there and nowhere else."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   for m in NAN_POSITION_MEMBERS:
     form = cp.spread_form(m)
-    if form not in ('network', 'sorted'):
+    if form not in ('network', 'sorted', 'blocksort'):
       raise AssertionError(f'M={m} takes the {form} route')
-    x = rng.standard_normal((m, 4000), dtype=np.float32)
+    n = max(4000, m + 40)
+    x = rng.standard_normal((m, n), dtype=np.float32)
     for p in range(m):
       x[p, p] = np.nan
-    y = rng.standard_normal(4000, dtype=np.float32)
+    y = rng.standard_normal(n, dtype=np.float32)
     for dtype in (torch.float32, torch.bfloat16):
       dname = str(dtype).split('.')[-1]
       got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
                                 torch.from_numpy(y).to(DEVICE, dtype),
                                 f'NaN positions M={m}', dname)
-      want = torch.arange(4000, device=DEVICE) < m
+      want = torch.arange(n, device=DEVICE) < m
       if not all(torch.equal(torch.isnan(g), want) for g in got):
         raise AssertionError(f'M={m}: a NaN member must poison its own '
                              'point, at every member position, and no other')
@@ -525,7 +571,8 @@ def jax_infinite_spread(m: int, n_pos: int, n_neg: int) -> float:
 
 
 def check_infinities(rng) -> None:
-  """Every route (network to 64 members, shared past it), both dtypes:
+  """Every route (the network to 64 members, the sorted runs to 256, the
+  block sort past them), both dtypes:
   +-inf members in seven columns (one +inf; one -inf; one of each; two
   +inf; m//2 + 1 +inf; m//2 + 1 -inf; m//2 + 2 +inf) give the plain
   version's inf and NaN points, which are the JAX kernels'."""
@@ -560,10 +607,11 @@ def check_infinities(rng) -> None:
 
 
 def check_run_edges(rng) -> None:
-  """The sorted runs (and 257 members, the tiled pair form past them) in
-  both dtypes: +inf, -inf and NaN members at the last member of the first
-  run, the first of the second, both, the last member, and (257) members
-  255 and 256, against the plain versions; each NaN poisons its point."""
+  """The sorted runs (and on the block sort 257, 300 and 1,817 members,
+  where 256 is a run's edge) in both dtypes: +inf, -inf and NaN members at
+  the last member of the first run, the first of the second, both, the
+  last member, and (past 256) members 255 and 256, against the plain
+  versions; each NaN poisons its point."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   for m in RUN_EDGE_MEMBERS:
@@ -598,8 +646,9 @@ def check_one_infinity(rng) -> None:
   the other infinity (in the second run), and m//2 + 2 at one infinity.
   A merge walk toward that infinity exhausts a run and then meets only the
   infinity, so the exhausted run keeps winning the tie and must read no
-  row past its end: each point NaN, as the plain version's, and the
-  finite points within KERNEL_RTOL."""
+  row past its end; the block sort's compare-exchanges meet only that
+  infinity and the +inf past M, which none may move: each point NaN, as
+  the plain version's, and the finite points within KERNEL_RTOL."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   for m in ONE_INFINITY_MEMBERS:
@@ -709,6 +758,12 @@ def check_cross_kernel(rng) -> float:
       (50, 10, (4, 777), None, 288.0, 3.0),
       (50, 50, (1, 2, 37, 71), ('y', 3, 4000), 0.0, 1.0),
       (6, 4, (), None, 0.0, 1.0),  # 1-D input
+      # Two large ensembles: the tiled form past 8,192 pairs, one tile
+      # (the smaller side to 1,816 members) and two.
+      (160, 300, (2, 61), ('y', 299, 0), 288.0, 3.0),
+      (300, 257, (3, 41), ('y', 128, 7), 0.0, 1.0),
+      (1816, 1819, (2, 50), ('x', 1815, 99), 0.0, 1.0),
+      (1900, 2000, (2, 50), ('x', 1899, 99), 0.0, 1.0),
       (M, M_TARGETS, GRID, None, 0.0, 1.0),
   ]
   path_err = None
@@ -745,40 +800,66 @@ def check_cross_kernel(rng) -> float:
                              'poison its own point and no other')
       if rest == GRID:
         path_err = abs_err
-      log(f'cross kernel check Mx={mx} My={my} rest={rest} {dname} '
-          f'nan={nan_at is not None} offset={offset}: max rel err {rel:.3g} '
-          f'(tol {KERNEL_RTOL[dname]}) ok')
+      log(f'cross kernel check Mx={mx} My={my} '
+          f'rest={rest} {dname} nan={nan_at is not None} offset={offset}: '
+          f'max rel err {rel:.3g} (tol {KERNEL_RTOL[dname]}) ok')
   return path_err
 
 
 def pair_sum_f64(a, b):
-  """sum_{i,j} |a_i - b_j| per point by the float64 broadcast, 16 points at
-  a time: the definition, written out here."""
+  """sum_{i,j} |a_i - b_j| per point by the float64 broadcast, as many
+  points at a time as keep the broadcast near 2 GB: the definition,
+  written out here."""
   import torch
-  return torch.cat([(a[:, None, lo:lo + 16] - b[None, :, lo:lo + 16]).abs()
-                    .sum((0, 1)) for lo in range(0, a.shape[1], 16)])
+  step = max(1, 2 ** 28 // (a.shape[0] * b.shape[0]))
+  return torch.cat([(a[:, None, lo:lo + step] - b[None, :, lo:lo + step])
+                    .abs().sum((0, 1)) for lo in range(0, a.shape[1], step)])
+
+
+def spread_f64(x):
+  """sum_{i != j} |x_i - x_j| per point in float64 from the sorted members:
+  2 sum_k gap_k k (m - k), every term >= 0 (the broadcast would not fit the
+  card at 58,112 members)."""
+  import torch
+  s = torch.sort(x.double(), dim=0).values
+  m = s.shape[0]
+  k = torch.arange(1, m, device=x.device, dtype=torch.float64)
+  return 2 * ((s[1:] - s[:-1]) * (k * (m - k))[:, None]).sum(0)
+
+
+def blocksort_edges() -> tuple:
+  """The block sort's edges: its first count; both sides of the first
+  change of gridpoints per block; phase 4c's 7,424; one gridpoint's
+  capacity, 58,112; and 58,113, past which the tiled pair form takes
+  over."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  first = cp.BLOCKSORT_MEMBERS[0]
+  change = next(m for m in cp.BLOCKSORT_MEMBERS
+                if cp.blocksort_config(m)[0] < cp.blocksort_config(first)[0])
+  top = cp.BLOCKSORT_MAX_MEMBERS
+  return (first, change - 1, change, M_HENS, top, top + 1)
 
 
 def check_member_tiles(rng) -> None:
-  """Ensembles past one shared-memory tile (1,816 members: 227 KB at the
-  smallest block) are walked tile by tile inside the kernels. Through the
-  metrics, at 1,816, 1,817 and 4,000 members (one, two, three tiles): the
-  fused pass, the spread outside a pass and the two-ensemble skill (both
-  ensembles past a tile) against the float64 broadcast, one launch counted
-  for each; then +-inf and NaN members in the first tile, the second and
-  on either side of the edge, against the plain versions."""
+  """The block sort's edges (blocksort_edges) through the metrics: the
+  fused pass, the spread outside a pass and, to 8,192 members, the
+  two-ensemble skill against M + 3 members (the cross kernel's tiled form,
+  one to five tiles), each against float64 and launched once; past 8,192 members at 4 points (58,113
+  takes the tiled pair form, whose pair loop runs seconds a point), else
+  96. Then +-inf and NaN members on both sides of a run's edge and of the
+  first shared stage's half at 7,424 members, against the plain
+  versions. The counts to 8,192 are timed (time_member_tiles)."""
   import torch
   from weatherbenchx_tpu_torch.darray import DimArray
   from weatherbenchx_tpu_torch.metrics import base, probabilistic
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
-  n = 96
-  for m, tiles in ((1816, 1), (1817, 2), (4000, 3)):
-    if cp.member_tiles(m) != tiles:
-      raise AssertionError(f'{m} members: {cp.member_tiles(m)} tiles')
+  for m in blocksort_edges():
+    small = m <= 8192
+    n = 96 if small else 4
     x = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
     y = torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
     yt = torch.from_numpy(rng.standard_normal((m + 3, n), dtype=np.float32))
-    x[m - 5, 7] = float('nan')
+    x[m - 5, 1] = float('nan')
     preds = {'v': DimArray(x.to(DEVICE), ('number', 'point'))}
     tgts = {'v': DimArray(y.to(DEVICE), ('point',))}
     ens_tgts = {'v': DimArray(yt.to(DEVICE), ('number', 'point'))}
@@ -791,68 +872,71 @@ def check_member_tiles(rng) -> None:
               preds, tgts)['v'],
       }
     got['spread'] = probabilistic.CRPSSpread().compute(preds, tgts)['v']
-    got['cross'] = probabilistic.CRPSSkill().compute(preds, ens_tgts)['v']
+    if small:
+      got['cross'] = probabilistic.CRPSSkill().compute(preds, ens_tgts)['v']
     torch.cuda.synchronize()
-    if cp.LAUNCHES != {'fused_ensemble_stats': 1, 'pairwise_spread_sum': 1,
-                       'pairwise_cross_sum': 1}:
-      raise AssertionError(f'M={m}: launches {cp.LAUNCHES}, want one each')
+    want_launches = {'fused_ensemble_stats': 1, 'pairwise_spread_sum': 1,
+                     'pairwise_cross_sum': int(small)}
+    if cp.LAUNCHES != want_launches:
+      raise AssertionError(f'M={m}: launches {cp.LAUNCHES}, want '
+                           f'{want_launches}')
     xd, yd, ytd = (t.to(DEVICE, torch.float64) for t in (x, y, yt))
-    spread = pair_sum_f64(xd, xd) / (m * (m - 1))
+    spread = spread_f64(xd) / (m * (m - 1))
     want = {'fused skill': (xd - yd).abs().mean(0), 'fused spread': spread,
-            'fused variance': xd.var(0, correction=1), 'spread': spread,
-            'cross': pair_sum_f64(xd, ytd) / (m * (m + 3))}
+            'fused variance': xd.var(0, correction=1), 'spread': spread}
+    if small:
+      want['cross'] = pair_sum_f64(xd, ytd) / (m * (m + 3))
     worst = 0.0
     for name, da in got.items():
       if da.device.type != DEVICE or da.dtype != torch.float32:
         raise AssertionError(f'M={m} {name}: {da.device} {da.dtype}')
       same_nan, rel, _ = rel_err(da.data, want[name])
-      if not same_nan or not bool(torch.isnan(da.data[7])):
+      if not same_nan or not bool(torch.isnan(da.data[1])):
         raise AssertionError(f'M={m} {name}: NaN pattern differs')
       if rel > KERNEL_RTOL['float32']:
         raise AssertionError(f'M={m} {name}: rel err vs float64 {rel:.3g} > '
                              f'{KERNEL_RTOL["float32"]}')
       worst = max(worst, rel)
-    log(f'member tiles check M={m} ({tiles} tile(s), cross against '
-        f'{m + 3}): fused pass, spread and cross launched once each, max '
-        f'rel err vs the float64 broadcast {worst:.3g} (tol '
-        f'{KERNEL_RTOL["float32"]}) ok')
-    time_member_tiles(x.to(DEVICE), y.to(DEVICE), yt.to(DEVICE), tiles)
-  m = 1817 + 370
-  x = rng.standard_normal((m, n), dtype=np.float32)
-  x[3, 0] = x[2000, 1] = np.inf
-  x[1815, 2] = x[1816, 2] = -np.inf
-  x[5, 3], x[2100, 3] = np.inf, -np.inf
+    cross = f', cross against {m + 3}' if small else ''
+    log(f'block sort edge M={m} ({cp.spread_form(m)}, {n} points{cross}): '
+        f'fused pass and spread launched once each, max rel err vs float64 '
+        f'{worst:.3g} (tol {KERNEL_RTOL["float32"]}) ok')
+    if small:
+      time_member_tiles(x.to(DEVICE), y.to(DEVICE))
+  m = M_HENS
+  half = 1 << ((m - 1).bit_length() - 1)
+  x = rng.standard_normal((m, 96), dtype=np.float32)
+  x[3, 0] = x[half + 3, 1] = np.inf
+  x[31, 2] = x[32, 2] = -np.inf
+  x[half - 1, 3], x[half, 3] = np.inf, -np.inf
   x[m - 1, 4] = np.nan
-  y = rng.standard_normal(n, dtype=np.float32)
+  x[half - 1, 5] = np.nan
+  y = rng.standard_normal(96, dtype=np.float32)
   for dtype in (torch.float32, torch.bfloat16):
     dname = str(dtype).split('.')[-1]
     stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
                         torch.from_numpy(y).to(DEVICE, dtype),
-                        f'member tiles M={m}', dname)
-    log(f'member tiles check M={m} {dname}: +-inf and NaN members across '
-        'two tiles give the plain version\'s points ok')
+                        f'block sort edges M={m}', dname)
+    log(f'block sort edge check M={m} {dname}: +-inf and NaN members at a '
+        f'run\'s edge (31, 32) and the first shared stage\'s ({half - 1}, '
+        f'{half}) give the plain version\'s points ok')
 
 
-def time_member_tiles(x, y, yt, tiles: int) -> None:
-  """The tiled kernels' times at phase 3's shapes (x (M, 96), the cross
-  against M + 3 members), each beside its bound: the larger of its bytes
-  over the HBM rate and its pair operations over the float32 rate (at
-  these shapes the operations bound it; the bytes' time is printed
-  too)."""
+def time_member_tiles(x, y) -> None:
+  """The block sorts' times at phase 3's shapes (x (M, 96)), each beside
+  its bound (stats_work) and the bytes' time alone."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   m, n = x.shape
   res = time_cuda({'fused': lambda: cp.fused_ensemble_stats(x, y),
-                   'spread': lambda: cp.pairwise_spread_sum(x),
-                   'cross': lambda: cp.pairwise_cross_sum(x, yt)},
+                   'spread': lambda: cp.pairwise_spread_sum(x)},
                   rounds=6, reps=MEMBER_TILE_TIMING_REPS)
-  work = {'fused': stats_work(m, n, True), 'spread': stats_work(m, n, False),
-          'cross': cross_work(m, yt.shape[0], n)}
+  work = {'fused': stats_work(m, n, True), 'spread': stats_work(m, n, False)}
   for name, (med, q1, q3, count) in res.items():
     nbytes, ops = work[name]
     ms, by = bound(nbytes, ops)
-    log(f'member tiles timing M={m} ({tiles} tile(s)) {name}: median '
-        f'{med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms over {count} runs; '
-        f'bound {ms:.4f} ms by {by} ({ms / med:.1%} of it; bytes alone '
+    log(f'block sort edge timing M={m} {name}: median {med:.4f} ms, IQR '
+        f'[{q1:.4f}, {q3:.4f}] ms over {count} runs; bound {ms:.4f} ms by '
+        f'{by} ({ms / med:.1%} of it; bytes alone '
         f'{1e3 * nbytes / HBM_BYTES_PER_S:.6f} ms for {nbytes} bytes, '
         f'{ops} operations); N={n}, float32')
 
@@ -1095,6 +1179,22 @@ def main_path(seed: int):
   return ev, chunks, launches, values
 
 
+def weighted_standard_error(per_point, wb):
+  """(lead, region) standard errors of the weighted means of per-point
+  values (one (init, lead, lat, lon) or (init, lead, region, lat, lon)
+  tensor per chunk; wb (region, lat, lon)): sigma^2 sum w^2 / (sum w)^2,
+  sigma^2 the weighted variance over (init, lat, lon)."""
+  import torch
+  w = wb[None, None]  # (1, 1, region, lat, lon)
+  per_point = [z if z.dim() == 5 else z[:, :, None] for z in per_point]
+  den = sum(w.sum((0, 3, 4)) * z.shape[0] for z in per_point)
+  w2 = sum((w ** 2).sum((0, 3, 4)) * z.shape[0] for z in per_point)
+  mean = sum((z * w).sum((0, 3, 4)) for z in per_point) / den
+  var = sum(((z - mean[None, :, :, None, None]) ** 2 * w).sum((0, 3, 4))
+            for z in per_point) / den
+  return torch.sqrt(var * w2) / den
+
+
 def closed_form_sigmas(stat_chunks, wb, values: dict) -> dict:
   """Per metric of the main path, the largest |value - closed form| over
   (lead, region) in standard errors: each estimated from the points' own
@@ -1104,18 +1204,9 @@ def closed_form_sigmas(stat_chunks, wb, values: dict) -> dict:
   (RMSE = sqrt(U); spread/skill = sqrt(V / U), whose per-point influence
   is R/2 (v / V - u / U))."""
   import torch
-  w = wb[None, None]  # (1, 1, region, lat, lon)
 
   def standard_error(per_point):
-    """(lead, region) standard errors of the weighted means of per-point
-    values, (init, lead, lat, lon) or (init, lead, region, lat, lon)."""
-    per_point = [z if z.dim() == 5 else z[:, :, None] for z in per_point]
-    den = sum(w.sum((0, 3, 4)) * z.shape[0] for z in per_point)
-    w2 = sum((w ** 2).sum((0, 3, 4)) * z.shape[0] for z in per_point)
-    mean = sum((z * w).sum((0, 3, 4)) for z in per_point) / den
-    var = sum(((z - mean[None, :, :, None, None]) ** 2 * w).sum((0, 3, 4))
-              for z in per_point) / den
-    return torch.sqrt(var * w2) / den
+    return weighted_standard_error(per_point, wb)
 
   means = weighted_means(stat_chunks, wb)
   u, v = means['umse'], means['var']
@@ -1226,6 +1317,275 @@ def large_ensemble_path(seed: int, card: str) -> dict:
   del x, y, chunks
   return {'launches': launches, 'members': members, 'seconds': seconds,
           'max_abs_err': err, 'sigmas': sigmas, 'timing': res}
+
+
+def hens_chunk(seed: int, k: int) -> tuple:
+  """Phase 4c's chunk k (lead k x 6 h), made on the card from the seed: the
+  forecast (M_HENS, *HENS_GRID), the target and the 10-member analysis
+  ensemble, as DimArrays with phase 4's coords and mask."""
+  import torch
+  from weatherbenchx_tpu_torch.darray import Coord, DimArray
+  gen = torch.Generator(device=DEVICE)
+  gen.manual_seed(1000 * seed + 44 + k)
+  x = torch.randn((M_HENS,) + HENS_GRID, generator=gen, device=DEVICE)
+  y = torch.randn(HENS_GRID, generator=gen, device=DEVICE)
+  yt = TARGET_MEAN + torch.randn((M_TARGETS,) + HENS_GRID, generator=gen,
+                                 device=DEVICE)
+  lat, lon = grid_coords()
+  mask = np.ones(HENS_GRID[2:], bool)
+  mask[[0, -1]] = False
+  coords = {
+      'init_time': np.array([np.datetime64('2020-01-01T00', 'ns')]),
+      'lead_time': np.array([k * np.timedelta64(6, 'h')]).astype(
+          'timedelta64[ns]'),
+      'latitude': lat[::-1].copy(), 'longitude': lon,
+      'mask': Coord(('latitude', 'longitude'), mask)}
+  dims = ('init_time', 'lead_time', 'latitude', 'longitude')
+  preds = {'2m_temperature': DimArray(
+      x, ('number',) + dims, dict(coords, number=np.arange(M_HENS)))}
+  tgts = {'2m_temperature': DimArray(y, dims, coords)}
+  ens = {'2m_temperature': DimArray(
+      yt, ('number',) + dims, dict(coords, number=np.arange(M_TARGETS)))}
+  return preds, tgts, ens
+
+
+def hens_check_chunk(x, y, yt, idx, label: str) -> tuple:
+  """Phase 4c's kernel checks on one chunk, flat (M, N), (N), (10, N):
+  the fused, spread-only and cross kernels launched twice each (equal bits),
+  and on the gathered points idx each output within KERNEL_RTOL of its plain
+  version and F64_RTOL of float64. Returns ({kernel: outputs}, max abs err
+  per kernel against the plain version)."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  runs = {
+      'fused': lambda: cp.fused_ensemble_stats(x, y),
+      'spread': lambda: (cp.pairwise_spread_sum(x),),
+      'cross': lambda: (cp.pairwise_cross_sum(x, yt),),
+  }
+  got = {}
+  for name, run in runs.items():
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(first, again)):
+      raise AssertionError(f'{label} {name}: two launches on one chunk '
+                           'differ')
+    got[name] = first
+  xg, yg, ytg = x[:, idx], y[idx], yt[:, idx]
+  refs = {}
+  for dtype in (torch.float32, torch.float64):
+    a, b, c = (t.to(dtype) for t in (xg, yg, ytg))
+    refs[dtype] = {'fused': cp.fused_ensemble_stats_plain(a, b),
+                   'spread': (cp.pairwise_spread_sum_plain(a),),
+                   'cross': (cp.pairwise_cross_sum_plain(a, c),)}
+    del a, b, c
+  errs = {}
+  for name, outs in got.items():
+    errs[name] = 0.0
+    for i, out in enumerate(outs):
+      for dtype, tol in ((torch.float32, KERNEL_RTOL['float32']),
+                         (torch.float64, F64_RTOL)):
+        same, rel, abs_err = rel_err(out[idx], refs[dtype][name][i])
+        if not same or rel > tol:
+          raise AssertionError(f'{label} {name} output {i}: rel err '
+                               f'{rel:.3g} vs the plain version in {dtype} '
+                               f'(tol {tol}), NaN pattern equal {same}')
+        if dtype == torch.float32:
+          errs[name] = max(errs[name], abs_err)
+  return got, errs
+
+
+def hens_plain_ms(x, y, yt) -> dict:
+  """The plain versions' ms over one chunk, HENS_PLAIN_SLICES slices of its
+  points in turn (a whole chunk's sort would not fit beside it), two
+  samples by CUDA events, the median."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  n = y.numel()
+  step = -(-n // HENS_PLAIN_SLICES)
+  cuts = [slice(lo, min(lo + step, n)) for lo in range(0, n, step)]
+  res = time_cuda({
+      'fused': lambda: [cp.fused_ensemble_stats_plain(x[:, c], y[c])
+                        for c in cuts],
+      'spread': lambda: [cp.pairwise_spread_sum_plain(x[:, c]) for c in cuts],
+      'cross': lambda: [cp.pairwise_cross_sum_plain(x[:, c], yt[:, c])
+                        for c in cuts],
+  }, rounds=2)
+  return {k: v[0] for k, v in res.items()}
+
+
+def hens_path(seed: int, card: str) -> dict:
+  """Phase 4c: HENS at its published width (M_HENS members, one 0.25-degree
+  field a chunk, N_HENS_CHUNKS chunks made on the card and dropped after
+  each) through ChunkEvaluator: (a) fair CRPS, the unbiased spread/skill
+  ratio and the unbiased ensemble-mean RMSE against a deterministic target,
+  one fused launch a chunk; (b) fair CRPS against the 10-member analysis
+  ensemble, one cross (7,424 x 10, staged) and one spread-only launch a
+  chunk. Checks the launches and member counts, each kernel output on
+  HENS_GATHER gathered points against its plain version and float64, two
+  launches on a chunk bit for bit, the metrics against float64 means of
+  the kernels' per-point statistics and the closed forms within
+  LARGE_SIGMAS standard errors; times the three kernels (median and IQR of
+  HENS_TIMING_SAMPLES by CUDA events) beside their bytes bounds and the
+  plain versions (over the chunk slice by slice); logs the peak device
+  memory of the path (a chunk made and evaluated) and of the phase."""
+  import torch
+  from weatherbenchx_tpu_torch import aggregation
+  from weatherbenchx_tpu_torch.metrics import probabilistic
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  t_phase = time.perf_counter()
+  if cp.spread_form(M_HENS) != 'blocksort':
+    raise AssertionError(f'phase 4c route: {cp.spread_form(M_HENS)}')
+  det_metrics = {
+      'crps': probabilistic.CRPSEnsemble(use_sort=True),
+      'spread_skill': probabilistic.UnbiasedSpreadSkillRatio(),
+      'unbiased_mean_rmse': probabilistic.UnbiasedEnsembleMeanRMSE(),
+  }
+  ens_metrics = {'crps_ens': probabilistic.CRPSEnsemble()}
+  aggregator = region_aggregator()
+  ev_det = evaluator.ChunkEvaluator(det_metrics, aggregator, device=DEVICE)
+  ev_ens = evaluator.ChunkEvaluator(ens_metrics, aggregator, device=DEVICE)
+  n = math.prod(HENS_GRID)
+  idx = torch.linspace(0, n - 1, HENS_GATHER, device=DEVICE).long()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  det_states, ens_states, stat_chunks, crps_ens_chunks = [], [], [], []
+  seconds, launches, members, errs = [], {}, {}, {}
+  wb = None
+  path_peak = 0
+  for k in range(N_HENS_CHUNKS):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preds, tgts, ens = hens_chunk(seed, k)
+    torch.cuda.synchronize()
+    t_made = time.perf_counter() - t0
+    cp.reset_launch_counts()
+    t0 = time.perf_counter()
+    det_states.append(ev_det.eval_chunk(preds, tgts))
+    ens_states.append(ev_ens.eval_chunk(preds, ens))
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+    path_peak = max(path_peak, torch.cuda.max_memory_allocated())
+    for name, count in cp.LAUNCHES.items():
+      launches[name] = launches.get(name, 0) + count
+      members.setdefault(name, set()).update(cp.MEMBER_COUNTS[name])
+    log(f'phase 4c HENS chunk {k}: made on the card in {t_made:.2f} s, '
+        f'evaluated in {seconds[-1]:.3f} s, launches {dict(cp.LAUNCHES)}')
+    x = preds['2m_temperature'].data.reshape(M_HENS, n)
+    y = tgts['2m_temperature'].data.reshape(n)
+    yt = ens['2m_temperature'].data.reshape(M_TARGETS, n)
+    got, chunk_errs = hens_check_chunk(x, y, yt, idx, f'phase 4c chunk {k}')
+    for name, e in chunk_errs.items():
+      errs[name] = max(errs.get(name, 0.0), e)
+    spread, skill, mean, sq_dev = (t.double() for t in got['fused'])
+    var = sq_dev / (M_HENS - 1)
+    y64 = y.double()
+    shape = (1, 1) + HENS_GRID[2:]
+    stat_chunks.append({
+        'skill': (skill / M_HENS).reshape(shape),
+        'spread': (spread / (M_HENS * (M_HENS - 1))).reshape(shape),
+        'var': var.reshape(shape),
+        'umse': ((mean - y64) ** 2 - var / M_HENS).reshape(shape)})
+    crps_ens_chunks.append(
+        (got['cross'][0].double() / (M_HENS * M_TARGETS)
+         - 0.5 * got['spread'][0].double() / (M_HENS * (M_HENS - 1))
+         ).reshape(shape))
+    if wb is None:
+      wb = bin_weights(aggregator, tgts['2m_temperature'])
+    if k == N_HENS_CHUNKS - 1:
+      timing = time_cuda({
+          'fused': lambda: cp.fused_ensemble_stats(x, y),
+          'spread': lambda: cp.pairwise_spread_sum(x),
+          'cross': lambda: cp.pairwise_cross_sum(x, yt),
+      }, rounds=HENS_TIMING_SAMPLES)
+      plain = hens_plain_ms(x, y, yt)
+    del preds, tgts, ens, x, y, yt, got
+  peak = torch.cuda.max_memory_allocated()  # the last chunk's checks
+  want = {'fused_ensemble_stats': N_HENS_CHUNKS,
+          'pairwise_spread_sum': N_HENS_CHUNKS,
+          'pairwise_cross_sum': N_HENS_CHUNKS}
+  want_members = {'fused_ensemble_stats': {M_HENS},
+                  'pairwise_spread_sum': {M_HENS},
+                  'pairwise_cross_sum': {(M_HENS, M_TARGETS)}}
+  if launches != want or members != want_members:
+    raise AssertionError(f'phase 4c launches {launches} at {members}, want '
+                         f'{want} at {want_members}')
+  log(f'phase 4c HENS path: {N_HENS_CHUNKS} chunks of {M_HENS} x '
+      f'{HENS_GRID} float32 evaluated in {sum(seconds):.2f} s '
+      f'({", ".join(f"{t:.3f}" for t in seconds)} s per chunk), launches '
+      f'{launches} at {members}; peak device memory {path_peak / 2**30:.2f} '
+      f'GiB on the path (a chunk made and evaluated), {peak / 2**30:.2f} GiB '
+      'with the last chunk\'s checks and the plain versions\' timing')
+  values = aggregation.AggregationState.sum(det_states).metric_values(
+      det_metrics)
+  values.update(aggregation.AggregationState.sum(ens_states).metric_values(
+      ens_metrics))
+  # The chunks are leads: one (init, lead, lat, lon) set of statistics.
+  stat_chunks = [{key: torch.cat([c[key] for c in stat_chunks], dim=1)
+                  for key in stat_chunks[0]}]
+  crps_ens_chunks = [torch.cat(crps_ens_chunks, dim=1)]
+  means = weighted_means(stat_chunks, wb)
+  refs = {'crps': means['skill'] - 0.5 * means['spread'],
+          'spread_skill': torch.sqrt(means['var'] / means['umse']),
+          'unbiased_mean_rmse': torch.sqrt(means['umse']),
+          'crps_ens': weighted_means([{'c': c} for c in crps_ens_chunks],
+                                     wb)['c']}
+  sigmas = closed_form_sigmas(stat_chunks, wb, values)
+  crps_ens_closed = ENS_CLOSED_FORMS['crps'][0]
+  got = values['crps_ens.2m_temperature'].data.to(DEVICE).double()
+  sigmas['crps_ens'] = ((got - crps_ens_closed).abs() / weighted_standard_error(
+      crps_ens_chunks, wb)).max().item()
+  closed = {**{k: v[0] for k, v in CLOSED_FORMS.items()},
+            'crps_ens': crps_ens_closed}
+  rels = {}
+  for name, ref in refs.items():
+    da = values[f'{name}.2m_temperature']
+    if da.dims != ('lead_time', 'region') or da.shape != (N_HENS_CHUNKS, 6):
+      raise AssertionError(f'phase 4c {name}: dims {da.dims} shape '
+                           f'{da.shape}')
+    got = da.data.to(DEVICE).double()
+    if not bool(torch.isfinite(got).all()):
+      raise AssertionError(f'phase 4c {name}: non-finite values {got}')
+    rels[name] = ((got - ref).abs() / ref.abs()).max().item()
+    if rels[name] > F64_RTOL:
+      raise AssertionError(f'phase 4c {name}: rel err vs the float64 means '
+                           f'{rels[name]:.3g} > {F64_RTOL}')
+    if sigmas[name] > LARGE_SIGMAS:
+      raise AssertionError(f'phase 4c {name}: {sigmas[name]:.2f} standard '
+                           f'errors from the closed form {closed[name]:.6f}')
+    log(f'phase 4c HENS {name}: mean {got.mean().item():.6f}, closed form '
+        f'{closed[name]:.6f} (at most {sigmas[name]:.2f} standard errors, '
+        f'limit {LARGE_SIGMAS}); rel err vs the float64 means of the '
+        f'kernels\' per-point statistics {rels[name]:.3g} (tol {F64_RTOL}) '
+        'ok')
+  log(f'phase 4c HENS kernels on {HENS_GATHER} gathered points of each '
+      f'chunk: within {KERNEL_RTOL["float32"]} of the plain versions and '
+      f'{F64_RTOL} of float64 (max abs err against the plain versions '
+      f'{json.dumps(errs)}); two launches on a chunk equal bit for bit')
+  works = {'fused': stats_work(M_HENS, n, True),
+           'spread': stats_work(M_HENS, n, False),
+           'cross': cross_work(M_HENS, M_TARGETS, n)}
+  for name, (med, q1, q3, count) in timing.items():
+    nbytes, ops = works[name]
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ms, by = bound(nbytes, ops)
+    network = ('' if name == 'cross' else f'; the block sort\'s own network '
+               f'{blocksort_ops(M_HENS) * n}')
+    log(f'phase 4c timing {name} M={M_HENS}'
+        f'{f" x {M_TARGETS}" if name == "cross" else ""} '
+        f'({cp.spread_form(M_HENS) if name != "cross" else "staged"}): '
+        f'median {med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms over {count} '
+        f'runs; bytes bound {bytes_ms:.4f} ms ({nbytes} bytes, '
+        f'{bytes_ms / med:.1%} of it); bound {ms:.4f} ms by {by} ({ops} '
+        f'operations{network}); the plain version {plain[name]:.2f} ms '
+        f'over {HENS_PLAIN_SLICES} slices; N={n}, float32; card {card}')
+  out = {'launches': launches, 'seconds': seconds,
+         'path_peak_gib': path_peak / 2**30, 'peak_gib': peak / 2**30,
+         'max_abs_err': errs, 'rel_vs_f64': rels, 'sigmas': sigmas,
+         'timing': timing, 'plain_ms': plain,
+         'phase_seconds': time.perf_counter() - t_phase}
+  log(f'phase 4c: {out["phase_seconds"]:.1f} s in all')
+  return out
 
 
 def ensemble_stores(seed: int):
@@ -2307,6 +2667,40 @@ def time_cuda(fns: dict, rounds: int, reps: int = 1) -> dict:
           for k, v in samples.items()}
 
 
+def blocksort_ops(m: int) -> int:
+  """Operations of the block sort's own network on m members
+  (csrc/blocksort_stats.cu), per point, a diagnostic beside its bound
+  (O(M log^2 M), several times what a sort needs): the min and max of each
+  compare-exchange it runs (the runs'
+  networks of 32; each shared pass's items, G <= 4 stages of 2^(G-1) each;
+  a register pass of 80 a run per level), the last level's neighbour min
+  and the gap's difference and multiply-add per member, and the NaN and
+  +-inf tests on load."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  run = cp.BLOCKSORT_RUN
+  runs = -(-m // run)
+  log2v = (m - 1).bit_length()
+  ces = runs * len(cp.sort_network(run))
+  for level in range(6, log2v + 1):
+    pivot = level - 1
+    while pivot >= 5:
+      g = min(4, pivot - 4)  # the kernel's kMaxStages a shared pass
+      low = pivot - g + 1
+      hi, rem = (m - 1) >> (low + g), (m - 1) & ((1 << (low + g)) - 1)
+      items = (hi << low) + min(rem, (1 << low) - 1) + 1
+      ces += items * g * 2 ** (g - 1)
+      pivot -= g
+    ces += runs * 80
+  return 2 * ces + 6 * m
+
+
+def sort_ops(m: int) -> int:
+  """The comparisons any comparison sort of m members needs, log2(m!)
+  rounded up: the work of a block sort's function, whatever network runs
+  it."""
+  return math.ceil(math.lgamma(m + 1) / math.log(2))
+
+
 def stats_work(m: int, n: int, fused: bool) -> tuple:
   """(bytes, operations) of the fused or spread-only kernel on float32
   x (m, n), in the form spread_form(m): each input read once, each output
@@ -2314,8 +2708,11 @@ def stats_work(m: int, n: int, fused: bool) -> tuple:
   and weighted sum and the NaN test (network); the compare-exchanges of
   each sorted run, a compare per further run head and member taken by the
   merge walks, a difference and a multiply-add per pair of mirrored ranks
-  and the NaN test (sorted); or a difference and an add per pair
-  (shared); fused adds the sum, skill, mean and squared deviations."""
+  and the NaN test (sorted); the comparisons any sort of m members needs
+  (sort_ops), a difference and a multiply-add per gap and the NaN test,
+  not the block sort's own network (blocksort_ops; blocksort); or a
+  difference and an add per pair (shared); fused adds the sum, skill, mean
+  and squared deviations."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   form = cp.spread_form(m)
   if form == 'network':
@@ -2323,6 +2720,8 @@ def stats_work(m: int, n: int, fused: bool) -> tuple:
   elif form == 'sorted':
     runs, size = cp.sorted_runs(m)
     ops = runs * 2 * len(cp.sort_network(size)) + (runs - 1) * m + 2 * m
+  elif form == 'blocksort':
+    ops = sort_ops(m) + 3 * m
   else:
     ops = m * (m - 1)
   if fused:
@@ -2487,16 +2886,30 @@ def timing_fields(res: dict, key: str, work: tuple, form: str,
           'form': form}
 
 
+def measured_fields(ms: float, plain_ms: float, work: tuple) -> dict:
+  """A kernel's time beside its plain version's and its bound, at one
+  shape, with the bytes bound alone."""
+  bound_ms, by = bound(*work)
+  return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+          'bound_by': by, 'library_ms': None, 'bytes': work[0],
+          'operations': work[1], 'bound_share': bound_ms / ms,
+          'bytes_bound_ms': 1e3 * work[0] / HBM_BYTES_PER_S}
+
+
 def kernels_line(main_launches, ens_launches, main_err, res, n,
-                 station, batched, large) -> dict:
+                 station, batched, large, hens) -> dict:
   """The `kernels` JSON: fused and spread at M = 50, cross at 50 x 10, and
   the spread's M = 10 launch (the ensemble path's analysis) beside it; the
   fused kernel's launch and error on the station path (phase 12) and its
   launch on the batched main path (phase 15(a): 3 chunks, one launch)
   beside its main path's; the fused kernel's sorted runs on phase 4b's
   path at M = 101, with phase 10's M = 100 row beside it, and the
-  spread-only sorted runs' M = 100 row (on no path). No single PyTorch call
-  computes any of the three functions, so library_ms is null."""
+  spread-only sorted runs' M = 100 row (on no path); the fused and
+  spread-only block sorts on phase 4c's path at M = 7,424 (bound_ms by
+  stats_work, with the operations of their own network, blocksort_ops,
+  beside it), and the staged cross's launches there beside its main
+  path's. No single PyTorch call computes any of the three functions, so
+  library_ms is null."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   csrc = 'weatherbenchx_tpu_torch/ops/csrc/'
   replaced = 'weatherbenchx_tpu/ops/crps_pairwise.py'
@@ -2506,6 +2919,7 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
   def spread_line(m):
     return 229 if m >= 20 else 124
   f50, f10 = cp.spread_form(M), cp.spread_form(M_TARGETS)
+  n_hens = math.prod(HENS_GRID)
   register = csrc + ('crps_pairwise.cu' if f50 == 'shared'
                      else 'register_stats.cuh')
   copy_bytes = 2 * 4 * M * n
@@ -2556,6 +2970,32 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
       'max_abs_err': main_err['cross'],
       **timing_fields(res, 'cross', cross_work(M, M_TARGETS, n), 'cross',
                       copy_bytes),
+      'hens_path': {
+          'launches': hens['launches']['pairwise_cross_sum'],
+          'shape': [M_HENS, M_TARGETS, n_hens],
+          'max_abs_err': hens['max_abs_err']['cross'],
+          **measured_fields(hens['timing']['cross'][0],
+                            hens['plain_ms']['cross'],
+                            cross_work(M_HENS, M_TARGETS, n_hens))},
+  }, {
+      'name': 'fused_ensemble_stats_blocksort', 'route': 'cuda',
+      'source': csrc + 'blocksort_stats.cu', 'replaces': f'{replaced}:238',
+      'launches': hens['launches']['fused_ensemble_stats'],
+      'max_abs_err': hens['max_abs_err']['fused'],
+      **measured_fields(hens['timing']['fused'][0], hens['plain_ms']['fused'],
+                        stats_work(M_HENS, n_hens, True)),
+      'members': M_HENS, 'points': n_hens,
+      'network_operations': blocksort_ops(M_HENS) * n_hens,
+  }, {
+      'name': 'pairwise_spread_sum_blocksort', 'route': 'cuda',
+      'source': csrc + 'blocksort_stats.cu', 'replaces': f'{replaced}:229',
+      'launches': hens['launches']['pairwise_spread_sum'],
+      'max_abs_err': hens['max_abs_err']['spread'],
+      **measured_fields(hens['timing']['spread'][0],
+                        hens['plain_ms']['spread'],
+                        stats_work(M_HENS, n_hens, False)),
+      'members': M_HENS, 'points': n_hens,
+      'network_operations': blocksort_ops(M_HENS) * n_hens,
   }]}
 
 
@@ -4677,7 +5117,7 @@ def main() -> int:
   _build.load_library()
   log(f'phase 2 build: {_build.CSRC} + {len(_build.generated_sources())} '
       f'generated files -> {lib_path} in {time.perf_counter() - t0:.1f} s '
-      f'({_build.PARTS + 1} nvcc processes at once, then the link)')
+      f'({_build.PARTS + 2} nvcc processes at once, then the link)')
   with open(lib_path + '.log') as f:
     build_report(f.read())
 
@@ -4687,6 +5127,8 @@ def main() -> int:
   log('phase 4 main path: ok')
   large = large_ensemble_path(args.seed, card)
   log('phase 4b large ensemble: ok')
+  hens = hens_path(args.seed, card)
+  log('phase 4c HENS path: ok')
   stores, ens_launches = ensemble_path(args.seed)
   log('phase 5 ensemble path: ok')
   bench, bstores, bstate, in_memory = benchmark_path(args.seed, card)
@@ -4728,6 +5170,8 @@ def main() -> int:
   log('phase 19 docs: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
+  hens_log = {k: v for k, v in hens.items() if k != 'timing'}
+  log(f'HENS path: {json.dumps(hens_log)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
   log(f'station path: {json.dumps(station)}; card {card}')
   log(f'unaggregated path: {json.dumps(unagg)}; card {card}')
@@ -4745,7 +5189,8 @@ def main() -> int:
 
   n = math.prod(GRID)
   print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,
-                                n, station['ensemble'], batched_main, large)),
+                                n, station['ensemble'], batched_main, large,
+                                hens)),
         flush=True)
   print(card, flush=True)
   print(json.dumps({'ok': True, 'device': {

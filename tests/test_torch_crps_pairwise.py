@@ -451,9 +451,14 @@ def test_pair_forms_give_nan_for_two_infinities_of_one_sign(m):
 def _emulate_form_spread(x):
   """The spread of the kernel form that x's member count takes: the
   network's emulation here, the sorted runs' in
-  ``test_torch_sorted_runs.py``."""
-  if crps_pairwise.spread_form(x.shape[0]) == 'network':
+  ``test_torch_sorted_runs.py``, the block sort's in
+  ``test_torch_blocksort.py``."""
+  form = crps_pairwise.spread_form(x.shape[0])
+  if form == 'network':
     return _emulate_network_spread(x)
+  if form == 'blocksort':
+    from test_torch_blocksort import _emulate_blocksort_stats
+    return _emulate_blocksort_stats(x)[0]
   from test_torch_sorted_runs import _emulate_sorted_stats
   return _emulate_sorted_stats(x)[0]
 
@@ -480,13 +485,16 @@ def test_network_emulation_infinities_at_few_members(m):
 
 def test_spread_form_routes_by_member_count():
   """The network for every count 2..64, the sorted runs for 65..256, the
-  tiled pair form past them."""
+  block sort past them up to one gridpoint's capacity (58,112 members),
+  the tiled pair form past that."""
   assert list(crps_pairwise.REGISTER_MEMBERS) == list(range(2, 65))
   assert list(crps_pairwise.SORTED_MEMBERS) == list(range(65, 257))
   assert [crps_pairwise.spread_form(m) for m in range(2, 259)] == (
-      ['network'] * 63 + ['sorted'] * 192 + ['shared'] * 2)
-  assert crps_pairwise.spread_form(400) == 'shared'
-  assert crps_pairwise.spread_form(4000) == 'shared'
+      ['network'] * 63 + ['sorted'] * 192 + ['blocksort'] * 2)
+  assert crps_pairwise.spread_form(400) == 'blocksort'
+  assert crps_pairwise.spread_form(4000) == 'blocksort'
+  assert crps_pairwise.spread_form(58112) == 'blocksort'
+  assert crps_pairwise.spread_form(58113) == 'shared'
 
 
 def test_generated_header_writes_each_network_in_order():

@@ -35,8 +35,8 @@ def _rel(got, want):
 
 
 # The route boundaries: the network from 2 to 64 members, the sorted runs
-# from 65 to 256 (two runs to 128, three to 192, four to 256), the tiled
-# pair form past 256.
+# from 65 to 256 (two runs to 128, three to 192, four to 256), the block
+# sort past 256 (300, 1,817 and HENS's 7,424 too).
 @pytest.mark.parametrize('m,rest', [(2, (5,)), (3, (33,)), (21, (2, 3, 65)),
                                     (50, (1, 129)), (400, (40,)),
                                     (10, (3, 70)), (16, (3, 70)),
@@ -44,7 +44,9 @@ def _rel(got, want):
                                     (65, (2, 99)), (100, (2, 99)),
                                     (101, (2, 99)), (128, (2, 99)),
                                     (129, (2, 99)), (193, (2, 40)),
-                                    (256, (2, 40)), (257, (2, 40))])
+                                    (256, (2, 40)), (257, (2, 40)),
+                                    (300, (2, 99)), (1817, (1, 70)),
+                                    (7424, (1, 20))])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_kernels_match_plain(cuda, m, rest, dtype, tol):
@@ -113,7 +115,7 @@ def _infinite_members(m):
 
 
 @pytest.mark.parametrize('m', [2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100,
-                               101, 256, 257])
+                               101, 256, 257, 300, 7424])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_infinite_members_match_plain(cuda, m, dtype):
   """Every kernel form gives the plain version's inf and NaN points, the
@@ -131,7 +133,7 @@ def test_infinite_members_match_plain(cuda, m, dtype):
   assert torch.isnan(want[6]) and torch.isposinf(want[:3]).all()
 
 
-@pytest.mark.parametrize('m', [65, 101, 129, 193, 256, 257])
+@pytest.mark.parametrize('m', [65, 101, 129, 193, 256, 257, 300, 1817])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_run_edges_match_plain(cuda, m, dtype, tol):
@@ -166,7 +168,7 @@ def test_run_edges_match_plain(cuda, m, dtype, tol):
 
 
 @pytest.mark.parametrize('m', [65, 67, 100, 128, 129, 130, 192, 193, 205,
-                               256, 257])
+                               256, 257, 300, 1817, 7424, 58112])
 @pytest.mark.parametrize('value', [np.inf, -np.inf])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_all_members_one_infinity_match_plain(cuda, m, value, dtype):
@@ -484,22 +486,29 @@ def _tiled_inputs(cuda, m, n=80):
 
 
 def _pair_sum_f64(a, b):
-  """sum_{i,j} |a_i - b_j| per point by the float64 broadcast, a quarter of
-  the points at a time."""
+  """sum_{i,j} |a_i - b_j| per point by the float64 broadcast, as many
+  points at a time as keep it near 2 GB."""
+  step = max(1, 2 ** 28 // (a.shape[0] * b.shape[0]))
   return torch.cat([
-      (a[:, None, lo:lo + 20] - b[None, :, lo:lo + 20]).abs().sum((0, 1))
-      for lo in range(0, a.shape[1], 20)])
+      (a[:, None, lo:lo + step] - b[None, :, lo:lo + step]).abs().sum((0, 1))
+      for lo in range(0, a.shape[1], step)])
 
 
-@pytest.mark.parametrize('m', [1816, 1817, 4000])
+# The block sort's edges: its first count, both sides of the first change
+# of gridpoints per block (512 and 513), and HENS's 7,424.
+@pytest.mark.parametrize('m', [257, 512, 513, 7424])
 @pytest.mark.parametrize('route', ['fused', 'spread', 'cross'])
 def test_ensembles_past_one_tile_launch_the_kernels(cuda, route, m):
-  """1,816 members fill one tile of shared memory; from 1,817 the kernels
-  walk the ensemble tile by tile (4,000: three tiles). Through the metrics,
-  every size launches its kernel and gives the float64 broadcast's values
-  within 1e-5."""
+  """Past 256 members the fused and spread-only kernels sort each point's
+  members in a block; the cross sum against m + 2 members takes its tiled
+  form (one tile to 1,816 members, five at 7,424). Through the metrics,
+  at the block sort's edges, every size launches its kernel and gives the
+  float64 broadcast's values within 1e-5."""
   from weatherbenchx_tpu_torch.metrics import base, probabilistic
-  assert crps_pairwise.member_tiles(m) == {1816: 1, 1817: 2, 4000: 3}[m]
+  points = crps_pairwise.blocksort_config(m)[0]
+  assert crps_pairwise.spread_form(m) == 'blocksort'
+  assert crps_pairwise.member_tiles(m) == {257: 1, 512: 1, 513: 1, 7424: 5}[m]
+  assert points == {257: 32, 512: 32, 513: 16, 7424: 2}[m]
   (preds, tgts, ens_tgts), (xd, yd, ytd) = _tiled_inputs(cuda, m)
   crps_pairwise.reset_launch_counts()
   if route == 'fused':
@@ -534,12 +543,15 @@ def test_ensembles_past_one_tile_launch_the_kernels(cuda, route, m):
     assert torch.isnan(da.data[5]) and torch.isnan(da.data).sum() == 1
 
 
+@pytest.mark.parametrize('m', [1817 + 370, 58113])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
-def test_tiled_kernels_match_plain_with_infinities(cuda, dtype, tol):
-  """Two tiles and a ragged second one: +-inf and NaN members in the first
-  tile, the second and the streamed rows give the plain version's points."""
-  m, n = 1817 + 370, 70
+def test_tiled_kernels_match_plain_with_infinities(cuda, m, dtype, tol):
+  """+-inf and NaN members about member 1,816 (a tile's edge of the pair
+  form, a run's edge of the block sort) and in a ragged last run, on the
+  block sort (2,187 members) and past one point's capacity on the tiled
+  pair form (58,113, 32 tiles): the plain version's points."""
+  n = 70
   rng = np.random.default_rng(3)
   x = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
   y = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
@@ -557,6 +569,84 @@ def test_tiled_kernels_match_plain_with_infinities(cuda, dtype, tol):
     assert torch.equal(torch.isinf(g), torch.isinf(w))
     finite = torch.isfinite(w)
     assert _rel(g[finite], w[finite]) <= tol
+
+
+@pytest.mark.parametrize('m', [257, 300, 7424])
+def test_block_sort_two_launches_give_equal_bits(cuda, m):
+  """No atomics and a fixed order of addition: the fused and spread-only
+  block sorts, and the cross kernel beside them, give the same bits on the
+  same input."""
+  rng = np.random.default_rng(m)
+  x = torch.from_numpy(rng.standard_normal((m, 999)).astype(np.float32)).to(
+      cuda)
+  y = torch.from_numpy(rng.standard_normal(999).astype(np.float32)).to(cuda)
+  yt = torch.from_numpy(rng.standard_normal((m + 5, 999)).astype(
+      np.float32)).to(cuda)
+  for run in (lambda: crps_pairwise.fused_ensemble_stats(x, y),
+              lambda: (crps_pairwise.pairwise_spread_sum(x),),
+              lambda: (crps_pairwise.pairwise_cross_sum(x, yt),)):
+    first, again = run(), run()
+    for a, b in zip(first, again):
+      assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize('m', [257, 1817])
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_block_sort_ties_and_signed_zeros_match_plain(cuda, m, dtype, tol):
+  """Members quantized to 0.5 (many ties), all +-0.0 mixed, all -0.0 but
+  one, and a NaN at the first shared stage's half: the plain version's
+  values and points."""
+  rng = np.random.default_rng(m)
+  x = (np.round(2 * rng.standard_normal((m, 200))) / 2).astype(np.float32)
+  x[:, 1] = np.where(rng.random(m) < 0.5, np.float32(-0.0), np.float32(0.0))
+  x[:, 2] = np.float32(-0.0)
+  x[m // 3, 2] = 1.5
+  x[1 << ((m - 1).bit_length() - 1), 3] = np.nan
+  xd = torch.from_numpy(x).to(cuda, dtype)
+  yd = torch.from_numpy(rng.standard_normal(200).astype(np.float32)).to(
+      cuda, dtype)
+  got = crps_pairwise._launch_stats(xd, yd) + (
+      crps_pairwise._launch_stats(xd, None),)
+  want = crps_pairwise.fused_ensemble_stats_plain(xd, yd) + (
+      crps_pairwise.pairwise_spread_sum_plain(xd),)
+  torch.cuda.synchronize()
+  for g, w in zip(got, want):
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    fin = torch.isfinite(w)
+    assert _rel(g[fin], w[fin]) <= tol
+  assert got[0][1] == 0
+  if dtype == torch.float32:  # exact in float32, not in bfloat16
+    assert got[4][2] == 2 * 1.5 * (m - 1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cross_of_two_large_ensembles_edge_values_match_plain(cuda, dtype):
+  """Two ensembles past 8,192 pairs (the cross kernel's tiled form): NaN
+  on either side; +inf on both sides (or -inf on both), NaN as the pair
+  loop's |inf - inf|; other infinities +inf; ties between the ensembles
+  and signed zeros: the plain version's points."""
+  mx, my = 170, 166
+  rng = np.random.default_rng(11)
+  x = (np.round(2 * rng.standard_normal((mx, 40))) / 2).astype(np.float32)
+  y = (np.round(2 * rng.standard_normal((my, 40))) / 2).astype(np.float32)
+  x[5, 0] = np.nan
+  y[my - 1, 1] = np.nan
+  x[0, 2], y[3, 2] = np.inf, np.inf
+  x[mx - 1, 3], y[0, 3] = -np.inf, -np.inf
+  x[7, 4], y[7, 4] = np.inf, -np.inf
+  x[:, 5] = np.inf
+  y[9, 6] = -np.inf
+  x[:, 7], y[:, 7] = np.float32(-0.0), np.float32(0.0)
+  xd, yd = (torch.from_numpy(a).to(cuda, dtype) for a in (x, y))
+  got = crps_pairwise.pairwise_cross_sum(xd, yd)
+  want = crps_pairwise.pairwise_cross_sum_plain(xd, yd)
+  for f in (torch.isnan, torch.isposinf, torch.isneginf):
+    assert torch.equal(f(got), f(want))
+  assert torch.isnan(got[:4]).all() and torch.isposinf(got[4:7]).all()
+  fin = torch.isfinite(want)
+  assert _rel(got[fin], want[fin]) <= (1e-5 if dtype == torch.float32
+                                       else 1e-2)
 
 
 _FAMILY_GRID = (1, 4, 73, 144)

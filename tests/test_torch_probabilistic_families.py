@@ -498,14 +498,35 @@ def test_rev_refuses_what_it_must(which):
 # -- ensembles past one shared-memory tile ---------------------------------------------
 
 
-def test_member_tile_boundary():
-  """1,816 members fill one tile (227 KB at 32 gridpoints of 4 bytes);
-  past it the kernels walk more tiles, and no size is turned away below
-  the entry points' own bound."""
-  assert crps_pairwise.TILE_MEMBERS == 1816 == 232448 // (32 * 4)
-  assert [crps_pairwise.member_tiles(m) for m in (2, 1816, 1817, 3632, 3633)
-          ] == [1, 1, 2, 2, 3]
-  assert crps_pairwise.MAX_MEMBERS > 100 * crps_pairwise.TILE_MEMBERS
+@pytest.mark.parametrize('edge', ['first', 'points', 'capacity', 'tiles'])
+def test_member_tile_boundary(edge):
+  """The block sort's edges: its first count (257, after the sorted runs'
+  256); the first change of gridpoints per block (32 to 16 past 512, where
+  a gridpoint takes 16 threads); one gridpoint's capacity (58,112 members
+  fill a block's 227 KB, past it the tiled pair form); and the tiles of
+  the tiled pair form and of the cross kernel's staged ensemble (1,816
+  members fill one tile of 227 KB at 32 gridpoints of 4 bytes, past it
+  more tiles, and no size is turned away below the entry points' own
+  bound)."""
+  form = crps_pairwise.spread_form
+  top = crps_pairwise.BLOCKSORT_MAX_MEMBERS
+  if edge == 'first':
+    assert (form(256), form(257)) == ('sorted', 'blocksort')
+    assert crps_pairwise.blocksort_config(257) == (32, 8)
+  elif edge == 'points':
+    assert crps_pairwise.blocksort_config(512) == (32, 8)
+    assert crps_pairwise.blocksort_config(513) == (16, 16)
+    assert 32 * crps_pairwise.blocksort_stride(512, 32) * 4 <= 232448 // 2
+  elif edge == 'capacity':
+    assert top == 58112 == 232448 // 4
+    assert (form(top), form(top + 1)) == ('blocksort', 'shared')
+    assert crps_pairwise.blocksort_config(top) == (1, 256)
+  else:
+    assert crps_pairwise.TILE_MEMBERS == 1816 == 232448 // (32 * 4)
+    assert [crps_pairwise.member_tiles(m)
+            for m in (2, 1816, 1817, 3632, 3633, top + 1)
+            ] == [1, 1, 2, 2, 3, 33]
+    assert crps_pairwise.MAX_MEMBERS > 100 * crps_pairwise.TILE_MEMBERS
 
 
 @pytest.mark.parametrize('route', ['fused', 'spread', 'cross'])

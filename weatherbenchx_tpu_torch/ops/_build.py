@@ -6,6 +6,7 @@ shared library with a plain C interface, for Hopper (``sm_90a``), into
 
 * ``csrc/crps_pairwise.cu``: the cross kernel and the tiled pair form of
   the fused and spread-only kernels;
+* ``csrc/blocksort_stats.cu``: their block sorts (257..58,112 members);
 * the register form (``csrc/register_stats.cuh``), one entry point per M
   of ``crps_pairwise.REGISTER_MEMBERS``, and the sorted-runs form
   (``csrc/sorted_stats.cuh``), one entry point per run size of
@@ -31,6 +32,7 @@ import uuid
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 SOURCE = os.path.join(CSRC, 'crps_pairwise.cu')
+BLOCKSORT_SOURCE = os.path.join(CSRC, 'blocksort_stats.cu')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), 'build',
                          'wbx_torch_kernels')
 DEFAULT_CUDA_HOME = '/usr/local/cuda'
@@ -191,8 +193,8 @@ def build() -> str:
     for name, text in generated.items():
       with open(os.path.join(work, name), 'w') as f:
         f.write(text)
-    units = [SOURCE] + [os.path.join(work, name) for name in generated
-                        if name.endswith('.cu')]
+    units = [SOURCE, BLOCKSORT_SOURCE] + [
+        os.path.join(work, name) for name in generated if name.endswith('.cu')]
     objects, log = _compile_all(nvcc, units, work)
     tmp = os.path.join(work, os.path.basename(lib_path))
     proc = subprocess.run([nvcc, *GENCODE, '-shared', '-o', tmp, *objects],
@@ -220,6 +222,8 @@ def load_library() -> ctypes.CDLL:
       p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
       entries = {
           'wbx_ensemble_stats_shared': [p] * 6 + [i64, i64, i32, i32, i32, p],
+          'wbx_ensemble_stats_blocksort': [p] * 7 + [i64, i64] + [i32] * 5
+                                          + [p],
           'wbx_pairwise_cross_sum': [p, p, p, i64, i64, i64, i32, i32, p],
       }
       for m in crps_pairwise.REGISTER_MEMBERS:

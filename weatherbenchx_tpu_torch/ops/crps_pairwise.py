@@ -12,7 +12,7 @@ array and y as (N) (or (My, N) for the cross sum), N = prod(rest). (The
 TPU kernel's rule against reshapes, which retile its memory layout, has no
 counterpart here.)
 
-The fused and spread-only kernels take one of three forms, picked from the
+The fused and spread-only kernels take one of four forms, picked from the
 member count M alone (``spread_form``), all hand-written CUDA:
 
 * ``network`` (M in ``REGISTER_MEMBERS``, 2..64): one thread per
@@ -25,9 +25,19 @@ member count M alone (``spread_form``), all hand-written CUDA:
   walks, up from the smallest members and down from the largest, pair rank
   k with rank M − 1 − k for the same weighted sum, shifted by the median
   (which drops out of each pair);
-* ``shared`` (past 256): the members staged in shared memory and a pair
+* ``blocksort`` (M in ``BLOCKSORT_MEMBERS``, 257..58,112): a block stages
+  the member columns of a few gridpoints in shared memory and sorts each
+  with many threads (``blocksort_config``): runs of 32 sorted in registers
+  by ``sort_network(32)``, then the levels of a bitonic merge in place; the
+  spread is the sum of the sorted order's gaps, each weighted by the pairs
+  across it, k (M − k);
+* ``shared`` (past 58,112, where one gridpoint's members no longer fit a
+  block's shared memory): the members staged in shared memory and a pair
   loop run over them, the pair sum added in two levels; past
   ``TILE_MEMBERS`` the ensemble is walked tile by tile.
+
+The cross kernel stages the smaller ensemble and streams the larger one
+past it.
 
 ``_build`` compiles one network kernel per M of ``REGISTER_MEMBERS`` and
 one sorted-runs kernel per run size of ``SORTED_RUN_SIZES``, the networks
@@ -97,6 +107,48 @@ def sorted_runs(m: int) -> tuple:
   need = -(-m // runs)
   return runs, next(r for r in SORTED_RUN_SIZES if r >= need)
 
+# The block sorts (csrc/blocksort_stats.cu): a gridpoint's members as
+# float32 in one block's shared memory (232,448 bytes), sorted by runs of
+# BLOCKSORT_RUN; a block of at most BLOCKSORT_THREADS threads, at most
+# BLOCKSORT_MAX_POINTS gridpoints, two blocks an SM (228 KB of shared
+# memory, 1 KB of it a block's own) where their columns fit.
+BLOCKSORT_RUN = 32
+BLOCKSORT_THREADS = 256
+BLOCKSORT_MAX_POINTS = 32
+BLOCKSORT_SHARED_BYTES = 232448
+BLOCKSORT_SM_BYTES = 233472
+BLOCKSORT_MAX_MEMBERS = BLOCKSORT_SHARED_BYTES // 4
+BLOCKSORT_MEMBERS = range(SORTED_MAX_MEMBERS + 1, BLOCKSORT_MAX_MEMBERS + 1)
+
+
+def blocksort_stride(m: int, points: int) -> int:
+  """Words between two gridpoints' columns in a block: m rounded up to a
+  row of 32, and 32 / points more, so that a load across the points hits
+  every bank."""
+  run = BLOCKSORT_RUN
+  return -(-m // run) * run + (run // points if points > 1 else 0)
+
+
+def blocksort_config(m: int) -> tuple:
+  """(points, threads) of a block sort of m members: the threads that sort
+  a gridpoint (a power of two from 8 to BLOCKSORT_THREADS, one for about
+  two runs of 32 members) and the gridpoints a block stages (a power of
+  two, at most 32 and BLOCKSORT_THREADS / threads), as many as leave room
+  for two blocks an SM, else one. More
+  gridpoints a block read more of each 32-byte sector of a member row;
+  two blocks an SM overlap one's barriers with the other's work."""
+  runs = -(-m // BLOCKSORT_RUN)
+  threads = 8
+  while threads * 2 < runs and threads < BLOCKSORT_THREADS:
+    threads *= 2
+  points = min(BLOCKSORT_MAX_POINTS, BLOCKSORT_THREADS // threads)
+  two_blocks = BLOCKSORT_SM_BYTES // 2 - 1024
+  while points > 1 and (
+      points * blocksort_stride(m, points) * 4 > two_blocks):
+    points //= 2
+  return points, threads
+
+
 # The member count from which the JAX package's spread kernel takes its sort
 # body, below it its pair body (weatherbenchx_tpu/ops/crps_pairwise.py:90).
 # The two differ on infinite members, and every form here gives what the
@@ -150,10 +202,13 @@ def sort_network(m: int) -> list:
 
 
 def spread_form(m: int) -> str:
-  """The kernel form for m members: 'network', 'sorted' or 'shared'."""
+  """The kernel form for m members: 'network', 'sorted', 'blocksort' or
+  'shared'."""
   if m in REGISTER_MEMBERS:
     return 'network'
-  return 'sorted' if m in SORTED_MEMBERS else 'shared'
+  if m in SORTED_MEMBERS:
+    return 'sorted'
+  return 'blocksort' if m in BLOCKSORT_MEMBERS else 'shared'
 
 
 # -- plain versions -----------------------------------------------------------
@@ -245,14 +300,28 @@ def _raise_on_error(rc: int, name: str) -> None:
     raise RuntimeError(f'{name} kernel launch failed: CUDA error {rc}')
 
 
-def _launch_stats(x: torch.Tensor, y):
+# The member counts each form's kernel takes, where ``_launch_stats`` is
+# asked for a form other than spread_form's (``chip_ab.py`` compares forms).
+_FORM_MEMBERS = {
+    'network': REGISTER_MEMBERS,
+    'sorted': SORTED_MEMBERS,
+    'blocksort': range(BLOCKSORT_RUN + 1, BLOCKSORT_MAX_MEMBERS + 1),
+    'shared': range(2, MAX_MEMBERS + 1),
+}
+
+
+def _launch_stats(x: torch.Tensor, y, form: str = None):
   """The fused kernel (y given) or the spread-only kernel (y None).
 
   x (M, N) and y (N) contiguous on one CUDA device, in the form
-  ``spread_form(M)``. Returns the four fused outputs, or the spread alone.
+  ``spread_form(M)``, or ``form`` where given (``chip_ab.py`` compares
+  forms; a ValueError where that form's kernel cannot take M). Returns the
+  four fused outputs, or the spread alone.
   """
   _check_kernel_input(x)
   m, n = x.shape
+  if form is not None and m not in _FORM_MEMBERS.get(form, ()):
+    raise ValueError(f'the {form!r} form does not take {m} members')
   fused = y is not None
   outs = tuple(torch.empty((n,), dtype=x.dtype, device=x.device)
                for _ in range(4 if fused else 1))
@@ -263,10 +332,19 @@ def _launch_stats(x: torch.Tensor, y):
             *(o.data_ptr() for o in outs), *(None,) * (4 - len(outs)))
     dtype = KERNEL_DTYPES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    form = spread_form(m)
+    form = form or spread_form(m)
     if form == 'shared':
       rc = lib.wbx_ensemble_stats_shared(*ptrs, m, n, dtype, fused,
                                          x.device.index, stream)
+    elif form == 'blocksort':
+      points, threads = blocksort_config(m)
+      # The fused kernel's device scratch: a word per warp of each point's
+      # group, for its sum past one warp.
+      sums = (torch.empty((n * (threads // 32),), dtype=torch.float32,
+                          device=x.device) if fused and threads > 32 else None)
+      rc = lib.wbx_ensemble_stats_blocksort(
+          *ptrs, None if sums is None else sums.data_ptr(), m, n, dtype,
+          fused, points, threads, x.device.index, stream)
     elif form == 'sorted':
       rc = getattr(lib, _build.sorted_symbol(sorted_runs(m)[1]))(
           *ptrs, m, n, dtype, fused, x.device.index, stream)

@@ -1,9 +1,11 @@
 // Ensemble statistics for the CRPS family: CUDA C++ for Hopper (sm_90a).
 //
 // The tiled pair form of the fused and spread-only kernels, for ensembles
-// of more than 256 members (register_stats.cuh holds the register form for
-// 2..64 members and sorted_stats.cuh the sorted runs for 65..256, which
-// ops/crps_pairwise.py:spread_form picks first). Replaces, in
+// of more than 58,112 members, past one gridpoint's capacity of the block
+// sort (register_stats.cuh holds the register form for 2..64 members,
+// sorted_stats.cuh the sorted runs for 65..256 and blocksort_stats.cu the
+// block sort for 257..58,112, which ops/crps_pairwise.py:spread_form picks
+// first). Replaces, in
 // weatherbenchx_tpu/ops/crps_pairwise.py, _fused_kernel (via
 // _fused_stats_impl -> pl.pallas_call) and _spread_kernel_sort (via
 // _pairwise_spread_sum_impl): spread_sum = sum_{i != j} |x_i - x_j|, and
@@ -13,8 +15,10 @@
 // What bounds it on the H100: the pair loop. At M members it does
 // M(M-1)/2 pairs per gridpoint, each two FP32 adds (the difference, then
 // the add of its absolute value), and FADD runs at 128 per clock per SM
-// with no FMA pairing: past 256 members that is more than 32,000 adds per
-// gridpoint, so the operations bound it, growing as M^2. The design:
+// with no FMA pairing: past 58,112 members that is more than 3e9 adds per
+// gridpoint, so the operations bound it, growing as M^2 (the form is
+// kept there as the entry points' last resort, to MAX_MEMBERS). The
+// design:
 //   * one thread per gridpoint, so every member row is read from device
 //     memory exactly once, coalesced (consecutive threads, consecutive
 //     gridpoints);
@@ -33,9 +37,11 @@
 //     once per tile before it;
 //   * the pair sum is added in two levels, a short float32 run per group
 //     of kRowGroup members (at most one tile's members long) and the runs
-//     into the total, so the rounding error grows with the square root of
-//     M and not of M^2.
-// The pair form needs no sort, and it propagates NaN by plain arithmetic:
+//     into the total with Kahan's compensation (add_compensated), so the
+//     rounding error does not grow with the M^2 / 8 runs.
+// The sum, skill and squared deviations are added in the same two levels
+// (runs of kSumRun members). The pair form needs no sort, and it
+// propagates NaN by plain arithmetic:
 // a NaN member poisons only its own gridpoint (no fminf/fmaxf, which drop
 // NaN). Infinite members are counted on load, and the counts, not the pair
 // loop's |inf - inf|, give the JAX kernels' inf or NaN (infinite_spread in
@@ -62,6 +68,10 @@ namespace {
 constexpr int kMaxThreads = 128;
 constexpr int kMinThreads = 32;
 constexpr int kRowGroup = 4;
+// The sum, skill and squared deviations are added in runs of kSumRun
+// members and the runs into the total, so that past one block's shared
+// memory (58,113 members and up) their rounding grows with sqrt(M).
+constexpr int kSumRun = 64;
 // The cross pairs up to which the cross kernel adds all of a gridpoint's
 // pairs in four float32 accumulators (2,048 terms each). Past them the runs
 // would cost float32 digits, and its tiled form takes over.
@@ -72,6 +82,17 @@ constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
 using wbx::load;
 using wbx::store;
+
+// total += v with Kahan's compensation carried in comp: the pair form's
+// group runs take M^2 / 8 additions past 58,112 members, too many for a
+// plain float32 sum.
+__device__ __forceinline__ void add_compensated(float& total, float& comp,
+                                                float v) {
+  const float y = v - comp;
+  const float t = total + y;
+  comp = (t - total) - y;
+  total = t;
+}
 
 // sum_r acc[r], pairwise.
 __device__ __forceinline__ float group_sum(const float (&acc)[kRowGroup]) {
@@ -95,17 +116,23 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
   float* col = tile + threadIdx.x;
 
   float sum = 0.f;
+  float sum_run = 0.f;  // the sum in runs of kSumRun members
   bool nan = false;
   int n_pos = 0;
   int n_neg = 0;
   float half_spread = 0.f;  // sum_{i<j} |x_i - x_j|
+  float half_comp = 0.f;    // its compensation
   float acc[kRowGroup];
   for (int c0 = 0; c0 < m; c0 += tile_rows) {
     const int mc = min(tile_rows, m - c0);
     for (int i = 0; i < mc; ++i) {
       const float v = load(x + static_cast<int64_t>(c0 + i) * n + g);
       col[i * stride] = v;
-      sum += v;
+      sum_run += v;
+      if ((c0 + i) % kSumRun == kSumRun - 1) {
+        sum += sum_run;
+        sum_run = 0.f;
+      }
       nan = nan || v != v;
       n_pos += v == wbx::infinity();
       n_neg += v == -wbx::infinity();
@@ -131,7 +158,7 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
 #pragma unroll
         for (int r = 0; r < kRowGroup; ++r) acc[r] += fabsf(xi[r] - xj);
       }
-      half_spread += group_sum(acc);
+      add_compensated(half_spread, half_comp, group_sum(acc));
     }
     // The tile's members against every later member, streamed from device
     // memory (no trip when one tile holds the ensemble).
@@ -152,7 +179,7 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
 #pragma unroll
       for (int r = 0; r < kRowGroup; ++r)
         if (!live[r]) acc[r] = 0.f;
-      half_spread += group_sum(acc);
+      add_compensated(half_spread, half_comp, group_sum(acc));
     }
   }
   // Infinite members: |inf - inf| must not decide the result; the counts
@@ -163,17 +190,26 @@ __global__ void ensemble_stats_kernel(const T* __restrict__ x,
 
   if constexpr (kFused) {
     const float yv = load(y + g);
-    const float mean = sum / static_cast<float>(m);
+    const float mean = (sum + sum_run) / static_cast<float>(m);
     const bool staged = m <= tile_rows;  // else the last tile is in shared
     float skill = 0.f;
     float sq_dev = 0.f;
+    float skill_run = 0.f;
+    float sq_run = 0.f;
     for (int i = 0; i < m; ++i) {
       const float v = staged ? col[i * stride]
                              : load(x + static_cast<int64_t>(i) * n + g);
-      skill += fabsf(v - yv);
+      skill_run += fabsf(v - yv);
       const float d = v - mean;
-      sq_dev += d * d;
+      sq_run += d * d;
+      if (i % kSumRun == kSumRun - 1) {
+        skill += skill_run;
+        sq_dev += sq_run;
+        skill_run = sq_run = 0.f;
+      }
     }
+    skill += skill_run;
+    sq_dev += sq_run;
     store(skill_out + g, skill);
     store(mean_out + g, mean);
     store(sq_dev_out + g, sq_dev);

@@ -1,7 +1,8 @@
 // The fused ensemble-statistics and spread-only kernels with the ensemble
 // held in registers: CUDA C++ for Hopper (sm_90a), for 2 <= M <= 64
 // members. sorted_stats.cuh (65..256, whose runs this file's networks
-// sort) and crps_pairwise.cu (past 256) take larger ensembles.
+// sort), blocksort_stats.cu (257..58,112, whose runs of 32 they sort too)
+// and crps_pairwise.cu (past 58,112) take larger ensembles.
 //
 // Replaces, in weatherbenchx_tpu/ops/crps_pairwise.py:
 //   * _fused_kernel (via _fused_stats_impl -> pl.pallas_call): one pass

@@ -1,7 +1,7 @@
 // The fused ensemble-statistics and spread-only kernels for 65..256
 // members, as sorted runs: CUDA C++ for Hopper (sm_90a). register_stats.cuh
-// holds the register form for 2..64 members, crps_pairwise.cu the tiled
-// pair form past 256.
+// holds the register form for 2..64 members, blocksort_stats.cu the block
+// sort for 257..58,112 and crps_pairwise.cu the tiled pair form past it.
 //
 // Replaces, in weatherbenchx_tpu/ops/crps_pairwise.py, _fused_kernel (via
 // _fused_stats_impl -> pl.pallas_call) and _spread_kernel_sort (via
@@ -41,8 +41,9 @@
 //   * loads unconditional, all of a run in flight at once (a pad row
 //     repeats member M - 1, then is set to +inf).
 // 256 members (K = 4 runs of 64) is the end of this form: the runs take
-// 1 KB of shared memory a point, 64 KB for a block of 64 threads, and a
-// block of the tiled pair form takes over past it.
+// 1 KB of shared memory a point, 64 KB for a block of 64 threads, and the
+// block sort takes over past it (blocksort_stats.cu; 2.4-7x slower than
+// these runs at 129..256 on an H100, PERF.md).
 //
 // NaN: fminf/fmaxf drop a NaN operand, so the kernel flags NaN in the
 // loaded values and writes NaN to the spread; sum, skill and mean come from
