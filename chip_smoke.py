@@ -358,15 +358,19 @@ NAN_POSITION_MEMBERS = (21, 49, 101, 256, 300, 7424)
 INFINITY_MEMBERS = (2, 3, 10, 19, 20, 21, 49, 50, 64, 65, 100, 101, 256, 257,
                     300, 7424)
 # Member counts checked with NaN and +-inf members at a run's edge: the
-# sorted runs' ends and their changes of run count, and on the block sort
-# 257, 300 and 1,817 (members on both sides of 256, a run's edge there).
-RUN_EDGE_MEMBERS = (65, 100, 101, 128, 129, 192, 193, 256, 257, 300, 1817)
+# sorted runs' ends and their changes of run count, on the block sort 257,
+# 300 and 1,817 (members on both sides of 256, a run's edge there), and on
+# the merge sort 58,113, phase 4d's 59,392, both sides of its change from 4
+# to 8 runs and 2^20 (its first runs' edge and its last merge's).
+RUN_EDGE_MEMBERS = (65, 100, 101, 128, 129, 192, 193, 256, 257, 300, 1817,
+                    58113, 59392, 115712, 115713, 1 << 20)
 # Member counts checked with every member (or all but one) at one
 # infinity, where a merge walk exhausts a run and then meets only that
 # infinity: each run count and padded runs, the sorted runs' end; on the
-# block sort 257, 300, 1,817, 7,424 and one point's capacity, 58,112.
+# block sort 257, 300, 1,817, 7,424 and one point's capacity, 58,112; on
+# the merge sort 58,113, 59,392 and 2^20.
 ONE_INFINITY_MEMBERS = (65, 67, 100, 128, 129, 130, 192, 193, 205, 256, 257,
-                        300, 1817, 7424, 58112)
+                        300, 1817, 7424, 58112, 58113, 59392, 1 << 20)
 # The H100 SXM's HBM rate, and its float32 issue rate for operations that
 # are not FMAs (min, max, add, subtract): 128 per clock per SM x 132 SMs x
 # 1.98 GHz; the data sheet's 67 TFLOP/s counts an FMA as two. For the
@@ -400,6 +404,19 @@ N_HENS_CHUNKS = 2
 HENS_GATHER = 16384
 HENS_PLAIN_SLICES = 16
 HENS_TIMING_SAMPLES = 10
+# Phase 4d: a lagged-average ensemble (Hoffman and Kalnay 1983, Tellus
+# 35A) of HENS, a construct: 8 consecutive daily HENS inits valid at one
+# time, pooled into 8 x 7,424 = 59,392 members, past one point's block sort
+# (58,112). One 0.25-degree field cut to a band of 48 latitude rows (14 to
+# 25.75 degrees N, so that the tropics and the northern extratropics both
+# meet it) x 1,440 longitudes, 2 chunks of 16.42 GB made on the card; the
+# closed forms checked within LAGGED_SIGMAS standard errors.
+M_LAGGED = 8 * M_HENS
+LAGGED_ROWS = range(416, 464)  # of the ascending 0.25-degree latitudes
+N_LAGGED_CHUNKS = 2
+LAGGED_SIGMAS = 3.0
+# E|X - X'| for X, X' iid N(0, 1): the spread metric's closed form.
+SPREAD_CLOSED_FORM = 2 / math.sqrt(math.pi)
 
 
 def log(msg: str) -> None:
@@ -606,26 +623,50 @@ def check_infinities(rng) -> None:
           f'{head.tolist()} ok')
 
 
+def run_edge(m: int) -> int:
+  """The first member of a second run: the sorted runs' run size, the
+  block sort's 256 (a run's edge there), the merge sort's run size."""
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  form = cp.spread_form(m)
+  if form == 'sorted':
+    return cp.sorted_runs(m)[1]
+  return cp.merge_runs(m)[1] if form == 'mergesort' else cp.SORTED_MAX_MEMBERS
+
+
+def edge_points(m: int) -> int:
+  """Points of an edge check: 2,000, fewer past 32,768 members (64 at
+  2^20), so that a check's input stays near 256 MB."""
+  return max(64, min(2000, 2 ** 26 // m))
+
+
 def check_run_edges(rng) -> None:
   """The sorted runs (and on the block sort 257, 300 and 1,817 members,
-  where 256 is a run's edge) in both dtypes: +inf, -inf and NaN members at
-  the last member of the first run, the first of the second, both, the
-  last member, and (past 256) members 255 and 256, against the plain
+  where 256 is a run's edge; and on the merge sort past 58,112, where the
+  runs' edge is its run size and the last merge's the middle of its runs)
+  in both dtypes: +inf, -inf and NaN members at the last member of the
+  first run, the first of the second, both, the last member, and on the
+  merge sort both sides of the last merge's edge, against the plain
   versions; each NaN poisons its point."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   for m in RUN_EDGE_MEMBERS:
     form = cp.spread_form(m)
-    edge = (cp.sorted_runs(m)[1] if form == 'sorted'
-            else cp.SORTED_MAX_MEMBERS)
-    x = rng.standard_normal((m, 2000), dtype=np.float32)
+    edge = run_edge(m)
+    n = edge_points(m)
+    x = rng.standard_normal((m, n), dtype=np.float32)
     cols = [((edge - 1,), np.inf), ((edge,), np.inf),
             ((edge - 1, edge), np.inf), ((edge - 1,), -np.inf),
             ((edge,), -np.inf), ((m - 1,), np.inf), ((m - 1,), -np.inf),
             ((edge - 1,), np.nan), ((edge,), np.nan), ((m - 1,), np.nan)]
+    if form == 'mergesort':
+      runs, size = cp.merge_runs(m)
+      mid = runs // 2 * size
+      cols += [((mid - 1,), np.inf), ((mid,), -np.inf),
+               ((mid - 1, mid), -np.inf), ((mid - 1,), np.nan),
+               ((mid,), np.nan)]
     for col, (rows, value) in enumerate(cols):
       x[list(rows), col] = value
-    y = rng.standard_normal(2000, dtype=np.float32)
+    y = rng.standard_normal(n, dtype=np.float32)
     nan_cols = [c for c, (_, v) in enumerate(cols) if np.isnan(v)]
     for dtype in (torch.float32, torch.bfloat16):
       dname = str(dtype).split('.')[-1]
@@ -635,9 +676,11 @@ def check_run_edges(rng) -> None:
       if not all(bool(torch.isnan(g[nan_cols]).all()) for g in got):
         raise AssertionError(f'M={m} {dname}: a NaN member at a run edge '
                              'did not poison its point')
+      where = (f'members {edge - 1}, {edge} and {m - 1}'
+               + (', and the last merge\'s edge' if form == 'mergesort'
+                  else ''))
       log(f'kernel check M={m} ({form}) {dname}: +-inf and NaN members at '
-          f'members {edge - 1}, {edge} and {m - 1} give the plain '
-          'version\'s points ok')
+          f'{where} give the plain version\'s points ok ({n} points)')
 
 
 def check_one_infinity(rng) -> None:
@@ -652,16 +695,16 @@ def check_one_infinity(rng) -> None:
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   for m in ONE_INFINITY_MEMBERS:
-    edge = (cp.sorted_runs(m)[1] if cp.spread_form(m) == 'sorted'
-            else cp.SORTED_MAX_MEMBERS)
+    edge = run_edge(m)
+    n = edge_points(m)
     for value in (np.inf, -np.inf):
-      x = rng.standard_normal((m, 2000), dtype=np.float32)
+      x = rng.standard_normal((m, n), dtype=np.float32)
       x[:, :4] = value
       x[0, 1] = 0.0
       x[m - 1, 2] = 0.0
       x[edge, 3] = -value
       x[:m // 2 + 2, 4] = value
-      y = rng.standard_normal(2000, dtype=np.float32)
+      y = rng.standard_normal(n, dtype=np.float32)
       for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split('.')[-1]
         got = stats_against_plain(torch.from_numpy(x).to(DEVICE, dtype),
@@ -830,32 +873,39 @@ def spread_f64(x):
 def blocksort_edges() -> tuple:
   """The block sort's edges: its first count; both sides of the first
   change of gridpoints per block; phase 4c's 7,424; one gridpoint's
-  capacity, 58,112; and 58,113, past which the tiled pair form takes
-  over."""
+  capacity, 58,112; and past it the merge sort's: 58,113, both sides of
+  each change of its run count (4 to 8 runs at 4 MERGESORT_RUN_MAX, ...,
+  32 to 64) and the kernels' last count, 2^20."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   first = cp.BLOCKSORT_MEMBERS[0]
   change = next(m for m in cp.BLOCKSORT_MEMBERS
                 if cp.blocksort_config(m)[0] < cp.blocksort_config(first)[0])
   top = cp.BLOCKSORT_MAX_MEMBERS
-  return (first, change - 1, change, M_HENS, top, top + 1)
+  edges = (first, change - 1, change, M_HENS, top, top + 1)
+  runs = cp.merge_runs(top + 1)[0]
+  while runs * cp.MERGESORT_RUN_MAX < cp.MAX_MEMBERS:
+    edges += (runs * cp.MERGESORT_RUN_MAX, runs * cp.MERGESORT_RUN_MAX + 1)
+    runs *= 2
+  return edges + (cp.MAX_MEMBERS,)
 
 
 def check_member_tiles(rng) -> None:
-  """The block sort's edges (blocksort_edges) through the metrics: the
-  fused pass, the spread outside a pass and, to 8,192 members, the
-  two-ensemble skill against M + 3 members (the cross kernel's tiled form,
-  one to five tiles), each against float64 and launched once; past 8,192 members at 4 points (58,113
-  takes the tiled pair form, whose pair loop runs seconds a point), else
-  96. Then +-inf and NaN members on both sides of a run's edge and of the
-  first shared stage's half at 7,424 members, against the plain
-  versions. The counts to 8,192 are timed (time_member_tiles)."""
+  """The block sort's and the merge sort's edges (blocksort_edges) through
+  the metrics: the fused pass, the spread outside a pass and, to 8,192
+  members, the two-ensemble skill against M + 3 members (the cross
+  kernel's tiled form, one to five tiles), each against float64 and
+  launched once; over 96 points, 4 at 2^20. Then +-inf and NaN members on
+  both sides of a run's edge and of the first shared stage's half at
+  7,424 members, against the plain versions; and the merge sort's ties and
+  signed zeros (check_mergesort_ties). The counts to 8,192 are timed
+  (time_member_tiles)."""
   import torch
   from weatherbenchx_tpu_torch.darray import DimArray
   from weatherbenchx_tpu_torch.metrics import base, probabilistic
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   for m in blocksort_edges():
     small = m <= 8192
-    n = 96 if small else 4
+    n = 4 if m == cp.MAX_MEMBERS else 96
     x = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
     y = torch.from_numpy(rng.standard_normal(n, dtype=np.float32))
     yt = torch.from_numpy(rng.standard_normal((m + 3, n), dtype=np.float32))
@@ -920,6 +970,46 @@ def check_member_tiles(rng) -> None:
     log(f'block sort edge check M={m} {dname}: +-inf and NaN members at a '
         f'run\'s edge (31, 32) and the first shared stage\'s ({half - 1}, '
         f'{half}) give the plain version\'s points ok')
+  check_mergesort_ties(rng)
+
+
+def check_mergesort_ties(rng) -> None:
+  """The merge sort at 58,113, phase 4d's 59,392 and 2^20, both dtypes:
+  members quantized to 0.5 (ties in every run and across each edge), the
+  members at the runs' edge and the last merge's equal, +-0.0 mixed, all
+  -0.0 but one 1.5 (the spread exactly 2 x 1.5 (M - 1) in float32): the
+  plain versions' values; and two launches equal bit for bit."""
+  import torch
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  for m in (cp.BLOCKSORT_MAX_MEMBERS + 1, M_LAGGED, cp.MAX_MEMBERS):
+    n = edge_points(m)
+    runs, size = cp.merge_runs(m)
+    mid = runs // 2 * size
+    x = (np.round(2 * rng.standard_normal((m, n))) / 2).astype(np.float32)
+    x[[size - 1, size, mid - 1, mid], 0] = 0.5
+    x[:, 1] = np.where(rng.random(m) < 0.5, np.float32(-0.0),
+                       np.float32(0.0))
+    x[:, 2] = np.float32(-0.0)
+    x[m // 3, 2] = 1.5
+    y = rng.standard_normal(n, dtype=np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+      dname = str(dtype).split('.')[-1]
+      xd = torch.from_numpy(x).to(DEVICE, dtype)
+      yd = torch.from_numpy(y).to(DEVICE, dtype)
+      got = stats_against_plain(xd, yd, f'merge sort ties M={m}', dname)
+      again = cp._launch_stats(xd, yd) + (cp._launch_stats(xd, None),)
+      bits = torch.int32 if dtype == torch.float32 else torch.int16
+      if not all(torch.equal(a.view(bits), b.view(bits))
+                 for a, b in zip(got, again)):
+        raise AssertionError(f'M={m} {dname}: two launches differ')
+      if float(got[0][1]) != 0 or (dtype == torch.float32 and
+                                   float(got[4][2]) != 2 * 1.5 * (m - 1)):
+        raise AssertionError(f'M={m} {dname}: signed zeros {got[0][1]}, '
+                             f'one 1.5 among -0.0 {got[4][2]}')
+    log(f'merge sort check M={m} ({runs} runs of {size}, {n} points): ties '
+        'across the runs\' and the last merge\'s edges, +-0.0, float32 and '
+        'bfloat16, give the plain version\'s values; two launches equal bit '
+        'for bit ok')
 
 
 def time_member_tiles(x, y) -> None:
@@ -941,12 +1031,13 @@ def time_member_tiles(x, y) -> None:
         f'{ops} operations); N={n}, float32')
 
 
-def build_report(build_log: str) -> None:
-  """Phase 2's reading of nvcc's -Xptxas -v lines: the tiled pair and cross
-  kernels line by line; the register and sorted-runs kernels as registers
-  per (dtype, output set) and M or run size. Raises unless every register
-  and sorted-runs kernel was compiled, and unless every kernel of the
-  build has 0 bytes of stack frame and spills."""
+def build_report(build_log: str) -> dict:
+  """Phase 2's reading of nvcc's -Xptxas -v lines: the cross, block-sort
+  and merge-sort kernels line by line; the register and sorted-runs
+  kernels as registers per (dtype, output set) and M or run size. Raises
+  unless every register and sorted-runs kernel was compiled, and unless
+  every kernel of the build has 0 bytes of stack frame and spills.
+  Returns {mangled name: [registers, stack frame and spill bytes]}."""
   import re
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   entry = re.compile(r"Compiling entry function '(\S+)'")
@@ -997,6 +1088,36 @@ def build_report(build_log: str) -> None:
         + ' '.join(f'{m}:{r}' for m, r in sorted(by_m.items())))
   log(f'  nvcc: {len(kernels)} kernels, every one with 0 bytes of stack '
       'frame, spill stores and spill loads')
+  return kernels
+
+
+def mergesort_registers(kernels: dict) -> dict:
+  """The merge sort's kernels in build_report's table: {merge levels, last
+  merge (spread, fused), finish (per dtype and output set), the block
+  sort's run mode (per dtype and output set): [registers, spill bytes]}."""
+  import re
+  names = {
+      r'merge_kernelILb0ELb0E': 'merge_level',
+      r'merge_kernelILb1ELb0E': 'last_merge_spread',
+      r'merge_kernelILb1ELb1E': 'last_merge_fused',
+      r'finish_kernelIfLb0E': 'finish_f32_spread',
+      r'finish_kernelIfLb1E': 'finish_f32_fused',
+      r'finish_kernelI13__nv_bfloat16Lb0E': 'finish_bf16_spread',
+      r'finish_kernelI13__nv_bfloat16Lb1E': 'finish_bf16_fused',
+      r'blocksort_stats_kernelIfLb0ELb1E': 'runs_f32_spread',
+      r'blocksort_stats_kernelIfLb1ELb1E': 'runs_f32_fused',
+      r'blocksort_stats_kernelI13__nv_bfloat16Lb0ELb1E': 'runs_bf16_spread',
+      r'blocksort_stats_kernelI13__nv_bfloat16Lb1ELb1E': 'runs_bf16_fused',
+  }
+  out = {}
+  for mangled, props in kernels.items():
+    for pattern, name in names.items():
+      if re.search(pattern, mangled):
+        out[name] = props
+  if len(out) != len(names):
+    raise AssertionError(f'merge sort kernels in the build log: {sorted(out)}'
+                         f', want {sorted(names.values())}')
+  return out
 
 
 def grid_coords():
@@ -1350,18 +1471,20 @@ def hens_chunk(seed: int, k: int) -> tuple:
 
 
 def hens_check_chunk(x, y, yt, idx, label: str) -> tuple:
-  """Phase 4c's kernel checks on one chunk, flat (M, N), (N), (10, N):
-  the fused, spread-only and cross kernels launched twice each (equal bits),
-  and on the gathered points idx each output within KERNEL_RTOL of its plain
-  version and F64_RTOL of float64. Returns ({kernel: outputs}, max abs err
-  per kernel against the plain version)."""
+  """Phase 4c's (and 4d's) kernel checks on one chunk, flat (M, N), (N),
+  (10, N) or None: the fused, spread-only and (yt given) cross kernels
+  launched twice each (equal bits), and on the gathered points idx each
+  output within KERNEL_RTOL of its plain version and F64_RTOL of float64.
+  Returns ({kernel: outputs}, max abs err per kernel against the plain
+  version)."""
   import torch
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   runs = {
       'fused': lambda: cp.fused_ensemble_stats(x, y),
       'spread': lambda: (cp.pairwise_spread_sum(x),),
-      'cross': lambda: (cp.pairwise_cross_sum(x, yt),),
   }
+  if yt is not None:
+    runs['cross'] = lambda: (cp.pairwise_cross_sum(x, yt),)
   got = {}
   for name, run in runs.items():
     first, again = run(), run()
@@ -1371,14 +1494,16 @@ def hens_check_chunk(x, y, yt, idx, label: str) -> tuple:
       raise AssertionError(f'{label} {name}: two launches on one chunk '
                            'differ')
     got[name] = first
-  xg, yg, ytg = x[:, idx], y[idx], yt[:, idx]
+  xg, yg = x[:, idx], y[idx]
   refs = {}
   for dtype in (torch.float32, torch.float64):
-    a, b, c = (t.to(dtype) for t in (xg, yg, ytg))
+    a, b = xg.to(dtype), yg.to(dtype)
     refs[dtype] = {'fused': cp.fused_ensemble_stats_plain(a, b),
-                   'spread': (cp.pairwise_spread_sum_plain(a),),
-                   'cross': (cp.pairwise_cross_sum_plain(a, c),)}
-    del a, b, c
+                   'spread': (cp.pairwise_spread_sum_plain(a),)}
+    if yt is not None:
+      refs[dtype]['cross'] = (cp.pairwise_cross_sum_plain(
+          a, yt[:, idx].to(dtype)),)
+    del a, b
   errs = {}
   for name, outs in got.items():
     errs[name] = 0.0
@@ -1398,18 +1523,20 @@ def hens_check_chunk(x, y, yt, idx, label: str) -> tuple:
 def hens_plain_ms(x, y, yt) -> dict:
   """The plain versions' ms over one chunk, HENS_PLAIN_SLICES slices of its
   points in turn (a whole chunk's sort would not fit beside it), two
-  samples by CUDA events, the median."""
+  samples by CUDA events, the median; the cross's where yt is given."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   n = y.numel()
   step = -(-n // HENS_PLAIN_SLICES)
   cuts = [slice(lo, min(lo + step, n)) for lo in range(0, n, step)]
-  res = time_cuda({
+  fns = {
       'fused': lambda: [cp.fused_ensemble_stats_plain(x[:, c], y[c])
                         for c in cuts],
       'spread': lambda: [cp.pairwise_spread_sum_plain(x[:, c]) for c in cuts],
-      'cross': lambda: [cp.pairwise_cross_sum_plain(x[:, c], yt[:, c])
-                        for c in cuts],
-  }, rounds=2)
+  }
+  if yt is not None:
+    fns['cross'] = lambda: [cp.pairwise_cross_sum_plain(x[:, c], yt[:, c])
+                            for c in cuts]
+  res = time_cuda(fns, rounds=2)
   return {k: v[0] for k, v in res.items()}
 
 
@@ -1585,6 +1712,274 @@ def hens_path(seed: int, card: str) -> dict:
          'timing': timing, 'plain_ms': plain,
          'phase_seconds': time.perf_counter() - t_phase}
   log(f'phase 4c: {out["phase_seconds"]:.1f} s in all')
+  return out
+
+
+def lagged_band():
+  """Phase 4d's latitudes (descending, as ERA5 stores them), longitudes and
+  the band's land mask (ascending latitudes), from phase 4's grid."""
+  from weatherbenchx_tpu_torch.darray import DimArray
+  lat, lon = grid_coords()
+  land = land_sea_mask()
+  rows = np.asarray(LAGGED_ROWS)
+  band = DimArray(np.asarray(land.values)[rows], ('latitude', 'longitude'),
+                  {'latitude': lat[rows], 'longitude': lon})
+  return lat[rows][::-1].copy(), lon, band
+
+
+def lagged_aggregator(band):
+  """Phase 4's regions and their land parts over the band, area-weighted,
+  masked."""
+  from weatherbenchx_tpu_torch import aggregation, binning, weighting
+  return aggregation.Aggregator(
+      reduce_dims=['init_time', 'latitude', 'longitude'],
+      weigh_by=[weighting.GridAreaWeighting()],
+      bin_by=[binning.Regions(REGIONS, land_sea_mask=band)],
+      masked=True)
+
+
+def lagged_metrics() -> tuple:
+  """Phase 4d's metrics: against the target, one fused pass (fair CRPS,
+  the unbiased spread/skill ratio, the unbiased ensemble-mean RMSE and the
+  root mean ensemble variance); the ensemble's spread E|X - X'| (its fair
+  CRPS spread term) beside the analysis ensemble, whose ensemble dim keeps
+  the fused pass away: one spread-only launch and no cross."""
+  from weatherbenchx_tpu_torch.metrics import base, probabilistic
+
+  class EnsembleSpread(base.PerVariableMetric):
+    """The fair ensemble spread E|X - X'|, the CRPS spread term alone."""
+
+    @property
+    def statistics(self):
+      return {'CRPSSpread': probabilistic.CRPSSpread(use_sort=True)}
+
+    def _values_from_mean_statistics_per_variable(self, s):
+      return s['CRPSSpread']
+
+  det = {
+      'crps': probabilistic.CRPSEnsemble(use_sort=True),
+      'spread_skill': probabilistic.UnbiasedSpreadSkillRatio(),
+      'unbiased_mean_rmse': probabilistic.UnbiasedEnsembleMeanRMSE(),
+      'root_mean_variance': probabilistic.EnsembleRootMeanVariance(),
+  }
+  return det, {'spread': EnsembleSpread()}
+
+
+def lagged_chunk(seed: int, k: int, lat, lon) -> tuple:
+  """Phase 4d's chunk k (lead k x 6 h), made on the card from the seed: the
+  forecast (M_LAGGED, 1, 1, band), the N(0, 1) target and a 10-member
+  N(0.5, 1) analysis ensemble, as DimArrays; a coverage mask drops the
+  band's edge rows."""
+  import torch
+  from weatherbenchx_tpu_torch.darray import Coord, DimArray
+  grid = (1, 1, len(lat), len(lon))
+  gen = torch.Generator(device=DEVICE)
+  gen.manual_seed(1000 * seed + 48 + k)
+  x = torch.randn((M_LAGGED,) + grid, generator=gen, device=DEVICE)
+  y = torch.randn(grid, generator=gen, device=DEVICE)
+  yt = TARGET_MEAN + torch.randn((M_TARGETS,) + grid, generator=gen,
+                                 device=DEVICE)
+  mask = np.ones(grid[2:], bool)
+  mask[[0, -1]] = False
+  coords = {
+      'init_time': np.array([np.datetime64('2020-01-01T00', 'ns')]),
+      'lead_time': np.array([k * np.timedelta64(6, 'h')]).astype(
+          'timedelta64[ns]'),
+      'latitude': lat, 'longitude': lon,
+      'mask': Coord(('latitude', 'longitude'), mask)}
+  dims = ('init_time', 'lead_time', 'latitude', 'longitude')
+  preds = {'2m_temperature': DimArray(
+      x, ('number',) + dims, dict(coords, number=np.arange(M_LAGGED)))}
+  tgts = {'2m_temperature': DimArray(y, dims, coords)}
+  ens = {'2m_temperature': DimArray(
+      yt, ('number',) + dims, dict(coords, number=np.arange(M_TARGETS)))}
+  return preds, tgts, ens
+
+
+def lagged_path(seed: int, card: str) -> dict:
+  """Phase 4d: the lagged-average HENS ensemble (M_LAGGED members, a band
+  of one 0.25-degree field a chunk, N_LAGGED_CHUNKS chunks made on the card
+  and dropped after each) through ChunkEvaluator: (a) fair CRPS,
+  spread/skill, ensemble-mean RMSE and root mean variance against the
+  target, one fused merge-sort launch a chunk; (b) the ensemble's spread
+  beside the analysis ensemble, one spread-only launch a chunk. Checks the
+  launches and member counts, each output on HENS_GATHER gathered points
+  against its plain version and float64, two launches on a chunk bit for
+  bit, the metrics against float64 means of the kernels' per-point
+  statistics and within LAGGED_SIGMAS standard errors of the closed forms;
+  times both kernels beside their bytes bound and the plain versions (over
+  the chunk slice by slice); logs the bytes each call moves and the peak
+  device memory, and the device time of one call of each by kernel
+  (torch.profiler)."""
+  import re
+  import torch
+  from weatherbenchx_tpu_torch import aggregation
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  from weatherbenchx_tpu_torch.parallel import evaluator
+  t_phase = time.perf_counter()
+  if cp.spread_form(M_LAGGED) != 'mergesort':
+    raise AssertionError(f'phase 4d route: {cp.spread_form(M_LAGGED)}')
+  lat, lon, band = lagged_band()
+  det_metrics, spread_metrics = lagged_metrics()
+  aggregator = lagged_aggregator(band)
+  ev_det = evaluator.ChunkEvaluator(det_metrics, aggregator, device=DEVICE)
+  ev_spread = evaluator.ChunkEvaluator(spread_metrics, aggregator,
+                                       device=DEVICE)
+  n = len(lat) * len(lon)
+  idx = torch.linspace(0, n - 1, HENS_GATHER, device=DEVICE).long()
+  torch.cuda.empty_cache()
+  det_states, spread_states, stat_chunks = [], [], []
+  seconds, launches, members, errs = [], {}, {}, {}
+  wb = None
+  path_peak = 0
+  for k in range(N_LAGGED_CHUNKS):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    preds, tgts, ens = lagged_chunk(seed, k, lat, lon)
+    torch.cuda.synchronize()
+    t_made = time.perf_counter() - t0
+    cp.reset_launch_counts()
+    t0 = time.perf_counter()
+    det_states.append(ev_det.eval_chunk(preds, tgts))
+    spread_states.append(ev_spread.eval_chunk(preds, ens))
+    torch.cuda.synchronize()
+    seconds.append(time.perf_counter() - t0)
+    path_peak = max(path_peak, torch.cuda.max_memory_allocated())
+    for name, count in cp.LAUNCHES.items():
+      launches[name] = launches.get(name, 0) + count
+      members.setdefault(name, set()).update(cp.MEMBER_COUNTS[name])
+    log(f'phase 4d lagged HENS chunk {k}: made on the card in {t_made:.2f} '
+        f's, evaluated in {seconds[-1]:.3f} s, launches {dict(cp.LAUNCHES)}')
+    x = preds['2m_temperature'].data.reshape(M_LAGGED, n)
+    y = tgts['2m_temperature'].data.reshape(n)
+    got, chunk_errs = hens_check_chunk(x, y, None, idx,
+                                       f'phase 4d chunk {k}')
+    for name, e in chunk_errs.items():
+      errs[name] = max(errs.get(name, 0.0), e)
+    spread, skill, mean, sq_dev = (t.double() for t in got['fused'])
+    var = sq_dev / (M_LAGGED - 1)
+    pairs = M_LAGGED * (M_LAGGED - 1)
+    shape = (1, 1, len(lat), len(lon))
+    stat_chunks.append({
+        'skill': (skill / M_LAGGED).reshape(shape),
+        'spread': (spread / pairs).reshape(shape),
+        'var': var.reshape(shape),
+        'umse': ((mean - y.double()) ** 2 - var / M_LAGGED).reshape(shape),
+        'spread_only': (got['spread'][0].double() / pairs).reshape(shape)})
+    if wb is None:
+      wb = bin_weights(aggregator, tgts['2m_temperature'])
+    if k == N_LAGGED_CHUNKS - 1:
+      timing = time_cuda({
+          'fused': lambda: cp.fused_ensemble_stats(x, y),
+          'spread': lambda: cp.pairwise_spread_sum(x),
+      }, rounds=HENS_TIMING_SAMPLES)
+      plain = hens_plain_ms(x, y, None)
+      breakdown = {
+          name: device_time(fn, top=None) for name, fn in (
+              ('fused', lambda: cp.fused_ensemble_stats(x, y)),
+              ('spread', lambda: cp.pairwise_spread_sum(x)))}
+    del preds, tgts, ens, x, y, got
+  peak = torch.cuda.max_memory_allocated()
+  want = {'fused_ensemble_stats': N_LAGGED_CHUNKS,
+          'pairwise_spread_sum': N_LAGGED_CHUNKS, 'pairwise_cross_sum': 0}
+  want_members = {'fused_ensemble_stats': {M_LAGGED},
+                   'pairwise_spread_sum': {M_LAGGED},
+                   'pairwise_cross_sum': set()}
+  if launches != want or members != want_members:
+    raise AssertionError(f'phase 4d launches {launches} at {members}, want '
+                         f'{want} at {want_members}')
+  log(f'phase 4d lagged HENS path: {N_LAGGED_CHUNKS} chunks of {M_LAGGED} x '
+      f'(1, 1, {len(lat)}, {len(lon)}) float32 evaluated in '
+      f'{sum(seconds):.2f} s ({", ".join(f"{t:.3f}" for t in seconds)} s '
+      f'per chunk), launches {launches} at {members}; peak device memory '
+      f'{path_peak / 2**30:.2f} GiB on the path (a chunk made and '
+      f'evaluated), {peak / 2**30:.2f} GiB with the last chunk\'s checks '
+      'and the timing')
+  metrics = {**det_metrics, **spread_metrics}
+  values = aggregation.AggregationState.sum(det_states).metric_values(
+      det_metrics)
+  values.update(aggregation.AggregationState.sum(
+      spread_states).metric_values(spread_metrics))
+  stat_chunks = [{key: torch.cat([c[key] for c in stat_chunks], dim=1)
+                  for key in stat_chunks[0]}]
+  means = weighted_means(stat_chunks, wb)
+  refs = {'crps': means['skill'] - 0.5 * means['spread'],
+          'spread_skill': torch.sqrt(means['var'] / means['umse']),
+          'unbiased_mean_rmse': torch.sqrt(means['umse']),
+          'root_mean_variance': torch.sqrt(means['var']),
+          'spread': means['spread_only']}
+  sigmas = closed_form_sigmas(stat_chunks, wb, values)
+  for name, key, root in (('root_mean_variance', 'var', True),
+                          ('spread', 'spread_only', False)):
+    se = weighted_standard_error([c[key] for c in stat_chunks], wb)
+    if root:
+      se = se / (2 * torch.sqrt(means[key]))
+    closed = 1.0 if root else SPREAD_CLOSED_FORM
+    got = values[f'{name}.2m_temperature'].data.to(DEVICE).double()
+    sigmas[name] = ((got - closed).abs() / se).max().item()
+  closed = {**{k: v[0] for k, v in CLOSED_FORMS.items()},
+            'root_mean_variance': 1.0, 'spread': SPREAD_CLOSED_FORM}
+  rels = {}
+  for name in metrics:
+    da = values[f'{name}.2m_temperature']
+    if da.dims != ('lead_time', 'region') or da.shape != (N_LAGGED_CHUNKS,
+                                                          6):
+      raise AssertionError(f'phase 4d {name}: dims {da.dims} shape '
+                           f'{da.shape}')
+    got = da.data.to(DEVICE).double()
+    if not bool(torch.isfinite(got).all()):
+      raise AssertionError(f'phase 4d {name}: non-finite values {got}')
+    rels[name] = ((got - refs[name]).abs() / refs[name].abs()).max().item()
+    if rels[name] > F64_RTOL:
+      raise AssertionError(f'phase 4d {name}: rel err vs the float64 means '
+                           f'{rels[name]:.3g} > {F64_RTOL}')
+    if sigmas[name] > LAGGED_SIGMAS:
+      raise AssertionError(f'phase 4d {name}: {sigmas[name]:.2f} standard '
+                           f'errors from the closed form {closed[name]:.6f}')
+    log(f'phase 4d lagged HENS {name}: mean {got.mean().item():.6f}, closed '
+        f'form {closed[name]:.6f} (at most {sigmas[name]:.2f} standard '
+        f'errors, limit {LAGGED_SIGMAS}); rel err vs the float64 means of '
+        f'the kernels\' per-point statistics {rels[name]:.3g} (tol '
+        f'{F64_RTOL}) ok')
+  log(f'phase 4d kernels on {HENS_GATHER} gathered points of each chunk: '
+      f'within {KERNEL_RTOL["float32"]} of the plain versions and '
+      f'{F64_RTOL} of float64 (max abs err against the plain versions '
+      f'{json.dumps(errs)}); two launches on a chunk equal bit for bit')
+  runs, size, batch = cp.mergesort_plan(M_LAGGED, n)
+  traffic = {}
+  for name, (med, q1, q3, count) in timing.items():
+    fused = name == 'fused'
+    nbytes, ops = stats_work(M_LAGGED, n, fused)
+    traffic[name] = cp.mergesort_traffic(M_LAGGED, n, 4, fused)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    moved = traffic[name]['total']
+    log(f'phase 4d timing {name} M={M_LAGGED} (mergesort: {runs} runs of '
+        f'{size}, batches of {batch} points): median {med:.4f} ms, IQR '
+        f'[{q1:.4f}, {q3:.4f}] ms over {count} runs; bytes bound '
+        f'{bytes_ms:.4f} ms ({nbytes} bytes, {bytes_ms / med:.1%} of it); '
+        f'bytes moved {moved} ({json.dumps(traffic[name])}), '
+        f'{1e3 * moved / HBM_BYTES_PER_S:.4f} ms at the HBM rate, '
+        f'{moved / med / 1e9:.4f} TB/s achieved; operations {ops}; the '
+        f'plain version {plain[name]:.2f} ms over {HENS_PLAIN_SLICES} '
+        f'slices; N={n}, float32; card {card}')
+  kernels = {}
+  for name, (busy, rows) in breakdown.items():
+    kernels[name] = {'busy_ms': busy, 'kernels': {}}
+    for key, ms in rows:
+      short = re.search(r'(\w+_kernel<[^()]*>)', key)
+      short = short.group(1) if short else key[:60]
+      kernels[name]['kernels'][short] = (
+          kernels[name]['kernels'].get(short, 0.0) + ms)
+    log(f'phase 4d device time of one {name} call by torch.profiler: busy '
+        f'{busy} ms; by kernel (ms) {json.dumps(kernels[name]["kernels"])}')
+  out = {'launches': launches, 'seconds': seconds,
+         'path_peak_gib': path_peak / 2**30, 'peak_gib': peak / 2**30,
+         'max_abs_err': errs, 'rel_vs_f64': rels, 'sigmas': sigmas,
+         'timing': timing, 'plain_ms': plain, 'traffic': traffic,
+         'device_time': kernels,
+         'plan': {'runs': runs, 'run_members': size, 'batch': batch},
+         'points': n, 'phase_seconds': time.perf_counter() - t_phase}
+  log(f'phase 4d: {out["phase_seconds"]:.1f} s in all')
   return out
 
 
@@ -2710,9 +3105,9 @@ def stats_work(m: int, n: int, fused: bool) -> tuple:
   merge walks, a difference and a multiply-add per pair of mirrored ranks
   and the NaN test (sorted); the comparisons any sort of m members needs
   (sort_ops), a difference and a multiply-add per gap and the NaN test,
-  not the block sort's own network (blocksort_ops; blocksort); or a
-  difference and an add per pair (shared); fused adds the sum, skill, mean
-  and squared deviations."""
+  not the block sort's own network (blocksort_ops; blocksort and
+  mergesort, whose scratch traffic crps_pairwise.mergesort_traffic
+  counts); fused adds the sum, skill, mean and squared deviations."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   form = cp.spread_form(m)
   if form == 'network':
@@ -2720,10 +3115,8 @@ def stats_work(m: int, n: int, fused: bool) -> tuple:
   elif form == 'sorted':
     runs, size = cp.sorted_runs(m)
     ops = runs * 2 * len(cp.sort_network(size)) + (runs - 1) * m + 2 * m
-  elif form == 'blocksort':
-    ops = sort_ops(m) + 3 * m
   else:
-    ops = m * (m - 1)
+    ops = sort_ops(m) + 3 * m
   if fused:
     ops += 5 * m + 1
   nbytes = 4 * n * (m + (1 + 4 if fused else 1))
@@ -2897,7 +3290,7 @@ def measured_fields(ms: float, plain_ms: float, work: tuple) -> dict:
 
 
 def kernels_line(main_launches, ens_launches, main_err, res, n,
-                 station, batched, large, hens) -> dict:
+                 station, batched, large, hens, lagged, merge_regs) -> dict:
   """The `kernels` JSON: fused and spread at M = 50, cross at 50 x 10, and
   the spread's M = 10 launch (the ensemble path's analysis) beside it; the
   fused kernel's launch and error on the station path (phase 12) and its
@@ -2908,8 +3301,10 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
   spread-only block sorts on phase 4c's path at M = 7,424 (bound_ms by
   stats_work, with the operations of their own network, blocksort_ops,
   beside it), and the staged cross's launches there beside its main
-  path's. No single PyTorch call computes any of the three functions, so
-  library_ms is null."""
+  path's; the fused and spread-only merge sorts on phase 4d's path at M =
+  59,392 (the bytes each call moves, its plan, and its kernels' registers
+  and spills beside them). No single PyTorch call computes any of the
+  three functions, so library_ms is null."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   csrc = 'weatherbenchx_tpu_torch/ops/csrc/'
   replaced = 'weatherbenchx_tpu/ops/crps_pairwise.py'
@@ -2920,8 +3315,7 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
     return 229 if m >= 20 else 124
   f50, f10 = cp.spread_form(M), cp.spread_form(M_TARGETS)
   n_hens = math.prod(HENS_GRID)
-  register = csrc + ('crps_pairwise.cu' if f50 == 'shared'
-                     else 'register_stats.cuh')
+  register = csrc + 'register_stats.cuh'
   copy_bytes = 2 * 4 * M * n
   return {'kernels': [{
       'name': 'fused_ensemble_stats', 'route': 'cuda', 'source': register,
@@ -2996,7 +3390,19 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
                         stats_work(M_HENS, n_hens, False)),
       'members': M_HENS, 'points': n_hens,
       'network_operations': blocksort_ops(M_HENS) * n_hens,
-  }]}
+  }, *({
+      'name': f'{name}_mergesort', 'route': 'cuda',
+      'source': csrc + 'mergesort_stats.cu',
+      'replaces': f'{replaced}:{line}',
+      'launches': lagged['launches'][name],
+      'max_abs_err': lagged['max_abs_err'][key],
+      **measured_fields(lagged['timing'][key][0], lagged['plain_ms'][key],
+                        stats_work(M_LAGGED, lagged['points'], key == 'fused')),
+      'members': M_LAGGED, 'points': lagged['points'],
+      'plan': lagged['plan'], 'bytes_moved': lagged['traffic'][key],
+      'registers_and_spills': merge_regs,
+  } for name, key, line in (('fused_ensemble_stats', 'fused', 238),
+                            ('pairwise_spread_sum', 'spread', 229)))]}
 
 
 # Phase 11, the metric families: the three families of the JAX package's
@@ -3017,10 +3423,10 @@ FAMILY_SIGMAS = 6.0  # closed forms: standard errors at a bin's Kish size
 RANK_SUM_TOL = 1e-6
 
 
-def device_time(fn) -> tuple:
-  """(ms the card was busy, [(kernel, ms), ...] the three longest) during
-  one call of fn, by torch.profiler's kernel records; (None, []) where it
-  records no device time."""
+def device_time(fn, top: int = 3) -> tuple:
+  """(ms the card was busy, [(kernel, ms), ...] the `top` longest, all
+  where top is None) during one call of fn, by torch.profiler's kernel
+  records; (None, []) where it records no device time."""
   import torch
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
@@ -3037,7 +3443,7 @@ def device_time(fn) -> tuple:
   rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
   if not rows:
     return None, []
-  return sum(ms for _, ms in rows), rows[:3]
+  return sum(ms for _, ms in rows), rows[:top]
 
 
 def family_phase(seed: int, card: str) -> dict:
@@ -5119,7 +5525,7 @@ def main() -> int:
       f'generated files -> {lib_path} in {time.perf_counter() - t0:.1f} s '
       f'({_build.PARTS + 2} nvcc processes at once, then the link)')
   with open(lib_path + '.log') as f:
-    build_report(f.read())
+    merge_regs = mergesort_registers(build_report(f.read()))
 
   main_err = check_kernels(args.seed)
   log('phase 3 kernels: all checks within tolerance')
@@ -5129,6 +5535,8 @@ def main() -> int:
   log('phase 4b large ensemble: ok')
   hens = hens_path(args.seed, card)
   log('phase 4c HENS path: ok')
+  lagged = lagged_path(args.seed, card)
+  log('phase 4d lagged HENS path: ok')
   stores, ens_launches = ensemble_path(args.seed)
   log('phase 5 ensemble path: ok')
   bench, bstores, bstate, in_memory = benchmark_path(args.seed, card)
@@ -5172,6 +5580,8 @@ def main() -> int:
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   hens_log = {k: v for k, v in hens.items() if k != 'timing'}
   log(f'HENS path: {json.dumps(hens_log)}; card {card}')
+  lagged_log = {k: v for k, v in lagged.items() if k != 'timing'}
+  log(f'lagged HENS path: {json.dumps(lagged_log)}; card {card}')
   log(f'metric families: {json.dumps(families)}; card {card}')
   log(f'station path: {json.dumps(station)}; card {card}')
   log(f'unaggregated path: {json.dumps(unagg)}; card {card}')
@@ -5190,7 +5600,7 @@ def main() -> int:
   n = math.prod(GRID)
   print(json.dumps(kernels_line(main_launches, ens_launches, main_err, res,
                                 n, station['ensemble'], batched_main, large,
-                                hens)),
+                                hens, lagged, merge_regs)),
         flush=True)
   print(card, flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -228,10 +228,10 @@ def test_blocksort_is_the_form_from_257_members(m):
                                crps_pairwise.BLOCKSORT_MAX_MEMBERS + 1])
 def test_blocksort_route_edges(m):
   """256 is the sorted runs' last count, 257 the block sort's first; one
-  point's members fill a block's 227 KB at 58,112, past which the tiled
-  pair form takes over."""
+  point's members fill a block's 227 KB at 58,112, past which the merge
+  sort of block-sorted runs takes over."""
   want = {256: 'sorted', 257: 'blocksort', 58112: 'blocksort',
-          58113: 'shared'}[m]
+          58113: 'mergesort'}[m]
   assert crps_pairwise.spread_form(m) == want
   assert crps_pairwise.BLOCKSORT_MAX_MEMBERS == 232448 // 4 == 58112
   if want == 'blocksort':

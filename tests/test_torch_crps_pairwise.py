@@ -486,7 +486,7 @@ def test_network_emulation_infinities_at_few_members(m):
 def test_spread_form_routes_by_member_count():
   """The network for every count 2..64, the sorted runs for 65..256, the
   block sort past them up to one gridpoint's capacity (58,112 members),
-  the tiled pair form past that."""
+  the merge sort of block-sorted runs past that, to 2^20."""
   assert list(crps_pairwise.REGISTER_MEMBERS) == list(range(2, 65))
   assert list(crps_pairwise.SORTED_MEMBERS) == list(range(65, 257))
   assert [crps_pairwise.spread_form(m) for m in range(2, 259)] == (
@@ -494,7 +494,8 @@ def test_spread_form_routes_by_member_count():
   assert crps_pairwise.spread_form(400) == 'blocksort'
   assert crps_pairwise.spread_form(4000) == 'blocksort'
   assert crps_pairwise.spread_form(58112) == 'blocksort'
-  assert crps_pairwise.spread_form(58113) == 'shared'
+  assert crps_pairwise.spread_form(58113) == 'mergesort'
+  assert crps_pairwise.spread_form(crps_pairwise.MAX_MEMBERS) == 'mergesort'
 
 
 def test_generated_header_writes_each_network_in_order():

@@ -547,10 +547,10 @@ def test_ensembles_past_one_tile_launch_the_kernels(cuda, route, m):
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_tiled_kernels_match_plain_with_infinities(cuda, m, dtype, tol):
-  """+-inf and NaN members about member 1,816 (a tile's edge of the pair
-  form, a run's edge of the block sort) and in a ragged last run, on the
-  block sort (2,187 members) and past one point's capacity on the tiled
-  pair form (58,113, 32 tiles): the plain version's points."""
+  """+-inf and NaN members about member 1,816 (a run's edge of the block
+  sort) and in a ragged last run, on the block sort (2,187 members) and
+  past one point's capacity on the merge sort (58,113, four runs): the
+  plain version's points."""
   n = 70
   rng = np.random.default_rng(3)
   x = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32))
@@ -590,7 +590,7 @@ def test_block_sort_two_launches_give_equal_bits(cuda, m):
       assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-@pytest.mark.parametrize('m', [257, 1817])
+@pytest.mark.parametrize('m', [257, 1817, 58113])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])
 def test_block_sort_ties_and_signed_zeros_match_plain(cuda, m, dtype, tol):
@@ -931,3 +931,86 @@ def test_parity_fuzz_on_the_card_matches_the_cpu(cuda, family):
   if family == 'config':
     assert report['launches']['fused_ensemble_stats'] > 0
     assert report['launches']['pairwise_cross_sum'] > 0
+
+
+# -- the merge sort past one point's block sort (58,113..2^20 members) -------
+
+
+@pytest.mark.parametrize('m,n', [(58113, 40), (59392, 40), (115712, 24),
+                                 (115713, 24), (1 << 20, 12)])
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_mergesort_edges_match_plain(cuda, m, n, dtype, tol):
+  """58,113, phase 4d's 59,392, both sides of the change from 4 to 8 runs
+  and 2^20: +-inf and NaN members on both sides of the first runs' edge and
+  of the last merge's, members all at one infinity and all but one, ties
+  across the edges, +-0.0 mixed: the plain versions' values and NaN/+-inf
+  points, one launch of each kernel."""
+  rng = np.random.default_rng(m)
+  runs, size = crps_pairwise.merge_runs(m)
+  mid = runs // 2 * size
+  x = rng.standard_normal((m, n)).astype(np.float32)
+  inf, nan = np.inf, np.nan
+  x[size - 1, 0] = inf
+  x[size, 1] = inf
+  x[size - 1, 2], x[size, 2] = -inf, inf
+  x[mid - 1, 3] = x[mid, 3] = -inf
+  x[size, 4] = nan
+  x[mid - 1, 5] = nan
+  x[:, 6] = inf
+  x[:, 7] = -inf
+  x[1:, 8] = inf
+  x[:, 9] = np.round(2 * x[:, 9]) / 2
+  x[[size - 1, size, mid - 1, mid], 9] = 0.5
+  x[:, 10] = np.where(rng.random(m) < 0.5, np.float32(-0.0), np.float32(0.0))
+  x[m - 1, 11] = nan
+  xd = torch.from_numpy(x).to(cuda, dtype)
+  yd = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+      cuda, dtype)
+  assert crps_pairwise.spread_form(m) == 'mergesort'
+  crps_pairwise.reset_launch_counts()
+  got = crps_pairwise.fused_ensemble_stats(xd, yd) + (
+      crps_pairwise.pairwise_spread_sum(xd),)
+  torch.cuda.synchronize()
+  assert crps_pairwise.LAUNCHES == {'fused_ensemble_stats': 1,
+                                    'pairwise_spread_sum': 1,
+                                    'pairwise_cross_sum': 0}
+  assert crps_pairwise.MEMBER_COUNTS['fused_ensemble_stats'] == {m}
+  want = crps_pairwise.fused_ensemble_stats_plain(xd, yd) + (
+      crps_pairwise.pairwise_spread_sum_plain(xd),)
+  for g, w in zip(got, want):
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+      assert torch.equal(f(g), f(w))
+    fin = torch.isfinite(w)
+    assert _rel(g[fin], w[fin]) <= tol
+  assert torch.isnan(got[0][[4, 5, 6, 7, 8, 11]]).all()
+  assert got[0][10] == 0
+
+
+def test_mergesort_two_launches_give_equal_bits(cuda):
+  """No atomics and a fixed order of addition across runs, tiles and
+  batches: the fused and spread-only merge sorts give the same bits on the
+  same input, in one batch and in several."""
+  m = 59392
+  rng = np.random.default_rng(m)
+  x = torch.from_numpy(rng.standard_normal((m, 999)).astype(np.float32)).to(
+      cuda)
+  y = torch.from_numpy(rng.standard_normal(999).astype(np.float32)).to(cuda)
+  first = crps_pairwise._launch_stats(x, y) + (
+      crps_pairwise._launch_stats(x, None),)
+  again = crps_pairwise._launch_stats(x, y) + (
+      crps_pairwise._launch_stats(x, None),)
+  for a, b in zip(first, again):
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+  # The same points cut into batches of 100: each point's sums keep their
+  # order, so the bits do not change.
+  scratch = crps_pairwise.SCRATCH_BYTES
+  try:
+    crps_pairwise.SCRATCH_BYTES = 100 * 4 * crps_pairwise._scratch_words(m)[2]
+    assert crps_pairwise.mergesort_plan(m, 999)[2] == 100
+    batched = crps_pairwise._launch_stats(x, y) + (
+        crps_pairwise._launch_stats(x, None),)
+  finally:
+    crps_pairwise.SCRATCH_BYTES = scratch
+  for a, b in zip(first, batched):
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))

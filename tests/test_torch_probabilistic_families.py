@@ -503,8 +503,8 @@ def test_member_tile_boundary(edge):
   """The block sort's edges: its first count (257, after the sorted runs'
   256); the first change of gridpoints per block (32 to 16 past 512, where
   a gridpoint takes 16 threads); one gridpoint's capacity (58,112 members
-  fill a block's 227 KB, past it the tiled pair form); and the tiles of
-  the tiled pair form and of the cross kernel's staged ensemble (1,816
+  fill a block's 227 KB, past it the merge sort of block-sorted runs); and
+  the tiles of the cross kernel's staged ensemble (1,816
   members fill one tile of 227 KB at 32 gridpoints of 4 bytes, past it
   more tiles, and no size is turned away below the entry points' own
   bound)."""
@@ -519,7 +519,7 @@ def test_member_tile_boundary(edge):
     assert 32 * crps_pairwise.blocksort_stride(512, 32) * 4 <= 232448 // 2
   elif edge == 'capacity':
     assert top == 58112 == 232448 // 4
-    assert (form(top), form(top + 1)) == ('blocksort', 'shared')
+    assert (form(top), form(top + 1)) == ('blocksort', 'mergesort')
     assert crps_pairwise.blocksort_config(top) == (1, 256)
   else:
     assert crps_pairwise.TILE_MEMBERS == 1816 == 232448 // (32 * 4)

@@ -4,9 +4,11 @@ At first use, ``load_library`` compiles the sources in ``csrc/`` into one
 shared library with a plain C interface, for Hopper (``sm_90a``), into
 ``build/wbx_torch_kernels/`` beside the package (a directory git ignores):
 
-* ``csrc/crps_pairwise.cu``: the cross kernel and the tiled pair form of
-  the fused and spread-only kernels;
-* ``csrc/blocksort_stats.cu``: their block sorts (257..58,112 members);
+* ``csrc/crps_pairwise.cu``: the cross kernel;
+* ``csrc/blocksort_stats.cu``: the fused and spread-only kernels' block
+  sorts (257..58,112 members), and their run mode;
+* ``csrc/mergesort_stats.cu``: their merge sort past 58,112 members, of
+  runs sorted by the block sort's run mode;
 * the register form (``csrc/register_stats.cuh``), one entry point per M
   of ``crps_pairwise.REGISTER_MEMBERS``, and the sorted-runs form
   (``csrc/sorted_stats.cuh``), one entry point per run size of
@@ -33,6 +35,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 SOURCE = os.path.join(CSRC, 'crps_pairwise.cu')
 BLOCKSORT_SOURCE = os.path.join(CSRC, 'blocksort_stats.cu')
+MERGESORT_SOURCE = os.path.join(CSRC, 'mergesort_stats.cu')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), 'build',
                          'wbx_torch_kernels')
 DEFAULT_CUDA_HOME = '/usr/local/cuda'
@@ -193,7 +196,7 @@ def build() -> str:
     for name, text in generated.items():
       with open(os.path.join(work, name), 'w') as f:
         f.write(text)
-    units = [SOURCE, BLOCKSORT_SOURCE] + [
+    units = [SOURCE, BLOCKSORT_SOURCE, MERGESORT_SOURCE] + [
         os.path.join(work, name) for name in generated if name.endswith('.cu')]
     objects, log = _compile_all(nvcc, units, work)
     tmp = os.path.join(work, os.path.basename(lib_path))
@@ -221,10 +224,13 @@ def load_library() -> ctypes.CDLL:
       lib = ctypes.CDLL(build())
       p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
       entries = {
-          'wbx_ensemble_stats_shared': [p] * 6 + [i64, i64, i32, i32, i32, p],
+          'wbx_ensemble_stats_mergesort': [p] * 10 + [i64] * 3 + [i32]
+                                          + [i64] + [i32] * 8 + [p],
           'wbx_ensemble_stats_blocksort': [p] * 7 + [i64, i64] + [i32] * 5
                                           + [p],
           'wbx_pairwise_cross_sum': [p, p, p, i64, i64, i64, i32, i32, p],
+          'wbx_spread_runcross': [p] * 5 + [i64] * 3 + [i32] + [i64]
+                                 + [i32] * 6 + [p],
       }
       for m in crps_pairwise.REGISTER_MEMBERS:
         entries[register_symbol(m)] = [p] * 6 + [i64, i32, i32, i32, p]

@@ -31,13 +31,17 @@ member count M alone (``spread_form``), all hand-written CUDA:
   by ``sort_network(32)``, then the levels of a bitonic merge in place; the
   spread is the sum of the sorted order's gaps, each weighted by the pairs
   across it, k (M − k);
-* ``shared`` (past 58,112, where one gridpoint's members no longer fit a
-  block's shared memory): the members staged in shared memory and a pair
-  loop run over them, the pair sum added in two levels; past
-  ``TILE_MEMBERS`` the ensemble is walked tile by tile.
+* ``mergesort`` (M in ``MERGESORT_MEMBERS``, 58,113..2^20, where one
+  gridpoint's members no longer fit a block's shared memory): each
+  gridpoint's members cut into ``mergesort_plan(M, N)`` runs, each sorted
+  by the block sort's run mode into a device scratch, adjacent runs merged
+  in pairs (merge path, tiles of ``MERGESORT_TILE``) until two are left,
+  and the last merge adds the gaps of the merged order, weighted as the
+  block sort's, without writing it out; the points go in batches, so that
+  the scratch stays under ``SCRATCH_BYTES``.
 
 The cross kernel stages the smaller ensemble and streams the larger one
-past it.
+past it, past ``TILE_MEMBERS`` staged members tile by tile.
 
 ``_build`` compiles one network kernel per M of ``REGISTER_MEMBERS`` and
 one sorted-runs kernel per run size of ``SORTED_RUN_SIZES``, the networks
@@ -54,18 +58,19 @@ import torch
 from weatherbenchx_tpu_torch.ops import _build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# The members one shared-memory tile holds: 227 KB (232,448 bytes, what a
-# block may use on Hopper) over 32 gridpoints of 4 bytes, the kernels'
-# smallest block. A larger ensemble (for the cross sum, a larger SMALLER
-# ensemble) is walked tile by tile inside the kernel, the later members
-# streamed from device memory: no size takes another route on the card.
+# The members one shared-memory tile of the cross kernel holds: 227 KB
+# (232,448 bytes, what a block may use on Hopper) over 32 gridpoints of 4
+# bytes, its smallest block. A larger smaller ensemble is walked tile by
+# tile inside the kernel, the later members streamed from device memory: no
+# size takes another route on the card.
 TILE_MEMBERS = 232448 // (32 * 4)
 # The most members the kernels' entry points take.
 MAX_MEMBERS = 1 << 20
 
 
 def member_tiles(m: int) -> int:
-  """How many shared-memory tiles the kernels walk for m staged members."""
+  """How many shared-memory tiles the cross kernel walks for m staged
+  members."""
   return -(-m // TILE_MEMBERS)
 
 
@@ -149,6 +154,81 @@ def blocksort_config(m: int) -> tuple:
   return points, threads
 
 
+# Past one point's block sort (csrc/mergesort_stats.cu): the members cut
+# into a power of two of runs of at most MERGESORT_RUN_MAX, each block
+# sorted, then merged MERGESORT_TILE merged members a block (its kTile).
+# MERGESORT_RUN_MAX is the block sort's count at which two blocks still fit
+# an SM (28,928 members), so that one block's barriers overlap the
+# other's work.
+MERGESORT_RUN_MAX = (BLOCKSORT_SM_BYTES // 2 - 1024) // 4
+MERGESORT_TILE = 2048
+MERGESORT_MEMBERS = range(BLOCKSORT_MAX_MEMBERS + 1, MAX_MEMBERS + 1)
+# The words of device scratch a merge sort's call may hold at once: its
+# points go in batches under it (two float32 columns a point past two runs,
+# else one, and the runs' and tiles' partial sums).
+SCRATCH_BYTES = 4 << 30
+# The partial sums a sorted run leaves (csrc/common.cuh kRunParts) and a
+# tile of the last merge (mergesort_stats.cu kTileParts).
+RUN_PARTS = 6
+TILE_PARTS = 2
+
+
+def merge_runs(m: int, run_max: int = None) -> tuple:
+  """(runs, run members) of a merge sort of m members: the fewest runs, a
+  power of two from 2, of at most run_max (MERGESORT_RUN_MAX) members, all
+  of ceil(m / runs) but the last, which has the rest."""
+  run_max = run_max or MERGESORT_RUN_MAX
+  runs = 2
+  while runs * run_max < m:
+    runs *= 2
+  run_members = -(-m // runs)
+  if m <= (runs - 1) * run_members:
+    raise ValueError(f'{runs} runs of {run_members} leave none of {m} '
+                     'members to the last')
+  return runs, run_members
+
+
+def _scratch_words(m: int) -> tuple:
+  """(runs, run members, float32 scratch words a point) of a merge sort of
+  m members."""
+  runs, run_members = merge_runs(m)
+  columns = 2 if runs > 2 else 1
+  tiles = -(-m // MERGESORT_TILE)
+  return runs, run_members, columns * m + runs * RUN_PARTS + tiles * TILE_PARTS
+
+
+def mergesort_plan(m: int, n: int) -> tuple:
+  """(runs, run members, batch) of the merge sort of m members over n
+  points: merge_runs(m), and the points in equal batches of at most
+  SCRATCH_BYTES of scratch."""
+  runs, run_members, words = _scratch_words(m)
+  cap = max(1, SCRATCH_BYTES // (4 * words))
+  batches = max(1, -(-n // cap))
+  return runs, run_members, max(1, -(-n // batches))
+
+
+def mergesort_traffic(m: int, n: int, itemsize: int = 4,
+                      fused: bool = True) -> dict:
+  """The bytes a merge sort of x (m, n) moves in device memory: the input
+  and outputs once; each sorted run written to the scratch, and each merge
+  but the last reading and writing the columns once, the last reading them
+  once; the runs' and tiles' partial sums (the fused kernel's last merge
+  reads the runs' sums once a tile for its mean). The merge-path searches'
+  few words a tile are left out."""
+  runs, _, _ = mergesort_plan(m, n)
+  levels = runs.bit_length() - 2  # the merges that write
+  tiles = -(-m // MERGESORT_TILE)
+  columns = 4 * m * n * (1 + levels)
+  parts = 4 * n * (runs * RUN_PARTS + tiles * TILE_PARTS)
+  out = {'input': itemsize * n * (m + (1 if fused else 0)),
+         'output': itemsize * n * (4 if fused else 1),
+         'scratch_written': columns + parts,
+         'scratch_read': columns + parts + (4 * n * tiles * runs if fused
+                                            else 0)}
+  out['total'] = sum(out.values())
+  return out
+
+
 # The member count from which the JAX package's spread kernel takes its sort
 # body, below it its pair body (weatherbenchx_tpu/ops/crps_pairwise.py:90).
 # The two differ on infinite members, and every form here gives what the
@@ -203,12 +283,12 @@ def sort_network(m: int) -> list:
 
 def spread_form(m: int) -> str:
   """The kernel form for m members: 'network', 'sorted', 'blocksort' or
-  'shared'."""
+  'mergesort' (past 58,112)."""
   if m in REGISTER_MEMBERS:
     return 'network'
   if m in SORTED_MEMBERS:
     return 'sorted'
-  return 'blocksort' if m in BLOCKSORT_MEMBERS else 'shared'
+  return 'blocksort' if m in BLOCKSORT_MEMBERS else 'mergesort'
 
 
 # -- plain versions -----------------------------------------------------------
@@ -306,7 +386,8 @@ _FORM_MEMBERS = {
     'network': REGISTER_MEMBERS,
     'sorted': SORTED_MEMBERS,
     'blocksort': range(BLOCKSORT_RUN + 1, BLOCKSORT_MAX_MEMBERS + 1),
-    'shared': range(2, MAX_MEMBERS + 1),
+    'mergesort': MERGESORT_MEMBERS,
+    'runcross': MERGESORT_MEMBERS,
 }
 
 
@@ -333,9 +414,12 @@ def _launch_stats(x: torch.Tensor, y, form: str = None):
     dtype = KERNEL_DTYPES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     form = form or spread_form(m)
-    if form == 'shared':
-      rc = lib.wbx_ensemble_stats_shared(*ptrs, m, n, dtype, fused,
-                                         x.device.index, stream)
+    if form == 'runcross':
+      if fused:
+        raise ValueError('the runcross form is spread-only')
+      rc = _launch_runcross(lib, x, outs[0], m, n, dtype, stream)
+    elif form == 'mergesort':
+      rc = _launch_mergesort(lib, ptrs, x, m, n, dtype, fused, stream)
     elif form == 'blocksort':
       points, threads = blocksort_config(m)
       # The fused kernel's device scratch: a word per warp of each point's
@@ -355,6 +439,50 @@ def _launch_stats(x: torch.Tensor, y, form: str = None):
     LAUNCHES[name] += 1
     MEMBER_COUNTS[name].add(m)
   return outs if fused else outs[0]
+
+
+def _launch_mergesort(lib, ptrs, x, m, n, dtype, fused, stream) -> int:
+  """The merge sort's launches (mergesort_plan), its scratch allocated
+  here for one batch: the sorted columns, the runs' and the tiles'
+  partial sums."""
+  runs, run_members, batch = mergesort_plan(m, n)
+  points, threads = blocksort_config(run_members)
+  last_points, last_threads = blocksort_config(m - (runs - 1) * run_members)
+  nb = min(batch, n)
+  tiles = -(-m // MERGESORT_TILE)
+
+  def scratch(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
+  columns = scratch(2 if runs > 2 else 1, nb, m)
+  run_parts = scratch(nb, runs, RUN_PARTS)
+  tile_parts = scratch(nb, tiles, TILE_PARTS)
+  return lib.wbx_ensemble_stats_mergesort(
+      *ptrs, columns[0].data_ptr(),
+      columns[1].data_ptr() if runs > 2 else None, run_parts.data_ptr(),
+      tile_parts.data_ptr(), m, n, batch, runs, run_members, points, threads,
+      last_points, last_threads, MERGESORT_TILE, dtype, fused,
+      x.device.index, stream)
+
+
+def _launch_runcross(lib, x, out, m, n, dtype, stream) -> int:
+  """Candidate 2's spread: the runs' own gap sums plus twice every pair's
+  cross walk (the merge sort's runs and batches)."""
+  runs, run_members, batch = mergesort_plan(m, n)
+  points, threads = blocksort_config(run_members)
+  last_points, last_threads = blocksort_config(m - (runs - 1) * run_members)
+  nb = min(batch, n)
+  pairs = runs * (runs - 1) // 2
+  tiles = -(-2 * run_members // MERGESORT_TILE)
+
+  def scratch(*shape):
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
+  columns = scratch(nb, m)
+  run_parts = scratch(nb, runs, RUN_PARTS)
+  tile_parts = scratch(nb, pairs * tiles)
+  return lib.wbx_spread_runcross(
+      x.data_ptr(), out.data_ptr(), columns.data_ptr(), run_parts.data_ptr(),
+      tile_parts.data_ptr(), m, n, batch, runs, run_members, points, threads,
+      last_points, last_threads, dtype, x.device.index, stream)
 
 
 def _launch_cross(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 // The fused ensemble-statistics and spread-only kernels past 256 members,
 // as block sorts: CUDA C++ for Hopper (sm_90a). register_stats.cuh holds
 // the register form (2..64 members), sorted_stats.cuh the sorted runs
-// (65..256) and crps_pairwise.cu the tiled pair form (past one point's
-// shared memory) and the cross sum.
+// (65..256), mergesort_stats.cu the form past one point's shared memory
+// (58,113 members and up), whose runs this file's run mode sorts, and
+// crps_pairwise.cu the cross sum.
 //
 // Replaces, in weatherbenchx_tpu/ops/crps_pairwise.py, _fused_kernel (via
 // _fused_stats_impl -> pl.pallas_call) and _spread_kernel_sort (via
@@ -67,9 +68,14 @@
 //     kernels' inf or NaN (infinite_spread in common.cuh), as the tiled
 //     pair form's do. Ties and -0.0 / +0.0 leave gaps of 0.
 // The form holds a point's M float32 members in one block's 227 KB: up to
-// 58,112 members (kMaxMembers); past it the tiled pair form takes over.
-// Accumulation is float32; bfloat16 input is widened on load and the
-// outputs are stored in the input dtype.
+// 58,112 members (kMaxMembers). Past it, mergesort_stats.cu cuts each
+// point's members into runs and sorts them here in the run mode (kRuns):
+// the block sort's "points" are then the runs of a batch of gridpoints
+// (wbx::RunLayout), each sorted run is copied from shared memory to the
+// device scratch, coalesced, and the run's partial sums (the sum, skill,
+// the NaN flag and the +-inf counts) go to a word each of the scratch; no
+// mean, squares or gaps are taken there. Accumulation is float32; bfloat16
+// input is widened on load and the outputs are stored in the input dtype.
 
 #include <algorithm>
 #include <type_traits>
@@ -96,6 +102,7 @@ constexpr int kMaxMembers = static_cast<int>(kMaxSharedBytes / 4);
 // Partial sums a warp hands on at the end (spread, skill, sq_dev, NaN
 // flag, +inf and -inf counts), one word each.
 constexpr int kPartials = 6;
+static_assert(wbx::kRunParts <= kPartials, "a run's partials pass the column");
 
 __device__ __forceinline__ int swizzle(int i) { return i ^ ((i >> 5) & 31); }
 
@@ -283,23 +290,35 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                : "memory");
 }
 
+// The first member of the block sort's point q in x (rows of n): gridpoint
+// q, or in the run mode run q / nb of gridpoint q % nb.
+template <bool kRuns>
+__device__ __forceinline__ int64_t point_offset(int64_t q, int m, int64_t n,
+                                                const wbx::RunLayout& layout) {
+  if constexpr (kRuns)
+    return (layout.first_row + q / layout.nb * m) * n + q % layout.nb;
+  return q;
+}
+
 // Stages rows [0, m) of the block's points of x (rows of n) into their
 // columns: thread i takes point i % points and rows i / points, i /
-// points + blockDim / points, ...; a point past n stages zeros.
-template <typename T>
+// points + blockDim / points, ...; a point past `total` stages zeros.
+template <typename T, bool kRuns>
 __device__ __forceinline__ void stage_columns(const T* __restrict__ x,
                                               float* columns, int m,
                                               int log2_points, int stride,
-                                              int64_t g0, int64_t n) {
+                                              int64_t g0, int64_t n,
+                                              int64_t total,
+                                              const wbx::RunLayout& layout) {
   const int p = threadIdx.x & ((1 << log2_points) - 1);
   const int step = blockDim.x >> log2_points;
   float* col = columns + p * stride;
   int r = threadIdx.x >> log2_points;
-  if (g0 + p >= n) {
+  if (g0 + p >= total) {
     for (; r < m; r += step) col[swizzle(r)] = 0.f;
     return;
   }
-  const T* src = x + g0 + p;
+  const T* src = x + point_offset<kRuns>(g0 + p, m, n, layout);
   if constexpr (std::is_same_v<T, float>) {
     for (; r < m; r += step)
       copy_async(col + swizzle(r), src + static_cast<int64_t>(r) * n);
@@ -371,7 +390,7 @@ __device__ __forceinline__ float run_gaps(const float (&v)[kRun], int b,
   return acc;
 }
 
-template <typename T, bool kFused>
+template <typename T, bool kFused, bool kRuns>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     blocksort_stats_kernel(const T* __restrict__ x, const T* __restrict__ y,
                            T* __restrict__ spread_out,
@@ -380,10 +399,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                            T* __restrict__ sq_dev_out,
                            float* __restrict__ sums, int m, int log2v,
                            int log2_points, int log2_threads, int stride,
-                           int64_t n) {
+                           int64_t n, const wbx::RunLayout layout) {
   extern __shared__ float columns[];  // points columns of `stride` words
   const int64_t g0 = static_cast<int64_t>(blockIdx.x) << log2_points;
-  stage_columns(x, columns, m, log2_points, stride, g0, n);
+  const int64_t total = kRuns ? layout.nb * layout.count : n;
+  stage_columns<T, kRuns>(x, columns, m, log2_points, stride, g0, n, total,
+                          layout);
   __syncthreads();
 
   const int threads = 1 << log2_threads;
@@ -391,9 +412,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int t = threadIdx.x & (threads - 1);
   float* col = columns + p * stride;
   const int64_t g = g0 + p;
-  const bool live = g < n;
+  const bool live = g < total;
   const int runs = (m + kRun - 1) / kRun;
-  const float yv = kFused && live ? load(y + g) : 0.f;
+  const float yv =
+      kFused && live ? load(y + (kRuns ? g % layout.nb : g)) : 0.f;
 
   // The runs: the NaN flag, the +-inf counts, sum and skill on the loaded
   // members, then each run sorted.
@@ -429,11 +451,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // The mean, for the two-pass squares of the last pass: the group's sum
   // (past one warp through `sums`, a word a warp of each point).
   float mean = 0.f;
-  if constexpr (kFused) {
-    float total[1] = {sum};
-    group_sums(total, t, threads, sums + (live ? g : 0) * (threads >> 5),
+  if constexpr (kFused && !kRuns) {
+    float whole[1] = {sum};
+    group_sums(whole, t, threads, sums + (live ? g : 0) * (threads >> 5),
                live);
-    mean = total[0] / static_cast<float>(m);
+    mean = whole[0] / static_cast<float>(m);
   }
   __syncthreads();
 
@@ -448,7 +470,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     load_run(col, b, m, v);
     merge_run(v);
     store_run(col, b, m, v);
-    if constexpr (kFused) {
+    if constexpr (kFused && !kRuns) {
       const int count = min(kRun, m - b * kRun);
       float sq = 0.f;
 #pragma unroll
@@ -462,8 +484,40 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
   }
   // Every run sorted in place: only now may a run read the first member of
-  // the next, which another warp's thread may have stored above.
+  // the next, which another warp's thread may have stored above, or the
+  // sorted column be copied out.
   __syncthreads();
+  if constexpr (kRuns) {
+    const int64_t point = g % layout.nb;
+    const int64_t run = g / layout.nb;
+    if (live) {
+      float* dst = layout.out + point * layout.m_total + layout.first_row +
+                   run * m;
+      for (int i = t; i < m; i += threads) dst[i] = col[swizzle(i)];
+    }
+    float gaps = 0.f;
+    if (layout.run_spread) {
+#pragma unroll 1
+      for (int b = t; b < runs; b += threads) {
+        const float next =
+            (b + 1) * kRun < m ? col[swizzle((b + 1) * kRun)] : infinity();
+        float v[kRun];
+        load_run(col, b, m, v);
+        gaps += run_gaps(v, b, m, next);
+      }
+    }
+    __syncthreads();  // the columns are free: their first words take the sums
+    float part[wbx::kRunParts] = {sum, skill, static_cast<float>(nan),
+                                  static_cast<float>(n_pos),
+                                  static_cast<float>(n_neg), gaps};
+    group_sums(part, t, threads, col, true);
+    if (t != 0 || !live) return;
+    float* out = layout.parts + (point * layout.runs_total +
+                                 layout.first_run + run) * wbx::kRunParts;
+#pragma unroll
+    for (int k = 0; k < wbx::kRunParts; ++k) out[k] = part[k];
+    return;
+  }
   float spread = 0.f;
 #pragma unroll 1
   for (int b = t; b < runs; b += threads) {
@@ -526,21 +580,23 @@ size_t block_bytes(int64_t m, int points, int threads) {
   return bytes <= kMaxSharedBytes ? bytes : 0;
 }
 
-template <typename T, bool kFused>
+template <typename T, bool kFused, bool kRuns = false>
 int launch_stats(const void* x, const void* y, void* spread, void* skill,
                  void* mean, void* sq_dev, void* sums, int64_t m, int64_t n,
-                 int points, int threads, int device, void* stream) {
+                 int points, int threads, int device, void* stream,
+                 const wbx::RunLayout& layout = wbx::RunLayout{}) {
   const size_t smem = block_bytes(m, points, threads);
   if (smem == 0) return cudaErrorInvalidValue;
-  if constexpr (kFused) {
+  if constexpr (kFused && !kRuns) {
     if (threads > 32 && sums == nullptr) return cudaErrorInvalidValue;
   }
-  if (n == 0) return cudaSuccess;
-  const int64_t count = (n + points - 1) / points;
+  const int64_t total = kRuns ? layout.nb * layout.count : n;
+  if (total == 0) return cudaSuccess;
+  const int64_t count = (total + points - 1) / points;
   if (count > 0x7fffffff) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  auto kernel = blocksort_stats_kernel<T, kFused>;
+  auto kernel = blocksort_stats_kernel<T, kFused, kRuns>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -552,11 +608,45 @@ int launch_stats(const void* x, const void* y, void* spread, void* skill,
       static_cast<T*>(sq_dev), static_cast<float*>(sums), static_cast<int>(m),
       log2_ceil(m),
       log2_exact(points), log2_exact(threads),
-      static_cast<int>(column_stride(m, points)), n);
+      static_cast<int>(column_stride(m, points)), n, layout);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+namespace wbx {
+
+// The run mode, for mergesort_stats.cu: x and y point at the batch's first
+// gridpoint, n is the row stride of x; the sorted runs and their partials
+// go where `layout` says. m, points and threads as for the block sort.
+int launch_blocksort_runs(const void* x, const void* y,
+                          const RunLayout& layout, int64_t m, int64_t n,
+                          int dtype, bool fused, int points, int threads,
+                          int device, void* stream) {
+  if (m < kMinMembers || m > kMaxMembers || n < 0 || layout.nb < 0 ||
+      layout.count < 0 || x == nullptr || layout.out == nullptr ||
+      layout.parts == nullptr || (fused && y == nullptr))
+    return cudaErrorInvalidValue;
+  if (dtype == 0 && fused)
+    return launch_stats<float, true, true>(x, y, nullptr, nullptr, nullptr,
+                                           nullptr, nullptr, m, n, points,
+                                           threads, device, stream, layout);
+  if (dtype == 0)
+    return launch_stats<float, false, true>(x, y, nullptr, nullptr, nullptr,
+                                            nullptr, nullptr, m, n, points,
+                                            threads, device, stream, layout);
+  if (dtype == 1 && fused)
+    return launch_stats<__nv_bfloat16, true, true>(
+        x, y, nullptr, nullptr, nullptr, nullptr, nullptr, m, n, points,
+        threads, device, stream, layout);
+  if (dtype == 1)
+    return launch_stats<__nv_bfloat16, false, true>(
+        x, y, nullptr, nullptr, nullptr, nullptr, nullptr, m, n, points,
+        threads, device, stream, layout);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace wbx
 
 // dtype: 0 = float32, 1 = bfloat16; fused: 0 writes the spread alone, and
 // y and the last three outputs may then be null. x (m, n) and y and the

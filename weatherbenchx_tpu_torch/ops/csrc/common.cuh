@@ -41,4 +41,32 @@ __device__ __forceinline__ float infinite_spread(int m, int n_pos, int n_neg) {
   return nan ? quiet_nan() : infinity();
 }
 
+// The partial sums of a sorted run past one point's shared memory (the
+// block sort's run mode, read by mergesort_stats.cu), a word each: the
+// sum, skill, the NaN flag, the +inf count and the -inf count.
+constexpr int kRunParts = 6;
+
+// Where the block sort's run mode puts a batch of gridpoints' runs: its
+// point q is run q / nb of gridpoint q % nb, member rows [first_row + (q /
+// nb) m, first_row + (q / nb + 1) m) of x; the sorted run goes to
+// out[(q % nb) m_total + first_row + (q / nb) m, ...), its partials to
+// parts[((q % nb) runs_total + first_run + q / nb) kRunParts, ...).
+struct RunLayout {
+  int64_t nb = 0;         // gridpoints in the batch
+  int64_t count = 0;      // runs a gridpoint in this launch
+  int64_t first_row = 0;  // the member row of the launch's first run
+  int first_run = 0;      // that run's index among a gridpoint's runs
+  int runs_total = 0;     // runs a gridpoint
+  int64_t m_total = 0;    // members a gridpoint
+  float* out = nullptr;   // the sorted columns, (nb, m_total) float32
+  float* parts = nullptr; // (nb, runs_total, kRunParts) float32
+  bool run_spread = false; // the run's own gap sum into its sixth word
+};
+
+// blocksort_stats.cu: the run mode's launch on `stream`, a cudaError_t.
+int launch_blocksort_runs(const void* x, const void* y,
+                          const RunLayout& layout, int64_t m, int64_t n,
+                          int dtype, bool fused, int points, int threads,
+                          int device, void* stream);
+
 }  // namespace wbx
