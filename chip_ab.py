@@ -22,15 +22,14 @@ past 300 ms a call; one call past 2 s (the pair form past 1,000 members,
 up to 39 s a call at 7,424). Where the checkout's ``_launch_stats`` takes a
 ``form``, it also times the block sort at ``FORCED_M`` (the sorted runs'
 counts). Past one point's block sort it times both checkouts at each of
-``MERGE_M`` over ``MERGE_POINTS`` points (a pair loop there, about 2 s a
+``MERGE_M`` over ``MERGE_POINTS`` points (a pair loop there, 5 to 9 s a
 call, takes one sample), and where the checkout has the merge sort
-(``MERGESORT_MEMBERS``) also at ``MERGE_WIDE_M``, and at ``MERGE_SWEEP_M``
-with its run size capped at each of ``MERGE_RUN_MAX`` in turn (keys
-ending ``_run<cap>``). The turns go A, B, B, A, so that drift of the card
-or its host weighs on both alike. Prints each turn's medians (ms) with the card's name
-and power limit, then per kernel B's median over A's and, for the
-ensemble statistics and crosses, each median's share of its bytes bound
-(each input read once, each output written once, at 3.35 TB/s).
+(``MERGESORT_MEMBERS``) also at ``MERGE_WIDE_M``. The turns go A, B, B,
+A, so that drift of the card or its host weighs on both alike. Prints each
+turn's medians (ms) with the card's name and power limit, then per kernel
+B's median over A's and, for the ensemble statistics and crosses, each
+median's share of its bytes bound (each input read once, each output
+written once, at 3.35 TB/s).
 """
 
 import argparse
@@ -58,13 +57,9 @@ CROSSES = ((64, 64, 4152960), (256, 256, 4152960), (1816, 1819, 1038240),
 FORCED_M = (129, 192, 256)
 # Past one point's block sort, over MERGE_POINTS points: its first count
 # and phase 4d's 59,392 in both checkouts; 131,072 and 2^20 where the
-# checkout has the merge sort (the pair form would take 10 and 650 s a
-# call); and the merge sort's run size capped at 58,112 (two runs at
-# 59,392, one block an SM), 28,928 (two blocks an SM), 14,464 and 7,232.
+# checkout has the merge sort (a pair form would take minutes).
 MERGE_M = (58113, 59392)
 MERGE_WIDE_M = (131072, 1 << 20)
-MERGE_SWEEP_M = (59392, 131072, 1 << 20)
-MERGE_RUN_MAX = (58112, 28928, 14464, 7232)
 MERGE_POINTS = 1024
 HBM_BYTES_PER_S = 3.35e12
 N_POINTS = 4 * 721 * 1440
@@ -147,30 +142,6 @@ for m in MERGE_M:
 if hasattr(cp, 'MERGESORT_MEMBERS'):
   for m in MERGE_WIDE_M:
     res.update(stats_turn(m, MERGE_POINTS))
-  default = cp.MERGESORT_RUN_MAX
-  for run_max in MERGE_RUN_MAX:
-    cp.MERGESORT_RUN_MAX = run_max
-    for m in MERGE_SWEEP_M:
-      res.update({f'{k}_run{run_max}': v
-                  for k, v in stats_turn(m, MERGE_POINTS).items()})
-  cp.MERGESORT_RUN_MAX = default
-  if 'runcross' in cp._FORM_MEMBERS:
-    # Candidate 2 (run spreads + the cross walk of every pair of runs),
-    # spread-only, checked against the merge sort's spread, then timed.
-    for run_max in MERGE_RUN_MAX:
-      cp.MERGESORT_RUN_MAX = run_max
-      for m in MERGE_SWEEP_M:
-        xs = torch.randn((m, MERGE_POINTS), generator=gen, device='cuda')
-        want = cp._launch_stats(xs, None).double()
-        got = cp._launch_stats(xs, None, form='runcross').double()
-        rel = ((got - want).abs() / want.abs()).max().item()
-        assert rel < 1e-5, (m, run_max, rel)
-        key = f'spread_m{m}_n{MERGE_POINTS}_runcross{run_max}'
-        res.update(timed({key: lambda: cp._launch_stats(xs, None,
-                                                        form='runcross')}))
-        print(f'runcross m={m} run_max={run_max}: rel {rel:.3g}', flush=True)
-        del xs
-    cp.MERGESORT_RUN_MAX = default
 print('TURN ' + json.dumps(res), flush=True)
 '''
 
@@ -197,8 +168,6 @@ def run_turn(root: str) -> dict:
           f'HENS_M = {HENS_M!r}\nCROSSES = {CROSSES!r}\n'
           f'FORCED_M = {FORCED_M!r}\nMERGE_M = {MERGE_M!r}\n'
           f'MERGE_WIDE_M = {MERGE_WIDE_M!r}\n'
-          f'MERGE_SWEEP_M = {MERGE_SWEEP_M!r}\n'
-          f'MERGE_RUN_MAX = {MERGE_RUN_MAX!r}\n'
           f'MERGE_POINTS = {MERGE_POINTS!r}\n' + _TURN)
   proc = subprocess.run([sys.executable, '-c', code], cwd=root,
                         capture_output=True, text=True, timeout=1500,

@@ -26,20 +26,26 @@ script exits nonzero:
    300 and 7,424 members, every route, against the plain version and the
    JAX kernels' inf/NaN pattern (their sort body from 20 members, their
    pair body below); NaN and +-inf members on both sides of a run's edge,
-   at the last member and on both sides of 256 members, in both dtypes;
-   members all +inf or all -inf (or all but one) at each run count, with
-   padded runs, at 256, and on the block sort at 257, 300, 1,817, 7,424
-   and 58,112; every register kernel built, M = 2..64, and every run size
+   at the last member and on both sides of 256 members, in both dtypes
+   (and on the merge sort at 58,113, 59,392, both sides of its change from
+   4 to 8 runs and 2^20, on both sides of its runs' edge and its last
+   merge's); members all +inf or all -inf (or all but one) at each run
+   count, with padded runs, at 256, on the block sort at 257, 300, 1,817,
+   7,424 and 58,112 and on the merge sort at 58,113, 59,392 and 2^20;
+   every register kernel built, M = 2..64, and every run size
    of the sorted runs (33, 43, 50, 51, 64) at each run count it serves, in
    both dtypes; the cross kernel's tiled form at 160 x 300, 300 x 257,
    1,816 x 1,819 (one tile) and 1,900 x 2,000 (two); and the block sort's
    edges through the metrics (257, both sides of the first change of
-   gridpoints per block, 7,424, one gridpoint's capacity 58,112, and
-   58,113 on the tiled pair form: the fused pass, the spread and, to 8,192
-   members, the two-ensemble skill against float64, each launch counted;
-   the block sorts timed there beside their bound), with +-inf and NaN
-   members on both sides of a run's edge and of the first shared stage's
-   half.
+   gridpoints per block, 7,424, one gridpoint's capacity 58,112, and on
+   the merge sort 58,113, both sides of each change of its run count and
+   2^20, over 96 points (2^20 over 4): the fused pass, the spread and, to
+   8,192 members, the two-ensemble skill against float64, each launch
+   counted; the block sorts timed there beside their bound), with +-inf
+   and NaN members on both sides of a run's edge and of the first shared
+   stage's half; and the merge sort at 58,113, 59,392 and 2^20 with ties
+   across its edges and +-0.0, in both dtypes, two launches equal bit for
+   bit.
 4. Main path at full width: ChunkEvaluator with fair CRPS, the unbiased
    spread/skill ratio and the unbiased ensemble-mean RMSE over 3 chunks of
    a 50-member 0.25-degree ensemble (50 x 1 x 4 x 721 x 1440 float32,
@@ -70,6 +76,19 @@ script exits nonzero:
    three kernels (median and IQR of 10 CUDA-event samples) beside their
    bytes bounds and the plain versions (over the chunk in 16 slices);
    prints the peak device memory.
+   4d. A lagged-average HENS ensemble (Hoffman and Kalnay 1983), a
+   construct past one point's block sort: 8 daily HENS inits valid at one
+   time pooled into 59,392 members, one 0.25-degree field cut to a band of
+   48 latitude rows (14 to 25.75 degrees N) x 1,440, 2 chunks of 16.42 GB
+   made on the card, through ChunkEvaluator: fair CRPS, spread/skill,
+   ensemble-mean RMSE and root mean variance against the target (one fused
+   merge-sort launch a chunk) and the ensemble's spread E|X - X'| alone, a
+   metric defined here (one spread-only launch, no cross). Checked as 4c
+   (16,384 gathered points, two launches bit for bit, float64 means, the
+   closed forms within 3 standard errors); times both kernels beside their
+   bytes bound and the plain versions, logs a model of the bytes each call
+   moves, its plan and its kernels' device time by torch.profiler, and the
+   peak device memory.
 5. Ensemble-vs-ensemble path at full width: pipeline.evaluate over
    in-memory stores, 50 forecast members (3 inits x 4 leads x 721 x 1440,
    iid N(0, 1)) against a 10-member ensemble analysis (8 valid times, iid
@@ -1494,16 +1513,25 @@ def hens_check_chunk(x, y, yt, idx, label: str) -> tuple:
       raise AssertionError(f'{label} {name}: two launches on one chunk '
                            'differ')
     got[name] = first
-  xg, yg = x[:, idx], y[idx]
+  # The references over slices of the gathered points, each about 2 GB
+  # in float64, so that a sort's temporaries fit beside the chunk.
+  step = max(1, 2 ** 28 // x.shape[0])
   refs = {}
   for dtype in (torch.float32, torch.float64):
-    a, b = xg.to(dtype), yg.to(dtype)
-    refs[dtype] = {'fused': cp.fused_ensemble_stats_plain(a, b),
-                   'spread': (cp.pairwise_spread_sum_plain(a),)}
-    if yt is not None:
-      refs[dtype]['cross'] = (cp.pairwise_cross_sum_plain(
-          a, yt[:, idx].to(dtype)),)
-    del a, b
+    parts = []
+    for lo in range(0, len(idx), step):
+      cut = idx[lo:lo + step]
+      a, b = x[:, cut].to(dtype), y[cut].to(dtype)
+      part = {'fused': cp.fused_ensemble_stats_plain(a, b),
+              'spread': (cp.pairwise_spread_sum_plain(a),)}
+      if yt is not None:
+        part['cross'] = (cp.pairwise_cross_sum_plain(
+            a, yt[:, cut].to(dtype)),)
+      parts.append(part)
+      del a, b
+    refs[dtype] = {name: tuple(torch.cat([p[name][i] for p in parts])
+                               for i in range(len(parts[0][name])))
+                   for name in parts[0]}
   errs = {}
   for name, outs in got.items():
     errs[name] = 0.0
@@ -1741,9 +1769,12 @@ def lagged_aggregator(band):
 def lagged_metrics() -> tuple:
   """Phase 4d's metrics: against the target, one fused pass (fair CRPS,
   the unbiased spread/skill ratio, the unbiased ensemble-mean RMSE and the
-  root mean ensemble variance); the ensemble's spread E|X - X'| (its fair
-  CRPS spread term) beside the analysis ensemble, whose ensemble dim keeps
-  the fused pass away: one spread-only launch and no cross."""
+  root mean ensemble variance); and the ensemble's spread E|X - X'| (its
+  fair CRPS spread term, the port's CRPSSpread) as a metric of its own,
+  defined here: the port has none. CRPSSpread reads the forecast alone; a
+  target with an ensemble dim keeps the fused pass away, so that it takes
+  one spread-only launch, as the prediction spread of CRPSEnsembleDistance
+  does against an ensemble analysis, here with no cross."""
   from weatherbenchx_tpu_torch.metrics import base, probabilistic
 
   class EnsembleSpread(base.PerVariableMetric):
@@ -1767,9 +1798,9 @@ def lagged_metrics() -> tuple:
 
 def lagged_chunk(seed: int, k: int, lat, lon) -> tuple:
   """Phase 4d's chunk k (lead k x 6 h), made on the card from the seed: the
-  forecast (M_LAGGED, 1, 1, band), the N(0, 1) target and a 10-member
-  N(0.5, 1) analysis ensemble, as DimArrays; a coverage mask drops the
-  band's edge rows."""
+  forecast (M_LAGGED, 1, 1, band) and the N(0, 1) target, as DimArrays,
+  and the target as a one-member ensemble (a view), the spread metric's;
+  a coverage mask drops the band's edge rows."""
   import torch
   from weatherbenchx_tpu_torch.darray import Coord, DimArray
   grid = (1, 1, len(lat), len(lon))
@@ -1777,8 +1808,6 @@ def lagged_chunk(seed: int, k: int, lat, lon) -> tuple:
   gen.manual_seed(1000 * seed + 48 + k)
   x = torch.randn((M_LAGGED,) + grid, generator=gen, device=DEVICE)
   y = torch.randn(grid, generator=gen, device=DEVICE)
-  yt = TARGET_MEAN + torch.randn((M_TARGETS,) + grid, generator=gen,
-                                 device=DEVICE)
   mask = np.ones(grid[2:], bool)
   mask[[0, -1]] = False
   coords = {
@@ -1792,7 +1821,7 @@ def lagged_chunk(seed: int, k: int, lat, lon) -> tuple:
       x, ('number',) + dims, dict(coords, number=np.arange(M_LAGGED)))}
   tgts = {'2m_temperature': DimArray(y, dims, coords)}
   ens = {'2m_temperature': DimArray(
-      yt, ('number',) + dims, dict(coords, number=np.arange(M_TARGETS)))}
+      y.unsqueeze(0), ('number',) + dims, dict(coords, number=np.arange(1)))}
   return preds, tgts, ens
 
 
@@ -1802,15 +1831,15 @@ def lagged_path(seed: int, card: str) -> dict:
   and dropped after each) through ChunkEvaluator: (a) fair CRPS,
   spread/skill, ensemble-mean RMSE and root mean variance against the
   target, one fused merge-sort launch a chunk; (b) the ensemble's spread
-  beside the analysis ensemble, one spread-only launch a chunk. Checks the
-  launches and member counts, each output on HENS_GATHER gathered points
-  against its plain version and float64, two launches on a chunk bit for
-  bit, the metrics against float64 means of the kernels' per-point
-  statistics and within LAGGED_SIGMAS standard errors of the closed forms;
-  times both kernels beside their bytes bound and the plain versions (over
-  the chunk slice by slice); logs the bytes each call moves and the peak
-  device memory, and the device time of one call of each by kernel
-  (torch.profiler)."""
+  alone, one spread-only launch a chunk. Checks the launches and member
+  counts, each output on HENS_GATHER gathered points against its plain
+  version and float64, two launches on a chunk bit for bit, the metrics
+  against float64 means of the kernels' per-point statistics and within
+  LAGGED_SIGMAS standard errors of the closed forms; times both kernels
+  beside their bytes bound and the plain versions (over the chunk slice by
+  slice); logs a model of the bytes each call moves (mergesort_traffic),
+  the peak device memory, and the device time of one call of each by
+  kernel (torch.profiler)."""
   import re
   import torch
   from weatherbenchx_tpu_torch import aggregation
@@ -1945,23 +1974,23 @@ def lagged_path(seed: int, card: str) -> dict:
       f'within {KERNEL_RTOL["float32"]} of the plain versions and '
       f'{F64_RTOL} of float64 (max abs err against the plain versions '
       f'{json.dumps(errs)}); two launches on a chunk equal bit for bit')
-  runs, size, batch = cp.mergesort_plan(M_LAGGED, n)
-  traffic = {}
+  runs, size, words, batch = cp.mergesort_plan(M_LAGGED, n)
+  modelled = {}
   for name, (med, q1, q3, count) in timing.items():
     fused = name == 'fused'
     nbytes, ops = stats_work(M_LAGGED, n, fused)
-    traffic[name] = cp.mergesort_traffic(M_LAGGED, n, 4, fused)
+    modelled[name] = mergesort_traffic(M_LAGGED, n, runs, words, fused)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    moved = traffic[name]['total']
+    moved = modelled[name]['total']
     log(f'phase 4d timing {name} M={M_LAGGED} (mergesort: {runs} runs of '
-        f'{size}, batches of {batch} points): median {med:.4f} ms, IQR '
-        f'[{q1:.4f}, {q3:.4f}] ms over {count} runs; bytes bound '
-        f'{bytes_ms:.4f} ms ({nbytes} bytes, {bytes_ms / med:.1%} of it); '
-        f'bytes moved {moved} ({json.dumps(traffic[name])}), '
-        f'{1e3 * moved / HBM_BYTES_PER_S:.4f} ms at the HBM rate, '
-        f'{moved / med / 1e9:.4f} TB/s achieved; operations {ops}; the '
-        f'plain version {plain[name]:.2f} ms over {HENS_PLAIN_SLICES} '
-        f'slices; N={n}, float32; card {card}')
+        f'{size}, {words} scratch words a point, batches of {batch} '
+        f'points): median {med:.4f} ms, IQR [{q1:.4f}, {q3:.4f}] ms over '
+        f'{count} runs; bytes bound {bytes_ms:.4f} ms ({nbytes} bytes, '
+        f'{bytes_ms / med:.1%} of it); modelled_bytes {moved} '
+        f'({json.dumps(modelled[name])}, a model, not measured), '
+        f'{1e3 * moved / HBM_BYTES_PER_S:.4f} ms at the HBM rate; '
+        f'operations {ops}; the plain version {plain[name]:.2f} ms over '
+        f'{HENS_PLAIN_SLICES} slices; N={n}, float32; card {card}')
   kernels = {}
   for name, (busy, rows) in breakdown.items():
     kernels[name] = {'busy_ms': busy, 'kernels': {}}
@@ -1975,9 +2004,10 @@ def lagged_path(seed: int, card: str) -> dict:
   out = {'launches': launches, 'seconds': seconds,
          'path_peak_gib': path_peak / 2**30, 'peak_gib': peak / 2**30,
          'max_abs_err': errs, 'rel_vs_f64': rels, 'sigmas': sigmas,
-         'timing': timing, 'plain_ms': plain, 'traffic': traffic,
+         'timing': timing, 'plain_ms': plain, 'modelled_bytes': modelled,
          'device_time': kernels,
-         'plan': {'runs': runs, 'run_members': size, 'batch': batch},
+         'plan': {'runs': runs, 'run_members': size, 'scratch_words': words,
+                  'batch': batch},
          'points': n, 'phase_seconds': time.perf_counter() - t_phase}
   log(f'phase 4d: {out["phase_seconds"]:.1f} s in all')
   return out
@@ -3106,8 +3136,8 @@ def stats_work(m: int, n: int, fused: bool) -> tuple:
   and the NaN test (sorted); the comparisons any sort of m members needs
   (sort_ops), a difference and a multiply-add per gap and the NaN test,
   not the block sort's own network (blocksort_ops; blocksort and
-  mergesort, whose scratch traffic crps_pairwise.mergesort_traffic
-  counts); fused adds the sum, skill, mean and squared deviations."""
+  mergesort, whose scratch traffic mergesort_traffic models); fused adds
+  the sum, skill, mean and squared deviations."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   form = cp.spread_form(m)
   if form == 'network':
@@ -3121,6 +3151,28 @@ def stats_work(m: int, n: int, fused: bool) -> tuple:
     ops += 5 * m + 1
   nbytes = 4 * n * (m + (1 + 4 if fused else 1))
   return nbytes, ops * n
+
+
+def mergesort_traffic(m: int, n: int, runs: int, words: int,
+                      fused: bool) -> dict:
+  """A model of the bytes a merge sort of float32 x (m, n) moves in device
+  memory, not a measurement (no counter of the card's traffic can be read
+  here): `runs` runs and `words` float32 scratch words a point
+  (crps_pairwise.mergesort_plan); the input and outputs once; each sorted
+  run written to the scratch, each merge but the last reading and writing
+  the columns once, the last reading them once; the partial sums (the
+  words past the two columns) written and read once. The merge-path
+  searches' few words a tile and the fused last merge's reads of the runs'
+  sums are left out."""
+  levels = runs.bit_length() - 2  # the merges that write
+  columns = 4 * m * n * (1 + levels)
+  parts = 4 * n * (words - 2 * m)
+  out = {'input': 4 * n * (m + (1 if fused else 0)),
+         'output': 4 * n * (4 if fused else 1),
+         'scratch_written': columns + parts,
+         'scratch_read': columns + parts}
+  out['total'] = sum(out.values())
+  return out
 
 
 def cross_work(mx: int, my: int, n: int) -> tuple:
@@ -3302,8 +3354,7 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
   stats_work, with the operations of their own network, blocksort_ops,
   beside it), and the staged cross's launches there beside its main
   path's; the fused and spread-only merge sorts on phase 4d's path at M =
-  59,392 (the bytes each call moves, its plan, and its kernels' registers
-  and spills beside them). No single PyTorch call computes any of the
+  59,392 (its plan, and its kernels' registers and spills beside them). No single PyTorch call computes any of the
   three functions, so library_ms is null."""
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
   csrc = 'weatherbenchx_tpu_torch/ops/csrc/'
@@ -3399,7 +3450,7 @@ def kernels_line(main_launches, ens_launches, main_err, res, n,
       **measured_fields(lagged['timing'][key][0], lagged['plain_ms'][key],
                         stats_work(M_LAGGED, lagged['points'], key == 'fused')),
       'members': M_LAGGED, 'points': lagged['points'],
-      'plan': lagged['plan'], 'bytes_moved': lagged['traffic'][key],
+      'plan': lagged['plan'],
       'registers_and_spills': merge_regs,
   } for name, key, line in (('fused_ensemble_stats', 'fused', 238),
                             ('pairwise_spread_sum', 'spread', 229)))]}
@@ -5513,6 +5564,12 @@ def main() -> int:
     return 1
   card = card_line()
   log(card)
+  marks = [('start', t_start)]
+
+  def done(msg: str) -> None:
+    """Logs a phase's end and keeps its time for the per-phase seconds."""
+    log(msg)
+    marks.append((msg.split(':')[0], time.perf_counter()))
   kind = torch.cuda.get_device_name(0)
   log(f'phase 1 device: {kind}, {torch.cuda.device_count()} device(s), '
       f'torch {torch.__version__}, CUDA {torch.version.cuda}')
@@ -5526,56 +5583,57 @@ def main() -> int:
       f'({_build.PARTS + 2} nvcc processes at once, then the link)')
   with open(lib_path + '.log') as f:
     merge_regs = mergesort_registers(build_report(f.read()))
+  done('phase 2 build: every kernel without a stack frame or spills')
 
   main_err = check_kernels(args.seed)
-  log('phase 3 kernels: all checks within tolerance')
+  done('phase 3 kernels: all checks within tolerance')
   ev, chunks, main_launches, main_values = main_path(args.seed)
-  log('phase 4 main path: ok')
+  done('phase 4 main path: ok')
   large = large_ensemble_path(args.seed, card)
-  log('phase 4b large ensemble: ok')
+  done('phase 4b large ensemble: ok')
   hens = hens_path(args.seed, card)
-  log('phase 4c HENS path: ok')
+  done('phase 4c HENS path: ok')
   lagged = lagged_path(args.seed, card)
-  log('phase 4d lagged HENS path: ok')
+  done('phase 4d lagged HENS path: ok')
   stores, ens_launches = ensemble_path(args.seed)
-  log('phase 5 ensemble path: ok')
+  done('phase 5 ensemble path: ok')
   bench, bstores, bstate, in_memory = benchmark_path(args.seed, card)
-  log('phase 6 benchmark path: ok')
+  done('phase 6 benchmark path: ok')
   cli_phase(args.seed)
-  log('phase 7 cli: ok')
+  done('phase 7 cli: ok')
   _, cli_outputs = benchmark_cli_phase(args.seed)
-  log('phase 8 benchmark cli: ok')
+  done('phase 8 benchmark cli: ok')
   scorecard = scorecard_phase(cli_outputs)
-  log('phase 15d scorecard: ok')
+  done('phase 15d scorecard: ok')
   disk = disk_benchmark_path(bstores, bstate, in_memory, card)
   del bstate
-  log('phase 9 disk benchmark path: ok')
+  done('phase 9 disk benchmark path: ok')
   res = timing(ev, chunks, stores, card)
-  log('phase 10 timing: done')
+  done('phase 10 timing: done')
   batched_main = batched_main_path(chunks, main_values, card)
-  log('phase 15a batched main path: ok')
+  done('phase 15a batched main path: ok')
   del ev, chunks, stores
   families = family_phase(args.seed, card)
-  log('phase 11 metric families: ok')
+  done('phase 11 metric families: ok')
   station = station_path(args.seed, card)
-  log('phase 12 station path: ok')
+  done('phase 12 station path: ok')
   unagg = unaggregated_path(bstores, card)
   del bstores
-  log('phase 13 unaggregated path: ok')
+  done('phase 13 unaggregated path: ok')
   significance = significance_path(args.seed, card)
-  log('phase 14 significance: ok')
+  done('phase 14 significance: ok')
   dispatch = dispatch_path(args.seed, card)
-  log('phase 15c dispatch path: ok')
+  done('phase 15c dispatch path: ok')
   latency = latency_phase(args.seed, card)
-  log('phase 15e latency wrapper: ok')
+  done('phase 15e latency wrapper: ok')
   ranks = rank_path(args.seed, main_values, card)
-  log('phase 16 ranks: ok')
+  done('phase 16 ranks: ok')
   fuzz = fuzz_phase(card)
-  log('phase 17 parity fuzz: ok')
+  done('phase 17 parity fuzz: ok')
   drivers = driver_phase(card)
-  log('phase 18 drivers: ok')
+  done('phase 18 drivers: ok')
   docs = docs_phase(card)
-  log('phase 19 docs: ok')
+  done('phase 19 docs: ok')
   log(f'benchmark path seconds per chunk: {json.dumps(bench)}; card {card}')
   log(f'disk benchmark path: {json.dumps(disk)}; card {card}')
   hens_log = {k: v for k, v in hens.items() if k != 'timing'}
@@ -5594,6 +5652,9 @@ def main() -> int:
   log(f'parity fuzz: {json.dumps(fuzz)}; card {card}')
   log(f'drivers: {json.dumps(drivers)}; card {card}')
   log(f'docs: {json.dumps(docs)}; card {card}')
+  phase_seconds = {name: round(t - marks[k - 1][1], 1)
+                   for k, (name, t) in enumerate(marks) if k}
+  log(f'seconds by phase, the build in phase 2: {json.dumps(phase_seconds)}')
   log(f'whole script: {time.perf_counter() - t_start:.1f} s '
       f'(the build included); card {card}')
 

@@ -1006,8 +1006,9 @@ def test_mergesort_two_launches_give_equal_bits(cuda):
   # order, so the bits do not change.
   scratch = crps_pairwise.SCRATCH_BYTES
   try:
-    crps_pairwise.SCRATCH_BYTES = 100 * 4 * crps_pairwise._scratch_words(m)[2]
-    assert crps_pairwise.mergesort_plan(m, 999)[2] == 100
+    words = crps_pairwise.mergesort_plan(m, 999)[2]
+    crps_pairwise.SCRATCH_BYTES = 100 * 4 * words
+    assert crps_pairwise.mergesort_plan(m, 999)[3] == 100
     batched = crps_pairwise._launch_stats(x, y) + (
         crps_pairwise._launch_stats(x, None),)
   finally:

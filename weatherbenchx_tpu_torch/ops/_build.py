@@ -224,13 +224,11 @@ def load_library() -> ctypes.CDLL:
       lib = ctypes.CDLL(build())
       p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
       entries = {
-          'wbx_ensemble_stats_mergesort': [p] * 10 + [i64] * 3 + [i32]
-                                          + [i64] + [i32] * 8 + [p],
+          'wbx_ensemble_stats_mergesort': [p] * 7 + [i64] * 3 + [i32]
+                                          + [i64] + [i32] * 7 + [p],
           'wbx_ensemble_stats_blocksort': [p] * 7 + [i64, i64] + [i32] * 5
                                           + [p],
           'wbx_pairwise_cross_sum': [p, p, p, i64, i64, i64, i32, i32, p],
-          'wbx_spread_runcross': [p] * 5 + [i64] * 3 + [i32] + [i64]
-                                 + [i32] * 6 + [p],
       }
       for m in crps_pairwise.REGISTER_MEMBERS:
         entries[register_symbol(m)] = [p] * 6 + [i64, i32, i32, i32, p]
@@ -240,5 +238,7 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i32
+      lib.wbx_mergesort_scratch_words.argtypes = [i64, i32]
+      lib.wbx_mergesort_scratch_words.restype = i64
       _library = lib
     return _library

@@ -35,10 +35,10 @@ member count M alone (``spread_form``), all hand-written CUDA:
   gridpoint's members no longer fit a block's shared memory): each
   gridpoint's members cut into ``mergesort_plan(M, N)`` runs, each sorted
   by the block sort's run mode into a device scratch, adjacent runs merged
-  in pairs (merge path, tiles of ``MERGESORT_TILE``) until two are left,
-  and the last merge adds the gaps of the merged order, weighted as the
-  block sort's, without writing it out; the points go in batches, so that
-  the scratch stays under ``SCRATCH_BYTES``.
+  in pairs (merge path, a tile of merged members a block) until two are
+  left, and the last merge adds the gaps of the merged order, weighted as
+  the block sort's, without writing it out; the points go in batches, so
+  that the scratch stays under ``SCRATCH_BYTES``.
 
 The cross kernel stages the smaller ensemble and streams the larger one
 past it, past ``TILE_MEMBERS`` staged members tile by tile.
@@ -86,8 +86,8 @@ REGISTER_MEMBERS = range(2, REGISTER_MAX_MEMBERS + 1)
 # most four of them. 256 members is where shared memory ends the form: the
 # runs take 1 KB a gridpoint, 64 KB for a block of 64 threads, so no more
 # than three blocks (192 gridpoints) fit an SM's 228 KB, and the merge's
-# run heads stay in registers at compile-time indices. Past it, the tiled
-# pair form.
+# run heads stay in registers at compile-time indices. Past it, the block
+# sort.
 SORTED_MAX_MEMBERS = 4 * REGISTER_MAX_MEMBERS
 SORTED_MEMBERS = range(REGISTER_MAX_MEMBERS + 1, SORTED_MAX_MEMBERS + 1)
 
@@ -156,21 +156,15 @@ def blocksort_config(m: int) -> tuple:
 
 # Past one point's block sort (csrc/mergesort_stats.cu): the members cut
 # into a power of two of runs of at most MERGESORT_RUN_MAX, each block
-# sorted, then merged MERGESORT_TILE merged members a block (its kTile).
-# MERGESORT_RUN_MAX is the block sort's count at which two blocks still fit
-# an SM (28,928 members), so that one block's barriers overlap the
-# other's work.
+# sorted, then merged. MERGESORT_RUN_MAX is the block sort's count at which
+# two blocks still fit an SM (28,928 members), so that one block's barriers
+# overlap the other's work.
 MERGESORT_RUN_MAX = (BLOCKSORT_SM_BYTES // 2 - 1024) // 4
-MERGESORT_TILE = 2048
 MERGESORT_MEMBERS = range(BLOCKSORT_MAX_MEMBERS + 1, MAX_MEMBERS + 1)
-# The words of device scratch a merge sort's call may hold at once: its
-# points go in batches under it (two float32 columns a point past two runs,
-# else one, and the runs' and tiles' partial sums).
+# The bytes of device scratch a merge sort's call may hold at once: its
+# points go in batches under it (two float32 columns a point, and the
+# runs' and tiles' partial sums, as the kernel lays them out).
 SCRATCH_BYTES = 4 << 30
-# The partial sums a sorted run leaves (csrc/common.cuh kRunParts) and a
-# tile of the last merge (mergesort_stats.cu kTileParts).
-RUN_PARTS = 6
-TILE_PARTS = 2
 
 
 def merge_runs(m: int, run_max: int = None) -> tuple:
@@ -188,45 +182,25 @@ def merge_runs(m: int, run_max: int = None) -> tuple:
   return runs, run_members
 
 
-def _scratch_words(m: int) -> tuple:
-  """(runs, run members, float32 scratch words a point) of a merge sort of
-  m members."""
-  runs, run_members = merge_runs(m)
-  columns = 2 if runs > 2 else 1
-  tiles = -(-m // MERGESORT_TILE)
-  return runs, run_members, columns * m + runs * RUN_PARTS + tiles * TILE_PARTS
+def scratch_batch(n: int, words: int) -> int:
+  """The points of one batch of a merge sort over n points: n in equal
+  batches of at most SCRATCH_BYTES, at `words` float32 words of scratch a
+  point."""
+  cap = max(1, SCRATCH_BYTES // (4 * words))
+  batches = max(1, -(-n // cap))
+  return max(1, -(-n // batches))
 
 
 def mergesort_plan(m: int, n: int) -> tuple:
-  """(runs, run members, batch) of the merge sort of m members over n
-  points: merge_runs(m), and the points in equal batches of at most
-  SCRATCH_BYTES of scratch."""
-  runs, run_members, words = _scratch_words(m)
-  cap = max(1, SCRATCH_BYTES // (4 * words))
-  batches = max(1, -(-n // cap))
-  return runs, run_members, max(1, -(-n // batches))
-
-
-def mergesort_traffic(m: int, n: int, itemsize: int = 4,
-                      fused: bool = True) -> dict:
-  """The bytes a merge sort of x (m, n) moves in device memory: the input
-  and outputs once; each sorted run written to the scratch, and each merge
-  but the last reading and writing the columns once, the last reading them
-  once; the runs' and tiles' partial sums (the fused kernel's last merge
-  reads the runs' sums once a tile for its mean). The merge-path searches'
-  few words a tile are left out."""
-  runs, _, _ = mergesort_plan(m, n)
-  levels = runs.bit_length() - 2  # the merges that write
-  tiles = -(-m // MERGESORT_TILE)
-  columns = 4 * m * n * (1 + levels)
-  parts = 4 * n * (runs * RUN_PARTS + tiles * TILE_PARTS)
-  out = {'input': itemsize * n * (m + (1 if fused else 0)),
-         'output': itemsize * n * (4 if fused else 1),
-         'scratch_written': columns + parts,
-         'scratch_read': columns + parts + (4 * n * tiles * runs if fused
-                                            else 0)}
-  out['total'] = sum(out.values())
-  return out
+  """(runs, run members, scratch words a point, batch) of the merge sort of
+  m members over n points: merge_runs(m), the words the kernel lays out for
+  them (its library's wbx_mergesort_scratch_words, so on the card only) and
+  scratch_batch."""
+  runs, run_members = merge_runs(m)
+  words = _build.load_library().wbx_mergesort_scratch_words(m, runs)
+  if words <= 0:
+    raise ValueError(f'no merge sort of {m} members in {runs} runs')
+  return runs, run_members, words, scratch_batch(n, words)
 
 
 # The member count from which the JAX package's spread kernel takes its sort
@@ -387,7 +361,6 @@ _FORM_MEMBERS = {
     'sorted': SORTED_MEMBERS,
     'blocksort': range(BLOCKSORT_RUN + 1, BLOCKSORT_MAX_MEMBERS + 1),
     'mergesort': MERGESORT_MEMBERS,
-    'runcross': MERGESORT_MEMBERS,
 }
 
 
@@ -414,11 +387,7 @@ def _launch_stats(x: torch.Tensor, y, form: str = None):
     dtype = KERNEL_DTYPES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     form = form or spread_form(m)
-    if form == 'runcross':
-      if fused:
-        raise ValueError('the runcross form is spread-only')
-      rc = _launch_runcross(lib, x, outs[0], m, n, dtype, stream)
-    elif form == 'mergesort':
+    if form == 'mergesort':
       rc = _launch_mergesort(lib, ptrs, x, m, n, dtype, fused, stream)
     elif form == 'blocksort':
       points, threads = blocksort_config(m)
@@ -443,46 +412,16 @@ def _launch_stats(x: torch.Tensor, y, form: str = None):
 
 def _launch_mergesort(lib, ptrs, x, m, n, dtype, fused, stream) -> int:
   """The merge sort's launches (mergesort_plan), its scratch allocated
-  here for one batch: the sorted columns, the runs' and the tiles'
-  partial sums."""
-  runs, run_members, batch = mergesort_plan(m, n)
+  here for one batch and cut up by the kernel."""
+  runs, run_members, words, batch = mergesort_plan(m, n)
   points, threads = blocksort_config(run_members)
   last_points, last_threads = blocksort_config(m - (runs - 1) * run_members)
-  nb = min(batch, n)
-  tiles = -(-m // MERGESORT_TILE)
-
-  def scratch(*shape):
-    return torch.empty(shape, dtype=torch.float32, device=x.device)
-  columns = scratch(2 if runs > 2 else 1, nb, m)
-  run_parts = scratch(nb, runs, RUN_PARTS)
-  tile_parts = scratch(nb, tiles, TILE_PARTS)
+  scratch = torch.empty((min(batch, n), words), dtype=torch.float32,
+                        device=x.device)
   return lib.wbx_ensemble_stats_mergesort(
-      *ptrs, columns[0].data_ptr(),
-      columns[1].data_ptr() if runs > 2 else None, run_parts.data_ptr(),
-      tile_parts.data_ptr(), m, n, batch, runs, run_members, points, threads,
-      last_points, last_threads, MERGESORT_TILE, dtype, fused,
-      x.device.index, stream)
-
-
-def _launch_runcross(lib, x, out, m, n, dtype, stream) -> int:
-  """Candidate 2's spread: the runs' own gap sums plus twice every pair's
-  cross walk (the merge sort's runs and batches)."""
-  runs, run_members, batch = mergesort_plan(m, n)
-  points, threads = blocksort_config(run_members)
-  last_points, last_threads = blocksort_config(m - (runs - 1) * run_members)
-  nb = min(batch, n)
-  pairs = runs * (runs - 1) // 2
-  tiles = -(-2 * run_members // MERGESORT_TILE)
-
-  def scratch(*shape):
-    return torch.empty(shape, dtype=torch.float32, device=x.device)
-  columns = scratch(nb, m)
-  run_parts = scratch(nb, runs, RUN_PARTS)
-  tile_parts = scratch(nb, pairs * tiles)
-  return lib.wbx_spread_runcross(
-      x.data_ptr(), out.data_ptr(), columns.data_ptr(), run_parts.data_ptr(),
-      tile_parts.data_ptr(), m, n, batch, runs, run_members, points, threads,
-      last_points, last_threads, dtype, x.device.index, stream)
+      *ptrs, scratch.data_ptr(), m, n, batch, runs, run_members, points,
+      threads, last_points, last_threads, dtype, fused, x.device.index,
+      stream)
 
 
 def _launch_cross(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

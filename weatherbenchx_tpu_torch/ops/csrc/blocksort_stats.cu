@@ -65,8 +65,8 @@
 //   * NaN: fminf/fmaxf drop a NaN operand, so a NaN flag on the loaded
 //     values gives the spread NaN; sum, skill, mean and sq_dev carry NaN by
 //     plain arithmetic. +-inf: counted on load, the counts give the JAX
-//     kernels' inf or NaN (infinite_spread in common.cuh), as the tiled
-//     pair form's do. Ties and -0.0 / +0.0 leave gaps of 0.
+//     kernels' inf or NaN (infinite_spread in common.cuh), as the other
+//     forms' do. Ties and -0.0 / +0.0 leave gaps of 0.
 // The form holds a point's M float32 members in one block's 227 KB: up to
 // 58,112 members (kMaxMembers). Past it, mergesort_stats.cu cuts each
 // point's members into runs and sorts them here in the run mode (kRuns):
@@ -495,21 +495,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                    run * m;
       for (int i = t; i < m; i += threads) dst[i] = col[swizzle(i)];
     }
-    float gaps = 0.f;
-    if (layout.run_spread) {
-#pragma unroll 1
-      for (int b = t; b < runs; b += threads) {
-        const float next =
-            (b + 1) * kRun < m ? col[swizzle((b + 1) * kRun)] : infinity();
-        float v[kRun];
-        load_run(col, b, m, v);
-        gaps += run_gaps(v, b, m, next);
-      }
-    }
     __syncthreads();  // the columns are free: their first words take the sums
     float part[wbx::kRunParts] = {sum, skill, static_cast<float>(nan),
                                   static_cast<float>(n_pos),
-                                  static_cast<float>(n_neg), gaps};
+                                  static_cast<float>(n_neg)};
     group_sums(part, t, threads, col, true);
     if (t != 0 || !live) return;
     float* out = layout.parts + (point * layout.runs_total +

@@ -44,7 +44,7 @@ __device__ __forceinline__ float infinite_spread(int m, int n_pos, int n_neg) {
 // The partial sums of a sorted run past one point's shared memory (the
 // block sort's run mode, read by mergesort_stats.cu), a word each: the
 // sum, skill, the NaN flag, the +inf count and the -inf count.
-constexpr int kRunParts = 6;
+constexpr int kRunParts = 5;
 
 // Where the block sort's run mode puts a batch of gridpoints' runs: its
 // point q is run q / nb of gridpoint q % nb, member rows [first_row + (q /
@@ -60,7 +60,6 @@ struct RunLayout {
   int64_t m_total = 0;    // members a gridpoint
   float* out = nullptr;   // the sorted columns, (nb, m_total) float32
   float* parts = nullptr; // (nb, runs_total, kRunParts) float32
-  bool run_spread = false; // the run's own gap sum into its sixth word
 };
 
 // blocksort_stats.cu: the run mode's launch on `stream`, a cudaError_t.

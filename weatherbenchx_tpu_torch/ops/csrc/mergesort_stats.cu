@@ -52,9 +52,10 @@
 //     index is clamped to the run by construction, so members all at one
 //     infinity (all ties) stay within it too;
 //   * the wrapper (ops/crps_pairwise.py) takes the points in batches, so
-//     that the scratch (two columns a point past two runs, the partials)
-//     stays under its SCRATCH_BYTES whatever N; one public call is still
-//     one launch in its count.
+//     that the scratch (two columns a point, the partials; its words a
+//     point from wbx_mergesort_scratch_words, the layout this file's
+//     alone) stays under its SCRATCH_BYTES whatever N; one public call is
+//     still one launch in its count.
 // Accumulation is float32; bfloat16 input is widened to float32 in the
 // scratch, and the outputs are stored in the input dtype.
 
@@ -69,7 +70,7 @@ using wbx::store;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;
-// Merged members a block: ops/crps_pairwise.py's MERGESORT_TILE.
+// Merged members a block.
 constexpr int kTile = kThreads * kItems;
 // A tile's words in shared memory: a pad word after each 32, so that a
 // warp's consecutive words and its threads' kItems-apart words fall in
@@ -292,144 +293,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Candidate 2: the cross sum C(R_i, R_j) of each pair of sorted runs i < j
-// by one merge-path walk, gap x (a (lb - b) + b (la - a)) with a and b the
-// members of each run at or below the gap; a tile's sum to tile_parts.
-__global__ void __launch_bounds__(kThreads)
-    cross_walk_kernel(const float* __restrict__ in,
-                      float* __restrict__ tile_parts, int m, int runs,
-                      int run_members, int pairs, int tiles) {
-  __shared__ float s[kTileWords];
-  __shared__ int ends[2];
-  __shared__ float firsts[kThreads];
-  __shared__ float after;
-  __shared__ float warp_sums[kWarps];
-  const int64_t block = blockIdx.x;
-  const int tile = static_cast<int>(block % tiles);
-  const int64_t rest = block / tiles;
-  int pair = static_cast<int>(rest % pairs);
-  const int64_t point = rest / pairs;
-  int ri = 0;
-  while (pair >= runs - 1 - ri) {
-    pair -= runs - 1 - ri;
-    ++ri;
-  }
-  const int rj = ri + 1 + pair;
-  const float* a = in + point * m + ri * run_members;
-  const float* b = in + point * m + rj * run_members;
-  const int la = min(run_members, m - ri * run_members);
-  const int lb = min(run_members, m - rj * run_members);
-  const int len = la + lb;
-  const int d0 = tile * kTile;
-  float* dst = tile_parts + point * pairs * tiles +
-               block % (int64_t{pairs} * tiles);
-  if (d0 >= len) {  // a shorter pair's tiles past its end add nothing
-    if (threadIdx.x == 0) *dst = 0.f;
-    return;
-  }
-  const int d1 = min(d0 + kTile, len);
-  auto get_a = [&](int i) { return a[i]; };
-  auto get_b = [&](int j) { return b[j]; };
-  if (threadIdx.x == 0) {
-    ends[0] = co_rank(get_a, la, get_b, lb, d0);
-  } else if (threadIdx.x == 32) {
-    const int i1 = co_rank(get_a, la, get_b, lb, d1);
-    ends[1] = i1;
-    const int j1 = d1 - i1;
-    after = d1 < len ? (i1 < la && (j1 >= lb || a[i1] <= b[j1]) ? a[i1]
-                                                                : b[j1])
-                     : infinity();
-  }
-  __syncthreads();
-  const int ia0 = ends[0];
-  const int jb0 = d0 - ia0;
-  const int na = ends[1] - ia0;
-  const int nb = (d1 - ends[1]) - jb0;
-  for (int k = threadIdx.x; k < na; k += kThreads) s[padded(k)] = a[ia0 + k];
-  for (int k = threadIdx.x; k < nb; k += kThreads)
-    s[padded(na + k)] = b[jb0 + k];
-  __syncthreads();
-  const int dt = threadIdx.x * kItems;
-  const int count = max(0, min(kItems, d1 - d0 - dt));
-  float v[kItems];
-  float w[kItems];
-  if (count > 0) {
-    auto sa = [&](int i) { return s[padded(i)]; };
-    auto sb = [&](int j) { return s[padded(na + j)]; };
-    int i = co_rank(sa, na, sb, nb, dt);
-    int j = dt - i;
-#pragma unroll
-    for (int e = 0; e < kItems; ++e) {
-      if (e < count) {
-        const bool take_a = i < na && (j >= nb || sa(i) <= sb(j));
-        v[e] = take_a ? sa(i++) : sb(j++);
-        const float ca = static_cast<float>(ia0 + i);
-        const float cb = static_cast<float>(jb0 + j);
-        w[e] = ca * (static_cast<float>(lb) - cb) +
-               cb * (static_cast<float>(la) - ca);
-      }
-    }
-  }
-  if (count > 0) firsts[threadIdx.x] = v[0];
-  __syncthreads();
-  float part = 0.f;
-  if (count > 0) {
-    const float next = dt + count < d1 - d0 ? firsts[threadIdx.x + 1] : after;
-#pragma unroll
-    for (int e = 0; e < kItems; ++e) {
-      if (e < count && d0 + dt + e + 1 < len) {
-        const float hi = e + 1 < count ? v[e + 1] : next;
-        part = fmaf(hi - v[e], w[e], part);
-      }
-    }
-  }
-  for (int off = 16; off >= 1; off /= 2)
-    part += __shfl_xor_sync(0xffffffffu, part, off);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = part;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sum = warp_sums[0];
-    for (int k = 1; k < kWarps; ++k) sum += warp_sums[k];
-    *dst = sum;
-  }
-}
-
-// Candidate 2's finish: the runs' own gap sums in run order plus twice the
-// cross walks' tiles (lanes, then a butterfly), doubled.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    cross_finish_kernel(const float* __restrict__ tile_parts,
-                        const float* __restrict__ run_parts,
-                        T* __restrict__ spread, int m, int parts_a_point,
-                        int runs, int64_t nb) {
-  const int64_t point =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (point >= nb) return;
-  float c = 0.f;
-  const float* tp = tile_parts + point * parts_a_point;
-  for (int t = lane; t < parts_a_point; t += 32) c += tp[t];
-  for (int off = 16; off >= 1; off /= 2)
-    c += __shfl_xor_sync(0xffffffffu, c, off);
-  if (lane != 0) return;
-  const float* rp = run_parts + point * runs * wbx::kRunParts;
-  float own = 0.f;
-  float nan = 0.f;
-  float pos = 0.f;
-  float neg = 0.f;
-  for (int r = 0; r < runs; ++r) {
-    nan += rp[r * wbx::kRunParts + 2];
-    pos += rp[r * wbx::kRunParts + 3];
-    neg += rp[r * wbx::kRunParts + 4];
-    own += rp[r * wbx::kRunParts + 5];
-  }
-  const int np = static_cast<int>(pos);
-  const int nn = static_cast<int>(neg);
-  store(spread + point, nan != 0.f ? wbx::quiet_nan()
-                        : np + nn > 0 ? wbx::infinite_spread(m, np, nn)
-                                      : 2.f * (own + c));
-}
-
 int check_launch(int64_t blocks) {
   return blocks > 0x7fffffff ? cudaErrorInvalidValue : cudaSuccess;
 }
@@ -477,77 +340,13 @@ int merge_batch(float* scratch_a, float* scratch_b, float* run_parts,
 
 }  // namespace
 
-// Candidate 2, spread-only: tile_parts batch * runs (runs - 1) / 2 *
-// ceil(2 run_members / tile) words, run_parts batch * runs * kRunParts.
-extern "C" int wbx_spread_runcross(const void* x, void* spread,
-                                   void* scratch, void* run_parts,
-                                   void* tile_parts, int64_t m, int64_t n,
-                                   int64_t batch, int runs,
-                                   int64_t run_members, int points,
-                                   int threads, int last_points,
-                                   int last_threads, int dtype, int device,
-                                   void* stream) {
-  const int64_t last = m - (runs - 1) * run_members;
-  if (m > kMaxMembers || n < 0 || batch < 1 || runs < 2 ||
-      run_members < kMinRunMembers || last < kMinRunMembers ||
-      last > run_members || (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return set;
-  const size_t item = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
-  const int pairs = runs * (runs - 1) / 2;
-  const int tiles = static_cast<int>((2 * run_members + kTile - 1) / kTile);
-  auto s = static_cast<cudaStream_t>(stream);
-  for (int64_t b0 = 0; b0 < n; b0 += batch) {
-    const int64_t nb = n - b0 < batch ? n - b0 : batch;
-    const void* xb = static_cast<const char*>(x) + b0 * item;
-    wbx::RunLayout layout;
-    layout.nb = nb;
-    layout.runs_total = runs;
-    layout.m_total = m;
-    layout.out = static_cast<float*>(scratch);
-    layout.parts = static_cast<float*>(run_parts);
-    layout.run_spread = true;
-    layout.count = last == run_members ? runs : runs - 1;
-    int err = wbx::launch_blocksort_runs(xb, nullptr, layout, run_members, n,
-                                         dtype, false, points, threads,
-                                         device, stream);
-    if (err != cudaSuccess) return err;
-    if (last != run_members) {
-      layout.count = 1;
-      layout.first_row = (runs - 1) * run_members;
-      layout.first_run = runs - 1;
-      err = wbx::launch_blocksort_runs(xb, nullptr, layout, last, n, dtype,
-                                       false, last_points, last_threads,
-                                       device, stream);
-      if (err != cudaSuccess) return err;
-    }
-    const int64_t blocks = nb * pairs * tiles;
-    if (check_launch(blocks) != cudaSuccess) return cudaErrorInvalidValue;
-    cross_walk_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const float*>(scratch), static_cast<float*>(tile_parts),
-        static_cast<int>(m), runs, static_cast<int>(run_members), pairs,
-        tiles);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const unsigned fb =
-        static_cast<unsigned>((nb * 32 + kThreads - 1) / kThreads);
-    void* out = static_cast<char*>(spread) + b0 * item;
-    if (dtype == 0)
-      cross_finish_kernel<float><<<fb, kThreads, 0, s>>>(
-          static_cast<float*>(tile_parts), static_cast<float*>(run_parts),
-          static_cast<float*>(out), static_cast<int>(m), pairs * tiles, runs,
-          nb);
-    else
-      cross_finish_kernel<__nv_bfloat16><<<fb, kThreads, 0, s>>>(
-          static_cast<float*>(tile_parts), static_cast<float*>(run_parts),
-          static_cast<__nv_bfloat16*>(out), static_cast<int>(m),
-          pairs * tiles, runs, nb);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
+// The float32 scratch words a point of wbx_ensemble_stats_mergesort takes
+// at m members in `runs` runs (two columns of m, the runs' partials and the
+// last merge's tiles'); -1 where m or runs is out of range.
+extern "C" int64_t wbx_mergesort_scratch_words(int64_t m, int runs) {
+  if (m < 2 * kMinRunMembers || m > kMaxMembers || runs < 2) return -1;
+  return 2 * m + static_cast<int64_t>(runs) * wbx::kRunParts +
+         (m + kTile - 1) / kTile * kTileParts;
 }
 
 // dtype: 0 = float32, 1 = bfloat16; fused: 0 writes the spread alone, and
@@ -556,31 +355,32 @@ extern "C" int wbx_spread_runcross(const void* x, void* spread,
 // mergesort_plan): `runs` runs a point (a power of two, at least 2), all of
 // run_members members but the last, which has the rest; the block sort's
 // (points, threads) for a full run and for the last; the points `batch` at
-// a time. The float32 device scratch: scratch_a and, past two runs,
-// scratch_b, batch * m words each; run_parts batch * runs * 5 words;
-// tile_parts batch * ceil(m / tile) * 2 words. tile must be this file's
-// kTile. m from 33 to 2^20. Returns a cudaError_t (0 on success) after the
-// asynchronous launches on `stream`.
+// a time. scratch: min(batch, n) * wbx_mergesort_scratch_words(m, runs)
+// float32 device words, cut here into the two columns, the runs' partials
+// and the tiles'. m from 66 to 2^20. Returns a cudaError_t (0 on success)
+// after the asynchronous launches on `stream`.
 extern "C" int wbx_ensemble_stats_mergesort(
     const void* x, const void* y, void* spread, void* skill, void* mean,
-    void* sq_dev, void* scratch_a, void* scratch_b, void* run_parts,
-    void* tile_parts, int64_t m, int64_t n, int64_t batch, int runs,
-    int64_t run_members, int points, int threads, int last_points,
-    int last_threads, int tile, int dtype, int fused, int device,
-    void* stream) {
+    void* sq_dev, void* scratch, int64_t m, int64_t n, int64_t batch,
+    int runs, int64_t run_members, int points, int threads, int last_points,
+    int last_threads, int dtype, int fused, int device, void* stream) {
   const int64_t last = m - (runs - 1) * run_members;
   if (m > kMaxMembers || n < 0 || batch < 1 || runs < 2 ||
       (runs & (runs - 1)) != 0 || run_members < kMinRunMembers ||
-      last < kMinRunMembers || last > run_members || tile != kTile ||
+      last < kMinRunMembers || last > run_members ||
       (dtype != 0 && dtype != 1) || x == nullptr || spread == nullptr ||
-      scratch_a == nullptr || (runs > 2 && scratch_b == nullptr) ||
-      run_parts == nullptr || tile_parts == nullptr ||
+      scratch == nullptr ||
       (fused && (y == nullptr || skill == nullptr || mean == nullptr ||
                  sq_dev == nullptr)))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return set;
+  const int64_t points_max = n < batch ? n : batch;
+  float* const scratch_a = static_cast<float*>(scratch);
+  float* const scratch_b = scratch_a + points_max * m;
+  float* const run_parts = scratch_b + points_max * m;
+  float* const tile_parts = run_parts + points_max * runs * wbx::kRunParts;
   const size_t item = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
   auto at = [](void* p, int64_t offset, size_t size) -> void* {
     return p == nullptr ? nullptr : static_cast<char*>(p) + offset * size;
@@ -593,8 +393,8 @@ extern "C" int wbx_ensemble_stats_mergesort(
     layout.nb = nb;
     layout.runs_total = runs;
     layout.m_total = m;
-    layout.out = static_cast<float*>(scratch_a);
-    layout.parts = static_cast<float*>(run_parts);
+    layout.out = scratch_a;
+    layout.parts = run_parts;
     layout.count = last == run_members ? runs : runs - 1;
     int err = wbx::launch_blocksort_runs(xb, yb, layout, run_members, n,
                                          dtype, fused != 0, points, threads,
@@ -611,27 +411,15 @@ extern "C" int wbx_ensemble_stats_mergesort(
     }
     void* outs[4] = {at(spread, b0, item), at(skill, b0, item),
                      at(mean, b0, item), at(sq_dev, b0, item)};
-    auto s = static_cast<cudaStream_t>(stream);
-    auto fa = static_cast<float*>(scratch_a);
-    auto fb = static_cast<float*>(scratch_b);
-    auto rp = static_cast<float*>(run_parts);
-    auto tp = static_cast<float*>(tile_parts);
-    const int mi = static_cast<int>(m);
-    const int rm = static_cast<int>(run_members);
-    if (dtype == 0 && fused)
-      err = merge_batch<float, true>(fa, fb, rp, tp, outs[0], outs[1],
-                                     outs[2], outs[3], mi, runs, rm, nb, s);
-    else if (dtype == 0)
-      err = merge_batch<float, false>(fa, fb, rp, tp, outs[0], outs[1],
-                                      outs[2], outs[3], mi, runs, rm, nb, s);
-    else if (fused)
-      err = merge_batch<__nv_bfloat16, true>(fa, fb, rp, tp, outs[0],
-                                             outs[1], outs[2], outs[3], mi,
-                                             runs, rm, nb, s);
-    else
-      err = merge_batch<__nv_bfloat16, false>(fa, fb, rp, tp, outs[0],
-                                              outs[1], outs[2], outs[3], mi,
-                                              runs, rm, nb, s);
+    const auto merge =
+        dtype == 0 ? (fused ? &merge_batch<float, true>
+                            : &merge_batch<float, false>)
+                   : (fused ? &merge_batch<__nv_bfloat16, true>
+                            : &merge_batch<__nv_bfloat16, false>);
+    err = merge(scratch_a, scratch_b, run_parts, tile_parts, outs[0], outs[1],
+                outs[2], outs[3], static_cast<int>(m), runs,
+                static_cast<int>(run_members), nb,
+                static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;

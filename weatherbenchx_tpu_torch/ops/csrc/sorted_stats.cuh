@@ -1,7 +1,7 @@
 // The fused ensemble-statistics and spread-only kernels for 65..256
 // members, as sorted runs: CUDA C++ for Hopper (sm_90a). register_stats.cuh
 // holds the register form for 2..64 members, blocksort_stats.cu the block
-// sort for 257..58,112 and crps_pairwise.cu the tiled pair form past it.
+// sort for 257..58,112 and mergesort_stats.cu the merge sort past it.
 //
 // Replaces, in weatherbenchx_tpu/ops/crps_pairwise.py, _fused_kernel (via
 // _fused_stats_impl -> pl.pallas_call) and _spread_kernel_sort (via
