@@ -114,12 +114,13 @@ script exits nonzero:
    climatology's size (the largest arrays host-gathered, SEEPS's p1
    resident); the two AggregationStates equal by torch.equal. Prints the
    seconds per chunk, the stage timers and the peak device memory.
-7. The evaluation CLI (python -m weatherbenchx_tpu_torch.apps.run_evaluation
-   --device cuda) on a small .npz store in a temporary directory: RMSE of
+7. The evaluation CLI (weatherbenchx_tpu_torch.apps.run_evaluation
+   --device cuda, its main run in this process) on a small .npz store in
+   a temporary directory: RMSE of
    N(0, 1) against N(0, 1) is sqrt(2); again from .wbx and netCDF copies
    of the stores, each equal to the .npz run bit for bit.
-8. The benchmark CLI (python -m
-   weatherbenchx_tpu_torch.apps.run_benchmark_evaluation --device cuda) on
+8. The benchmark CLI (weatherbenchx_tpu_torch.apps.run_benchmark_evaluation
+   --device cuda, its main run in this process) on
    64 x 32 .npz stores with ECMWF names: the deterministic recipe above
    (RMSE = sqrt(2), ACC = 1/2) and --prediction=ens with 8 N(0, 1)
    members against N(0, 1) (CRPS = 1/sqrt(pi) = 0.5642, unbiased
@@ -200,7 +201,7 @@ script exits nonzero:
    chunk's without the sink; the sink's GB/s, bytes on disk and the cost
    of the host copies. Phase 8 also runs the benchmark CLI with
    --unaggregated_zarr into zarr v2 blosc and v3 sharded zstd stores.
-14. Significance at scorecard size: a state with init_time kept, 730 inits
+14. Significance at scorecard size: a state with init_time kept, 366 inits
    x 41 leads x 34 bins x phase 6's 25 field-levels at 1.5 degrees, RMSE
    and bias of a main and a baseline forecast whose errors are AR(1) in
    init time (phi 0.6), main offset by 0.5, built by ChunkEvaluator.
@@ -225,7 +226,7 @@ script exits nonzero:
    each state within 1e-6 of phase 6's (max |diff| over max |value| per
    array), torch.equal printed; (c) after phase 14, its configuration
    through the pipeline (1.5 degrees, 25 field-levels, 41 leads, 34 bins,
-   init_time kept, RMSE and bias) over 64 inits of in-memory stores at 1
+   init_time kept, RMSE and bias) over 32 inits of in-memory stores at 1
    and 8 chunks per dispatch, the two states within 1e-5 (F64_RTOL: a
    GEMM of 8 times the rows sums in another float32 order), each run's
    seconds per chunk and eval_chunk_seconds, and from a profile_dir trace
@@ -245,7 +246,8 @@ script exits nonzero:
    rank starts): (a) NCCL at world size 1 ('cpu:gloo,cuda:nccl'): phase
    4's 3 chunks through EvaluationPipeline(distributed=True) with a 1-rank
    mesh {'space': 1} over longitude, so the state's reductions are NCCL
-   calls; (b) 2 gloo ranks sharing the card, distributed=True: rank 0
+   calls; (b) and (c) in one spawn of 2 gloo ranks, (b) then (c):
+   (b) 2 gloo ranks sharing the card, distributed=True: rank 0
    evaluates chunks 0 and 2, rank 1 chunk 1 (2 and 1 fused launches), and
    both return the summed total; (c) 2 gloo ranks as a mesh, {'space': 2}
    with longitude sharded (one fused launch per chunk over 50 x 1 x 4 x
@@ -272,8 +274,20 @@ script exits nonzero:
    fused kernel and the two-ensemble configs the cross and spread
    kernels. Prints per family the configs, the largest gap, the seconds on
    the card and on the CPU, the launches per kernel with the member counts
-   they saw, and for large_k the rows and bins.
-18. The drivers at full width, after phase 17, each evaluation run in a
+   they saw, and for large_k the rows and bins. Then the five layers'
+   families, each held to its CPU run the same way: time_bins (every
+   time unit of both packages' _extract_time_unit, sets of them, int
+   seconds, edge bins and string and integer sets over datetimes from
+   1900 to 2100 with sub-second parts, stacked with regions), sparse
+   (0-40 stations through the loaders' interpolation, masks and padding),
+   dispatch (3-7 chunks whose signatures change mid-stream through
+   EvaluationPipeline at 1-8 chunks a dispatch), inference (the six
+   methods on AR(1) states, float64, at rtol 1e-9) and large_members
+   (CRPS, spread/skill and ensemble-mean RMSE at 65..70,000 members, also
+   against a float64 run of the same draw), at FUZZ_SEEDS seeds each;
+   large_members must launch the sorted runs, the block sort and the
+   merge sort.
+18. The drivers at full width, after phase 17, each stream run in a
    process of its own (python -m weatherbenchx_tpu_torch.tools.<name>),
    stores under DISK_STORE_DIR, deleted after: (a) stream_scale_demo's month, 31 inits
    x 50 members x 721 x 1440 as zarr v2 blosc (6.4 GB) at 4 inits per
@@ -308,6 +322,7 @@ limit, and {"ok": true, "device": {...}}.
 """
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -1146,11 +1161,32 @@ def grid_coords():
           np.arange(nlon) * (360 / nlon))
 
 
+NORMAL_PARTS = 16  # streams a large array's normals are drawn from
+
+
+def normals(key: list, shape: tuple) -> np.ndarray:
+  """Standard normals in float32 from a numpy seed ``key``: the array's
+  NORMAL_PARTS contiguous parts each from its own stream (``key + [i]``),
+  filled by threads at once (numpy draws without the GIL). The same key
+  gives the same array in any process."""
+  from concurrent.futures import ThreadPoolExecutor
+  out = np.empty(shape, np.float32)
+  flat = out.reshape(-1)
+  edges = np.linspace(0, flat.size, NORMAL_PARTS + 1).astype(np.int64)
+
+  def fill(i: int) -> None:
+    np.random.default_rng(list(key) + [i]).standard_normal(
+        int(edges[i + 1] - edges[i]), dtype=np.float32,
+        out=flat[edges[i]:edges[i + 1]])
+  with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+    list(pool.map(fill, range(NORMAL_PARTS)))
+  return out
+
+
 def make_chunk(seed: int, k: int, members: int = M):
   """One host chunk (predictions, targets) of the main-path configuration
   at ``members`` ensemble members."""
   from weatherbenchx_tpu_torch.darray import Coord, DimArray
-  rng = np.random.default_rng([seed, k])
   lat, lon = grid_coords()
   lat = lat[::-1].copy()  # north to south, as ERA5 stores it
   coords = {
@@ -1164,8 +1200,8 @@ def make_chunk(seed: int, k: int, members: int = M):
   mask = np.ones(GRID[2:], bool)
   mask[[0, -1]] = False
   coords['mask'] = Coord(('latitude', 'longitude'), mask)
-  x = rng.standard_normal((members,) + GRID, dtype=np.float32)
-  y = rng.standard_normal(GRID, dtype=np.float32)
+  x = normals([seed, k, 0], (members,) + GRID)
+  y = normals([seed, k, 1], GRID)
   dims = ('init_time', 'lead_time', 'latitude', 'longitude')
   preds = {'2m_temperature': DimArray(
       x, ('number',) + dims, dict(coords, number=np.arange(members)))}
@@ -2016,7 +2052,6 @@ def lagged_path(seed: int, card: str) -> dict:
 def ensemble_stores(seed: int):
   """(predictions, targets) in-memory stores of the ensemble path."""
   from weatherbenchx_tpu_torch.darray import DimArray
-  rng = np.random.default_rng([seed, 1000])
   lat, lon = grid_coords()
   lat = lat[::-1].copy()  # north to south, as ERA5 stores it
   inits = (np.datetime64('2020-01-01T00', 'ns')
@@ -2026,8 +2061,8 @@ def ensemble_stores(seed: int):
   valid = (np.datetime64('2020-01-01T00', 'ns')
            + np.arange(N_VALID) * np.timedelta64(6, 'h'))
   space = {'latitude': lat, 'longitude': lon}
-  x = rng.standard_normal((M, N_ENS_INITS) + GRID[1:], dtype=np.float32)
-  y = rng.standard_normal((M_TARGETS, N_VALID) + GRID[2:], dtype=np.float32)
+  x = normals([seed, 1000, 0], (M, N_ENS_INITS) + GRID[1:])
+  y = normals([seed, 1000, 1], (M_TARGETS, N_VALID) + GRID[2:])
   y += TARGET_MEAN
   preds = {'2m_temperature': DimArray(
       x, ('number', 'init_time', 'lead_time', 'latitude', 'longitude'),
@@ -2136,6 +2171,21 @@ def ensemble_path(seed: int):
   return stores, launches
 
 
+def run_main(module: str, argv: list) -> str:
+  """``python -m <module> <argv>`` as its ``main(argv)`` in this process
+  (no new process pays for ``import torch`` and a CUDA context); what it
+  printed. The kernel launch counts start at 0, as in a fresh process."""
+  import contextlib
+  import importlib
+  import io as io_std
+  from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
+  cp.reset_launch_counts()
+  buf = io_std.StringIO()
+  with contextlib.redirect_stdout(buf):
+    importlib.import_module(module).main(list(argv))
+  return buf.getvalue()
+
+
 def cli_phase(seed: int) -> None:
   """Phase 7: the evaluation CLI on the card over a small .npz store."""
   from weatherbenchx_tpu_torch import io
@@ -2165,19 +2215,12 @@ def cli_phase(seed: int) -> None:
         for path in (p, t):
           io.save_dataset(path[:-4] + suffix, io.load_dataset(path))
       out = os.path.join(tmp, f'o{suffix}')
-      cmd = [sys.executable, '-m',
-             'weatherbenchx_tpu_torch.apps.run_evaluation', '--device', 'cuda',
-             f'--prediction_path={p[:-4]}{suffix}',
-             f'--target_path={t[:-4]}{suffix}', f'--output_path={out}',
-             '--time_start=2020-01-01', '--time_stop=2020-01-05',
-             '--lead_time_stop=12', '--variables=2m_temperature',
-             '--time_chunk_size=2']
-      proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                            cwd=os.path.dirname(os.path.abspath(__file__)),
-                            check=False)
-      if proc.returncode != 0:
-        raise AssertionError(f'CLI ({suffix}) failed ({proc.returncode}):\n'
-                             f'{(proc.stdout + proc.stderr)[-4000:]}')
+      run_main('weatherbenchx_tpu_torch.apps.run_evaluation', [
+          '--device', DEVICE, f'--prediction_path={p[:-4]}{suffix}',
+          f'--target_path={t[:-4]}{suffix}', f'--output_path={out}',
+          '--time_start=2020-01-01', '--time_stop=2020-01-05',
+          '--lead_time_stop=12', '--variables=2m_temperature',
+          '--time_chunk_size=2'])
       return io.load_dataset(out)['rmse.2m_temperature']
 
     t0 = time.perf_counter()
@@ -2859,18 +2902,12 @@ def bench_cli_stores(tmp: str, seed: int) -> dict:
 
 
 def run_bench_cli(args: list) -> str:
-  cmd = [sys.executable, '-m',
-         'weatherbenchx_tpu_torch.apps.run_benchmark_evaluation',
-         '--device', 'cuda', '--init_time_start=2020-01-01',
-         f'--init_time_stop=2020-01-{1 + BENCH_CLI_INITS // 2:02d}',
-         '--lead_time_stop_days=1', '--resolution=64x32', *args]
-  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                        cwd=os.path.dirname(os.path.abspath(__file__)),
-                        check=False)
-  if proc.returncode != 0:
-    raise AssertionError(f'benchmark CLI failed ({proc.returncode}):\n'
-                         f'{(proc.stdout + proc.stderr)[-4000:]}')
-  return proc.stdout
+  """The benchmark CLI's main over phase 8's stores, in this process; what
+  it printed."""
+  return run_main('weatherbenchx_tpu_torch.apps.run_benchmark_evaluation', [
+      '--device', DEVICE, '--init_time_start=2020-01-01',
+      f'--init_time_stop=2020-01-{1 + BENCH_CLI_INITS // 2:02d}',
+      '--lead_time_stop_days=1', '--resolution=64x32', *args])
 
 
 def global_n_eff() -> float:
@@ -3064,7 +3101,7 @@ def benchmark_cli_phase(seed: int) -> dict:
           f'{glob.mean():.6f} vs {value:.6f} (max dev {far:.4g}, tol '
           f'{tol:.4g}) ok')
   log(f'benchmark cli: deterministic {det_s:.1f} s, ensemble {ens_s:.1f} s '
-      f'(process wall time); ensemble kernel launches {launches}')
+      f'(in this process); ensemble kernel launches {launches}')
   return launches, {'hres_vs_era5_64x32_2020-init12h.npz': det,
                     'ens_vs_era5_64x32_2020-init12h.npz': ens}
 
@@ -4147,20 +4184,23 @@ def unaggregated_path(stores, card: str) -> dict:
 
 # -- Phase 14, significance at scorecard size -------------------------------------
 
-# A year of inits (2020, 00 and 12 UTC: 730) x 41 leads (0-240 h every
+# Half a year of inits (2020, 00 and 12 UTC: 366) x 41 leads (0-240 h every
 # 6 h) x 34 bins x phase 6's 25 field-levels at 1.5 degrees (121 x 240):
 # RMSE and bias of a main and a baseline forecast against the same target,
 # their errors N(0, 1) per gridpoint, AR(1) in init time with phi = 0.6,
 # the main forecast offset by SIG_OFFSET. Each init is one chunk generated
 # on the card and evaluated by ChunkEvaluator.eval_accum; the per-init
-# states are concatenated on the card along init_time.
-SIG_INITS = 730
+# states are concatenated on the card along init_time. (Not batched: the
+# IID check below needs each init's weights bit for bit equal, which a
+# stacked contraction does not give.)
+SIG_INITS = 366
 SIG_LEADS = 41
 SIG_GRID = (121, 240)
 SIG_PHI = 0.6
 # Large enough that the paired test finds it in the smallest bin: with the
 # AR(1) inflation sqrt((1 + phi) / (1 - phi)) = 2, one gridpoint's paired
-# standard error over 730 inits is 2 sqrt(2 / 730) = 0.105, so 4.8 of them.
+# standard error over 366 inits is 2 sqrt(2 / 366) = 0.148, so 3.4 of them
+# at one gridpoint, and many more over a bin's gridpoints.
 SIG_OFFSET = 0.5
 SIG_REPLICATES = 1000
 SIG_RTOL = 1e-9  # card against CPU, and the IID closed form
@@ -4388,13 +4428,13 @@ def significance_path(seed: int, card: str) -> dict:
 
 # -- phase 15: batched dispatch -------------------------------------------------
 
-# Phase 15(c): phase 14's configuration through the pipeline, over 64 inits
+# Phase 15(c): phase 14's configuration through the pipeline, over 32 inits
 # of in-memory stores, one init per chunk, at these group sizes. Its two
 # states are held to F64_RTOL: a stack of 8 chunks contracts 8 times the
 # rows in one GEMM, which sums each row's 29,040 gridpoints in another
 # float32 order than a chunk alone (1.06e-6 apart on the H100, at a bias
 # sum of zero-mean errors; 1.01e-6 on the CPU, in the sums of weights).
-DISPATCH_INITS = 64
+DISPATCH_INITS = 32
 DISPATCH_GROUPS = (1, 8)
 BATCHED_BENCH_RTOL = 1e-6
 
@@ -4810,14 +4850,16 @@ def latency_phase(seed: int, card: str) -> dict:
 
 RANK_TIMEOUT_S = 600.0
 MAIN_INIT0 = np.datetime64('2020-01-01T00', 'ns')
-# Sub-phase: [(run name, distributed, (mesh axis, axis size, sharded dim)
-# or None)], the world size and the process group's backend.
+# Sub-phase: ([(run name, distributed, (mesh axis, axis size, sharded dim)
+# or None)], world size, backend). (b) and (c) share one spawn of
+# their 2 gloo ranks: each rank runs the chunk-parallel run, then the two
+# meshes.
 RANK_RUNS = {
     'a': ([('nccl_world1', True, ('space', 1, 'longitude'))], 1,
           'cpu:gloo,cuda:nccl'),
-    'b': ([('gloo_distributed', True, None)], 2, 'gloo'),
-    'c': ([('mesh_space', False, ('space', 2, 'longitude')),
-           ('mesh_ensemble', False, ('ensemble', 2, 'number'))], 2, 'gloo'),
+    'bc': ([('gloo_distributed', True, None),
+            ('mesh_space', False, ('space', 2, 'longitude')),
+            ('mesh_ensemble', False, ('ensemble', 2, 'number'))], 2, 'gloo'),
 }
 
 
@@ -4972,25 +5014,32 @@ def rank_path(seed: int, phase4_values: dict, card: str) -> dict:
   return report
 
 
-FUZZ_SEEDS = 200
-FUZZ_LARGE_K_SEEDS = 20
+# Seeds by family: the four metric families, the five layers' families
+# (the binnings, the station path, batched dispatch, inference, the
+# ensembles past 64 members) and large_k at 721 x 1440.
+FUZZ_SEEDS = {'config': 200, 'wrappers': 200, 'spatial_rank': 200,
+              'seeps': 200, 'time_bins': 200, 'sparse': 100, 'dispatch': 20,
+              'inference': 50, 'large_members': 40, 'large_k': 20}
+# The member counts that large_members must launch: the sorted runs, the
+# block sort and the merge sort (ops/crps_pairwise.spread_form).
+FUZZ_LARGE_FORMS = ('sorted', 'blocksort', 'mergesort')
 
 
 def fuzz_phase(card: str) -> dict:
   """Phase 17: the randomized parity fuzz on the card, checked."""
   from weatherbenchx_tpu_torch import parity_fuzz
+  from weatherbenchx_tpu_torch.ops import crps_pairwise
   t0 = time.perf_counter()
-  report, failures = parity_fuzz.fuzz(parity_fuzz.FAMILIES, FUZZ_SEEDS,
-                                      FUZZ_LARGE_K_SEEDS, DEVICE)
+  report, failures = parity_fuzz.fuzz(FUZZ_SEEDS, DEVICE)
   seconds = time.perf_counter() - t0
   for f in failures[:10]:
     log(f'parity fuzz failure: {json.dumps(f)}')
   if failures:
     raise AssertionError(f'phase 17: {len(failures)} fuzz configs failed')
-  for family in parity_fuzz.FAMILIES:
-    if report[family]['configs'] != FUZZ_SEEDS:
+  for family, n in FUZZ_SEEDS.items():
+    if report[family]['configs'] != n:
       raise AssertionError(f'phase 17: {family} ran '
-                           f'{report[family]["configs"]} configs')
+                           f'{report[family]["configs"]} configs, not {n}')
   by_kind = report['config']['launches_by_kind']
   fused = sum(by_kind.get(k, {}).get('fused_ensemble_stats', 0)
               for k in ('ensemble', 'two_ensemble'))
@@ -5000,6 +5049,14 @@ def fuzz_phase(card: str) -> dict:
     raise AssertionError('phase 17: the ensemble configs must launch the '
                          'fused kernel and the two-ensemble configs the '
                          f'cross and spread kernels; launches {by_kind}')
+  large = report['large_members']
+  seen = {crps_pairwise.spread_form(m)
+          for name in ('fused_ensemble_stats', 'pairwise_spread_sum')
+          for m in large['members'].get(name, ())}
+  if not set(FUZZ_LARGE_FORMS) <= seen:
+    raise AssertionError(f'phase 17: large_members launched the forms '
+                         f'{sorted(seen)}, want {FUZZ_LARGE_FORMS}; members '
+                         f'{large["members"]}')
   for family, r in report.items():
     if family == parity_fuzz.LARGE_K:
       log(f'parity fuzz {family}: {r["configs"]} seeds, largest scaled '
@@ -5008,20 +5065,24 @@ def fuzz_phase(card: str) -> dict:
           f'{min(r["bins"])}-{max(r["bins"])}, {r["seconds"]:.2f} s; '
           f'card {card}')
     else:
-      log(f'parity fuzz {family}: {r["configs"]} configs, largest gap '
-          f'{r["max_gap"]:.3e}, {r["seconds"]:.2f} s on the card, '
-          f'{r["cpu_seconds"]:.2f} s on the CPU, launches {r["launches"]}, '
-          f'members {r["members"]}; card {card}')
+      f64 = (f', largest gap to float64 {r["max_gap_float64"]:.3e}'
+             if 'max_gap_float64' in r else '')
+      log(f'parity fuzz {family}: {r["configs"]} configs '
+          f'({dict(sorted(collections.Counter(r["kinds"]).items()))}), '
+          f'largest gap {r["max_gap"]:.3e}{f64}, {r["seconds"]:.2f} s on the '
+          f'card, {r["cpu_seconds"]:.2f} s on the CPU, launches '
+          f'{r["launches"]}, members {r["members"]}; card {card}')
   log(f'phase 17 parity fuzz: {seconds:.1f} s')
   return dict(report, seconds=seconds)
 
 
 # -- Phase 18, the drivers at full width ----------------------------------------
-# Each run of the stream demo and the benchmark CLI is `python -m
-# weatherbenchx_tpu_torch.<package>.<name>`, a process of its own, so that
-# the RSS it reports is its own; the stores and fixtures are written, and
-# the examples run, through their main() in this process (the examples'
-# kernel launches are counted here). Stores
+# Each run of the stream demo is `python -m
+# weatherbenchx_tpu_torch.tools.stream_scale_demo`, a process of its own,
+# so that the RSS it reports is its own; the stores and fixtures are
+# written, the examples and the canonical drive of the benchmark CLI run,
+# through their main() in this process (the examples' kernel launches are
+# counted here). Stores
 # go under DISK_STORE_DIR and are deleted after use. The month is the JAX
 # tool's (31 inits x 50 members x 721 x 1440, zarr v2 blosc) at chunks of
 # DRIVER_MONTH_CHUNK inits, the store's own cells (the tool's default of
@@ -5368,17 +5429,12 @@ def stream_year(card: str) -> dict:
 
 def example_lines(module, device: str) -> tuple:
   """(printed lines, kernel launches) of one example run in this process."""
-  import contextlib
-  import io as io_std
   from weatherbenchx_tpu_torch.ops import crps_pairwise as cp
-  cp.reset_launch_counts()
-  buf = io_std.StringIO()
-  with contextlib.redirect_stdout(buf):
-    module.main(['--device', device])
+  text = run_main(module.__name__, ['--device', device])
   if device == 'cuda':
     import torch
     torch.cuda.synchronize()
-  return buf.getvalue().splitlines(), dict(cp.LAUNCHES)
+  return text.splitlines(), dict(cp.LAUNCHES)
 
 
 def examples_and_canonical(card: str) -> dict:
@@ -5426,7 +5482,7 @@ def examples_and_canonical(card: str) -> dict:
                            'CPU\'s')
   results = os.path.join(DISK_STORE_DIR, 'demo_out')
   t0 = time.perf_counter()
-  driver_report('weatherbenchx_tpu_torch.apps.run_benchmark_evaluation', [
+  run_main('weatherbenchx_tpu_torch.apps.run_benchmark_evaluation', [
       '--prediction=hres', f'--prediction_path={demo}/hres.npz',
       f'--target_path={demo}/era5.npz', f'--climatology_path={demo}/clim.npz',
       '--resolution=64x32', '--year=2020', '--init_time_start=2020-01-01',

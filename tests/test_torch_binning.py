@@ -7,6 +7,8 @@ years, year ends and ISO week 53. String labels survive a state's
 ``to_dataset`` / ``save`` / ``load`` and the conversion of a JAX state.
 """
 
+import datetime
+
 import jax.numpy as jnp
 import numpy as np
 import pandas as pd
@@ -206,12 +208,142 @@ def test_extract_time_unit_matches_pandas(unit):
   np.testing.assert_array_equal(got, np.asarray(want, np.int64))
 
 
-@pytest.mark.parametrize('unit', _PANDAS_UNITS)
+# Every unit the JAX package's function (pandas.DatetimeIndex attributes)
+# takes on these dates, written out: the port's list, then the 14 it
+# refused before (bool, int and object units).
+_JAX_UNITS = _PANDAS_UNITS + [
+    'microsecond', 'nanosecond', 'days_in_month', 'daysinmonth',
+    'is_leap_year', 'is_month_start', 'is_month_end', 'is_quarter_start',
+    'is_quarter_end', 'is_year_start', 'is_year_end', 'date', 'time',
+    'timetz']
+
+# Sub-second parts on month, quarter and year ends and starts, leap days
+# and the century years 1900 (not leap), 2000 (leap) and 2100 (not leap).
+_SUBSECOND_DATES = np.array([
+    '1900-01-01T00:00:00.000000001', '1900-02-28T23:59:59.999999999',
+    '1900-03-01T12:30:00.5', '2000-02-29T23:59:59.999999', '2000-03-31',
+    '2020-06-30T18:00:00.000001', '2020-07-01T00:00:00.123456789',
+    '2020-09-30T23:59:59.9', '2020-12-31T23:59:59.999999999',
+    '2021-01-01T00:00:00.000000999', '2100-02-28T06:00:00.25',
+    '2100-12-31T00:00:00.000999'], dtype='datetime64[ns]')
+
+
+@pytest.mark.parametrize('unit', _JAX_UNITS)
 def test_extract_time_unit_matches_jax_package(unit):
-  np.testing.assert_array_equal(tb._extract_time_unit(_DATES, unit),
-                                jb._extract_time_unit(_DATES, unit))
+  for dates in (_DATES, _SUBSECOND_DATES):
+    got, want = (tb._extract_time_unit(dates, unit),
+                 jb._extract_time_unit(dates, unit))
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype.kind == {'i': 'i', 'b': 'b', 'O': 'O'}[want.dtype.kind]
+    if got.dtype.kind == 'O':
+      assert [type(g) for g in got] == [type(w) for w in want]
   grid = _DATES[:12].reshape(3, 4)  # a 2-D coord keeps its shape
   assert tb._extract_time_unit(grid, unit).shape == (3, 4)
+  np.testing.assert_array_equal(tb._extract_time_unit(grid, unit),
+                                jb._extract_time_unit(grid, unit))
+
+
+def _subsecond_stat(mod):
+  return mod.DimArray(
+      np.zeros((len(_SUBSECOND_DATES), 2), np.float32), ('init_time', 'x'),
+      {'init_time': _SUBSECOND_DATES, 'x': np.arange(2)})
+
+
+# One unit of each kind, with sets of its own labels (and one that no
+# label matches: a date set given as a string).
+_UNIT_KIND_SETS = {
+    'microsecond': {'zero': [0], 'half': [500000, 250000]},
+    'is_month_end': {'end': [True], 'not_end': False},
+    'date': {'leap_day': [datetime.date(2000, 2, 29)],
+             'as_string': ['2000-02-29']},
+    'time': {'midnight': datetime.time(0, 0),
+             'late': [datetime.time(23, 59, 59, 999999)]},
+}
+
+
+@pytest.mark.parametrize('global_bin', [False, True])
+@pytest.mark.parametrize('unit', sorted(_UNIT_KIND_SETS))
+def test_time_unit_binnings_of_each_kind_match_jax(unit, global_bin):
+  got = tb.ByTimeUnit(unit, 'init_time', global_bin).create_bin_mask(
+      _subsecond_stat(td))
+  want = jb.ByTimeUnit(unit, 'init_time', global_bin).create_bin_mask(
+      _subsecond_stat(jd))
+  _same_mask(got, want)
+  assert got.sizes[f'init_time_{unit}'] > 1 + global_bin
+  sets = _UNIT_KIND_SETS[unit]
+  got = tb.ByTimeUnitSets(sets, unit, 'init_time',
+                          add_global_bin=global_bin).create_bin_mask(
+                              _subsecond_stat(td))
+  want = jb.ByTimeUnitSets(sets, unit, 'init_time',
+                           add_global_bin=global_bin).create_bin_mask(
+                               _subsecond_stat(jd))
+  _same_mask(got, want)
+  assert got.values[0].any()
+
+
+def _unit_state(agg_mod, b, m, unit):
+  stat = _subsecond_stat(m)
+  stat = stat.copy(data=np.arange(stat.size, dtype=np.float32).reshape(
+      stat.shape)) if m is td else m.DimArray(
+          np.arange(24, dtype=np.float32).reshape(12, 2), stat.dims,
+          stat.coords)
+  return agg_mod.Aggregator(
+      reduce_dims=['x'], bin_by=[b.ByTimeUnit(unit, 'init_time')]
+  ).aggregate_statistics({'S': {'v': stat}})
+
+
+@pytest.mark.parametrize('suffix', ['.npz', '.wbx', '.zarr', '.nc'])
+@pytest.mark.parametrize('unit', ['microsecond', 'is_year_end'])
+def test_int_and_bool_unit_labels_survive_a_save_as_in_jax(tmp_path, unit,
+                                                          suffix):
+  got = _unit_state(aggregation, tb, td, unit)
+  want = _unit_state(j_aggregation, jb, jd, unit)
+  got.save(str(tmp_path / f'port{suffix}'))
+  want.save(str(tmp_path / f'jax{suffix}'))
+  name = f'init_time_{unit}'
+  for path in (f'port{suffix}', f'jax{suffix}'):
+    back = aggregation.AggregationState.load(str(tmp_path / path))
+    labels = back.sum_weights['S']['v'].coord_values(name)
+    j_back = j_aggregation.AggregationState.load(str(tmp_path / path))
+    np.testing.assert_array_equal(
+        labels, np.asarray(j_back.sum_weights['S']['v'].coords[name].values))
+    np.testing.assert_array_equal(
+        labels, np.asarray(want.sum_weights['S']['v'].coords[name].values))
+    np.testing.assert_array_equal(
+        back.sum_weighted_statistics['S']['v'].values,
+        got.sum_weighted_statistics['S']['v'].values)
+
+
+@pytest.mark.parametrize('unit', ['date', 'time'])
+def test_object_unit_labels_save_and_refuse_as_in_jax(tmp_path, unit):
+  """Date and time labels are object arrays: .npz and zarr write them and
+  refuse to read them back, .nc refuses to write them, in both packages
+  with ValueError. The port's .wbx refuses to write them, where the JAX
+  package's writes the objects' addresses, which another process reads
+  into a crash."""
+  got = _unit_state(aggregation, tb, td, unit)
+  want = _unit_state(j_aggregation, jb, jd, unit)
+  name = f'init_time_{unit}'
+  np.testing.assert_array_equal(
+      got.sum_weights['S']['v'].coord_values(name),
+      np.asarray(want.sum_weights['S']['v'].coords[name].values))
+  for suffix in ('.npz', '.zarr'):
+    got.save(str(tmp_path / f'port{suffix}'))
+    want.save(str(tmp_path / f'jax{suffix}'))
+    for path in (f'port{suffix}', f'jax{suffix}'):
+      with pytest.raises(ValueError):
+        aggregation.AggregationState.load(str(tmp_path / path))
+      with pytest.raises(ValueError):
+        j_aggregation.AggregationState.load(str(tmp_path / path))
+  for state in (got, want):
+    with pytest.raises(ValueError, match='NetCDF 3'):
+      state.save(str(tmp_path / 'x.nc'))
+  with pytest.raises(ValueError, match='object array'):
+    got.save(str(tmp_path / 'port.wbx'))
+  assert not (tmp_path / 'port.wbx').exists()
+  want.save(str(tmp_path / 'jax.wbx'))  # the addresses: read them nowhere
+  with pytest.raises(ValueError, match='object array'):
+    aggregation.AggregationState.load(str(tmp_path / 'jax.wbx'))
 
 
 @pytest.mark.parametrize('unit', ['second', 'minute', 'hour', 'day', 'week',

@@ -915,11 +915,13 @@ def test_two_ranks_sharing_the_card_with_longitude_sharded(cuda):
 
 
 @pytest.mark.parametrize('family', ['config', 'wrappers', 'spatial_rank',
-                                    'seeps', 'large_k'])
+                                    'seeps', 'large_k', 'time_bins',
+                                    'sparse', 'dispatch', 'inference',
+                                    'large_members'])
 def test_parity_fuzz_on_the_card_matches_the_cpu(cuda, family):
   """Ten seeds of a fuzz family on the card, each held to its CPU run (the
-  large-K family to float64); the ensemble configs launch their
-  kernels."""
+  large-K family to float64, large_members to float64 too); the ensemble
+  configs launch their kernels."""
   from weatherbenchx_tpu_torch import parity_fuzz
   failures = []
   if family == 'large_k':
@@ -931,6 +933,9 @@ def test_parity_fuzz_on_the_card_matches_the_cpu(cuda, family):
   if family == 'config':
     assert report['launches']['fused_ensemble_stats'] > 0
     assert report['launches']['pairwise_cross_sum'] > 0
+  if family == 'large_members':
+    assert report['launches']['fused_ensemble_stats'] > 0
+    assert report['max_gap_float64'] <= 1e-3
 
 
 # -- the merge sort past one point's block sort (58,113..2^20 members) -------

@@ -166,5 +166,14 @@ def test_cli_runs_on_the_cpu():
   assert out.returncode == 0, out.stderr[-2000:]
   report = json.loads(out.stdout.splitlines()[0])
   assert report['failures'] == 0 and report['large_k_seeds'] == 2
-  assert set(report['families']) == set(parity_fuzz.FAMILIES) | {'large_k'}
+  assert set(report['families']) == (set(parity_fuzz.FAMILIES)
+                                     | set(parity_fuzz.LAYER_FAMILIES)
+                                     | {'large_k'})
   assert all(f['configs'] == 2 for f in report['families'].values())
+
+
+def test_family_seeds_must_name_a_drawn_family(capsys):
+  with pytest.raises(SystemExit):
+    parity_fuzz.main(['--device', 'cpu', '--families', 'dispatch',
+                      '--family_seeds', 'sparse=2'])
+  assert "not in --families: ['sparse']" in capsys.readouterr().err

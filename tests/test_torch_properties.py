@@ -12,7 +12,8 @@ import pytest
 import torch
 
 hypothesis = pytest.importorskip('hypothesis')
-from hypothesis import given, settings, strategies as st  # noqa: E402
+from hypothesis import example, given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
 
 from weatherbenchx_tpu import codecs as j_codecs  # noqa: E402
 from weatherbenchx_tpu_torch import codecs, darray, zarr_io  # noqa: E402
@@ -114,8 +115,13 @@ def _dimarray(draw, dims_from=_DIM_POOL, max_len=5):
   dims = tuple(names[:k])
   shape = tuple(draw(st.integers(1, max_len)) for _ in dims)
   seed = draw(st.integers(0, 2**31 - 1))
-  rng = np.random.default_rng(seed)
-  data = rng.standard_normal(shape).astype(np.float32)
+  return _normal_dimarray(dims, shape, seed)
+
+
+def _normal_dimarray(dims, shape, seed) -> DimArray:
+  """Standard normals in float32 from a seed, integer coords."""
+  data = np.random.default_rng(seed).standard_normal(shape).astype(
+      np.float32)
   coords = {d: Coord((d,), np.arange(n)) for d, n in zip(dims, shape)}
   return DimArray(data, dims, coords)
 
@@ -148,14 +154,50 @@ def test_binary_op_broadcasts_by_name(x, y):
   np.testing.assert_allclose(_np(got), xe + ye, rtol=1e-6)
 
 
+def _assert_mean_close(got: np.ndarray, x: np.ndarray, axis: int) -> None:
+  """A float32 mean held to the float64 mean of the same float32 inputs,
+  within rtol 1e-5 plus the float32 sum's error bound, n 2^-24 mean(|x|)
+  over the reduced axis with n its terms. numpy's own float32 mean is not
+  the reference: in a cancelling sum its rounding misses the exact mean
+  as much as any other order does."""
+  x64 = x.astype(np.float64)
+  want = x64.mean(axis=axis)
+  bound = x.shape[axis] * 2.0**-24 * np.abs(x64).mean(axis=axis)
+  err = np.abs(got.astype(np.float64) - want)
+  limit = 1e-5 * np.abs(want) + bound
+  if not (err <= limit).all():
+    raise AssertionError(f'mean off by {err.max():.3e}, beyond '
+                         f'{limit[err > limit].min():.3e}')
+
+
+# DIM_PICK % len(dims) is uniform over 1, 2 or 3 dims.
+_DIM_PICK = st.integers(0, 5)
+
+
 @settings(**_SETTINGS)
-@given(x=_dimarray(), data=st.data())
-def test_reduce_then_transpose_matches_numpy(x, data):
-  dim = data.draw(st.sampled_from(x.dims))
+@given(x=_dimarray(), pick=_DIM_PICK)
+# A draw that missed numpy's float32 mean (-1.866e-3) by 4.76e-8, beyond
+# rtol 1e-5; 2.4e-8 from the float64 mean, within its bound of 3.6e-7.
+@example(x=_normal_dimarray(('a', 'b', 'c'), (5, 5, 5), 104021), pick=0)
+def test_reduce_then_transpose_matches_numpy(x, pick):
+  dim = x.dims[pick % len(x.dims)]
   got = x.mean(dim)
-  np.testing.assert_allclose(_np(got), _np(x).mean(axis=x.dims.index(dim)),
-                             rtol=1e-5)
+  _assert_mean_close(_np(got), _np(x), x.dims.index(dim))
   assert dim not in got.dims
+
+
+@settings(**_SETTINGS)
+@given(x=_dimarray(), pick=_DIM_PICK, sign=st.sampled_from([-1.0, 1.0]))
+def test_mean_check_refuses_twice_its_bound(x, pick, sign):
+  """A mean moved by twice the check's limit fails the check."""
+  axis = pick % len(x.dims)
+  x32 = _np(x)
+  x64 = x32.astype(np.float64)
+  want = x64.mean(axis=axis)
+  limit = 1e-5 * np.abs(want) + (x32.shape[axis] * 2.0**-24
+                                 * np.abs(x64).mean(axis=axis))
+  with pytest.raises(AssertionError, match='mean off by'):
+    _assert_mean_close(want + sign * 2 * limit, x32, axis)
 
 
 @settings(**_SETTINGS)

@@ -10,6 +10,7 @@ torch where its int-seconds coord lives (CPU or CUDA tensor, or numpy).
 """
 
 import abc
+import datetime
 from typing import Any, Hashable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -269,13 +270,18 @@ _TIMEDELTA_UNIT_SECONDS = {'second': 1, 'minute': 60, 'hour': 3600,
 
 
 def _extract_time_unit(values: np.ndarray, unit: str) -> np.ndarray:
-  """A time unit of datetime64 or timedelta64 values, as int64, in numpy.
+  """A time unit of datetime64 or timedelta64 values, in numpy.
 
-  datetime64: ``pandas.DatetimeIndex``'s attributes of the same names
-  (year, month, day, hour, minute, second, dayofyear / day_of_year,
-  dayofweek / day_of_week / weekday with Monday 0, quarter, and the ISO
-  week as week / weekofyear). timedelta64: whole multiples of second,
-  minute, hour, day, week or year (365 days), floored.
+  datetime64: ``pandas.DatetimeIndex``'s attributes of the same names, with
+  equal values: as int64 year, month, day, hour, minute, second,
+  microsecond, nanosecond, dayofyear / day_of_year, dayofweek /
+  day_of_week / weekday with Monday 0, quarter, days_in_month /
+  daysinmonth, and the ISO week as week / weekofyear; as bool
+  is_leap_year, is_month_start, is_month_end, is_quarter_start,
+  is_quarter_end, is_year_start and is_year_end; as object arrays date
+  (``datetime.date``) and time / timetz (``datetime.time`` to the
+  microsecond, without a time zone). timedelta64: whole multiples of
+  second, minute, hour, day, week or year (365 days), floored.
   """
   values = np.asarray(values)
   if values.dtype.kind == 'm':
@@ -306,6 +312,34 @@ def _extract_time_unit(values: np.ndarray, unit: str) -> np.ndarray:
         'timedelta64[D]')
     return (dayofyear_and_hour(thursday)[0] - 1) // 7 + 1
 
+  def days_in_month():
+    first = values.astype('datetime64[M]')
+    return ((first + 1).astype('datetime64[D]')
+            - first.astype('datetime64[D]')).astype(np.int64)
+
+  def is_leap_year():
+    year = values.astype('datetime64[Y]').astype(np.int64) + 1970
+    return (year % 4 == 0) & ((year % 100 != 0) | (year % 400 == 0))
+
+  def is_start(months: int):
+    """The first day of a span of ``months`` months from January."""
+    return (since('D', 'M') == 0) & ((month() - 1) % months == 0)
+
+  def is_end(months: int):
+    """The last day of a span of ``months`` months from January."""
+    return (since('D', 'M') + 1 == days_in_month()) & (month() % months == 0)
+
+  def time_of_day():
+    micros = since('us', 'D')
+    seconds, us = np.divmod(micros, 1_000_000)
+    minutes, s = np.divmod(seconds, 60)
+    h, m = np.divmod(minutes, 60)
+    out = np.empty(values.shape, dtype=object)
+    out.reshape(-1)[:] = [datetime.time(*t) for t in zip(
+        h.reshape(-1).tolist(), m.reshape(-1).tolist(),
+        s.reshape(-1).tolist(), us.reshape(-1).tolist())]
+    return out
+
   extract = {
       'year': lambda: values.astype('datetime64[Y]').astype(np.int64) + 1970,
       'month': month,
@@ -315,17 +349,31 @@ def _extract_time_unit(values: np.ndarray, unit: str) -> np.ndarray:
       'second': lambda: since('s', 'm'),
       'dayofyear': lambda: dayofyear_and_hour(values)[0],
       'dayofweek': weekday,
+      'microsecond': lambda: since('us', 's'),
+      'nanosecond': lambda: since('ns', 'us'),
       'quarter': lambda: (month() - 1) // 3 + 1,
       'week': iso_week,
+      'days_in_month': days_in_month,
+      'is_leap_year': is_leap_year,
+      'is_month_start': lambda: is_start(1),
+      'is_month_end': lambda: is_end(1),
+      'is_quarter_start': lambda: is_start(3),
+      'is_quarter_end': lambda: is_end(3),
+      'is_year_start': lambda: is_start(12),
+      'is_year_end': lambda: is_end(12),
+      'date': lambda: values.astype('datetime64[D]').astype(object),
+      'time': time_of_day,
   }
   aliases = {'day_of_year': 'dayofyear', 'day_of_week': 'dayofweek',
-             'weekday': 'dayofweek', 'weekofyear': 'week'}
+             'weekday': 'dayofweek', 'weekofyear': 'week',
+             'daysinmonth': 'days_in_month', 'timetz': 'time'}
   unit = aliases.get(unit, unit)
   if unit not in extract:
     raise ValueError(
         f'Unsupported unit for datetime: {unit!r}; one of '
         f'{sorted(extract) + sorted(aliases)}')
-  return extract[unit]().astype(np.int64)
+  out = extract[unit]()
+  return out if out.dtype.kind in 'bO' else out.astype(np.int64)
 
 
 class ByTimeUnit(Binning):
@@ -356,12 +404,14 @@ def _as_members(s: Any) -> list:
 
 
 def _set_masks(values: np.ndarray, sets: Mapping[str, Any],
-               add_set_complements: bool, add_global_bin: bool):
-  """(masks, labels): membership of ``values`` in each named set."""
+               add_set_complements: bool, add_global_bin: bool,
+               as_strings: bool = True):
+  """(masks, labels): membership of ``values`` in each named set; with
+  ``as_strings``, object values and members compare as their strings."""
   masks, labels = [], []
   for name, s in sets.items():
     members = np.array(_as_members(s))
-    if members.dtype.kind == 'O' or values.dtype.kind == 'O':
+    if as_strings and (members.dtype.kind == 'O' or values.dtype.kind == 'O'):
       # np.isin on object arrays compares element by element in Python;
       # typed arrays take the sorting path.
       members = members.astype(str)
@@ -403,8 +453,10 @@ class ByTimeUnitSets(Binning):
     c = statistic.coords[self.dim]
     unit_values = _extract_time_unit(
         statistic.coord_values(self.dim), self.unit)
+    # Dates and times compare as objects, as the JAX package's np.isin
+    # compares them: a string member matches no date.
     masks, labels = _set_masks(unit_values, self.sets, False,
-                               self.add_global_bin)
+                               self.add_global_bin, as_strings=False)
     coords = {self.bin_dim_name: Coord((self.bin_dim_name,), labels)}
     return DimArray(masks, (self.bin_dim_name,) + tuple(c.dims),
                     _coords_within(coords, statistic.coords, tuple(c.dims)))

@@ -268,6 +268,13 @@ class InterpolateToReferenceCoords(Interpolation):
 
     if reference.size == 0:
       da_dims_to_retain = [d for d in da.dims if d not in dims]
+      shared = [d for d in da_dims_to_retain if d in reference.dims]
+      if shared:
+        # The JAX package builds an array with these dims twice and fails
+        # in the statistics; upstream's expand_dims raises here.
+        raise ValueError(
+            f'empty reference chunk with dims {reference.dims}: cannot '
+            f'expand it by {shared}, which it already has')
       out = reference
       for d in reversed(da_dims_to_retain):
         out = out.expand_dims({d: da.sizes[d]})

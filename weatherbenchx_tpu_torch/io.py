@@ -116,8 +116,8 @@ def loads_dataset(data: bytes) -> dict[str, DimArray]:
     def get(key):
       b = manifest['blocks'][key]
       n = int(np.prod(b['shape'], dtype=np.int64))
-      arr = np.frombuffer(data, np.dtype(b['dtype']), count=n,
-                          offset=b['offset'])
+      arr = np.frombuffer(data, _block_dtype(b['dtype'], key, '.wbx bytes'),
+                          count=n, offset=b['offset'])
       return arr.reshape(tuple(b['shape'])).copy()  # writable
 
     return _assemble(manifest, get)
@@ -197,6 +197,17 @@ def _is_netcdf(path: str) -> bool:
     return False
 
 
+def _block_dtype(dtype, key: str, path: str) -> np.dtype:
+  """A .wbx block's dtype; object arrays are refused: their bytes are the
+  objects' addresses in the writing process, which another process would
+  read as objects and crash on."""
+  dtype = np.dtype(dtype)
+  if dtype.hasobject:
+    raise ValueError(f'{path}: block {key!r} is an object array; the .wbx '
+                     'container stores numeric, bool and string arrays only')
+  return dtype
+
+
 def save_dataset_wbx(path: str, dataset: Dataset, threads: int = 8) -> None:
   from weatherbenchx_tpu_torch import native
 
@@ -205,6 +216,7 @@ def save_dataset_wbx(path: str, dataset: Dataset, threads: int = 8) -> None:
   offset = _ALIGN  # first block after the (padded) header
   buffers, offsets = [], []
   for key, arr in arrays.items():
+    _block_dtype(arr.dtype, key, path)
     if not arr.flags.c_contiguous:
       # (conditional: ascontiguousarray would promote 0-d arrays to 1-d)
       arr = np.ascontiguousarray(arr).reshape(arr.shape)
@@ -249,7 +261,8 @@ def load_dataset_wbx(path: str, threads: int = 8) -> dict[str, DimArray]:
   manifest = _read_wbx_manifest(path)
   blocks = manifest['blocks']
   buffers = {
-      key: np.empty(tuple(b['shape']), dtype=np.dtype(b['dtype']))
+      key: np.empty(tuple(b['shape']), dtype=_block_dtype(b['dtype'], key,
+                                                          path))
       for key, b in blocks.items()
   }
   nonempty = [k for k in blocks if buffers[k].nbytes > 0]
@@ -295,8 +308,8 @@ def open_dataset(path: str) -> dict[str, DimArray]:
 
     def get(key):
       b = manifest['blocks'][key]
-      view = lazy.LazyArray(lazy.BlockSource(path, b['offset'], b['shape'],
-                                             b['dtype']))
+      view = lazy.LazyArray(lazy.BlockSource(
+          path, b['offset'], b['shape'], _block_dtype(b['dtype'], key, path)))
       # Coordinates are read now: they are small, and selection needs them.
       return view.read() if is_coord(key) else view
 

@@ -26,18 +26,41 @@ Families (``draw(family, seed)``):
   land parts, area weights, 3-5 statistics x 2-4 leads, held to a float64
   contraction of the same weights and bin masks (``large_k_check``).
 
+The layers' families (``LAYER_FAMILIES``), each a layer the four above
+never draw:
+
+* ``time_bins``: ``ByTimeUnit`` / ``ByTimeUnitSets`` over every time unit
+  both packages take (datetimes from 1900 to 2100 with sub-second parts,
+  calendar edges, timedelta leads), ``ByTimeUnitFromSeconds``,
+  ``ByCoordBins`` (edges on, between and outside the values),
+  ``BySets`` (string and integer sets, complements, global bins), stacked
+  with regions;
+* ``sparse``: grid forecasts to 0-40 stations through the loaders'
+  ``load_chunk`` (a station table or an (init, lead, station) block;
+  linear or nearest, wrap, extrapolation, the altitude adjustment, NaN
+  masks, ``pad_index_multiple``, station-name networks);
+* ``dispatch``: 3-7 chunks through ``EvaluationPipeline`` at 1-8 chunks a
+  dispatch, their signature changing mid-stream (``stream_loader``);
+* ``inference``: one of the six inference methods (and its baseline
+  comparison) on a float64 AR(1) state over init times, held at
+  ``INFERENCE_RTOL``;
+* ``large_members``: CRPS, spread/skill and ensemble-mean RMSE at 65 to
+  70,000 members (the sorted runs, the block sort, the merge sort), ties,
+  NaN and +-inf members near 280 K; also held to ``float64_reference``.
+
 Seeds correspond to the JAX package's: the four small families draw call
 for call as ``TestRandomizedConfigParity`` in
 ``tests/test_reference_parity.py`` does (its grid, times, members and
 climatology axes are copied here), and ``large_k`` as
 ``tools/tpu_parity_fuzz.py``, so seed N here is seed N there. A drawn
-``Spec`` is plain data (numpy arrays and ``Call`` trees naming
-constructors by module path), so the same draw builds in any package with
-this package's module layout (``build``).
+``Spec`` is plain data (numpy arrays, dates and times, and ``Call`` trees
+naming constructors by module path), so the same draw builds and runs in
+any package with this package's module layout (``build``, ``run_in``).
 
 Usage (the card by default; ``--device cuda`` raises without one):
 
-  python -m weatherbenchx_tpu_torch.parity_fuzz --seeds 200
+  python -m weatherbenchx_tpu_torch.parity_fuzz --seeds 200 \
+      [--families time_bins,dispatch --family_seeds dispatch=20]
 
 prints one JSON line (per family: configs, failures, the largest gap,
 seconds on the device and on the CPU, kernel launches and the member
@@ -49,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import importlib
 import json
 import subprocess
@@ -61,7 +85,6 @@ import numpy as np
 import torch
 
 import weatherbenchx_tpu_torch
-from weatherbenchx_tpu_torch import aggregation
 from weatherbenchx_tpu_torch.darray import DimArray
 from weatherbenchx_tpu_torch.ops import crps_pairwise
 
@@ -101,7 +124,8 @@ REGIONS = {'tropics': ((-20, 20), (0, 360)), 'nh': ((20, 90), (0, 360))}
 
 @dataclasses.dataclass(frozen=True)
 class Field:
-  """An array with its dims and its 1-D dim coords (numpy)."""
+  """An array with its dims and coords (numpy): a dim's values, or
+  ``(dims, values)`` for a coord over other dims."""
   values: np.ndarray
   dims: tuple
   coords: dict
@@ -405,9 +429,544 @@ def draw_large_k(seed: int) -> LargeK:
   return LargeK(agg, stats)
 
 
+# -- the layers' draws: binnings, sparse, dispatch, inference, large M ---------
+
+LAYER_FAMILIES = ('time_bins', 'sparse', 'dispatch', 'inference',
+                  'large_members')
+# Inference runs in float64 on both sides (tests/test_torch_inference.py).
+INFERENCE_ATOL, INFERENCE_RTOL = 1e-12, 1e-9
+TOLERANCES = {'inference': (INFERENCE_ATOL, INFERENCE_RTOL)}
+
+# Every datetime unit that both packages' _extract_time_unit take (the JAX
+# package's pandas attributes; the ISO week is the port's alone).
+DATETIME_UNITS = (
+    'year', 'month', 'day', 'hour', 'minute', 'second', 'microsecond',
+    'nanosecond', 'dayofyear', 'day_of_year', 'dayofweek', 'day_of_week',
+    'weekday', 'quarter', 'days_in_month', 'daysinmonth', 'is_leap_year',
+    'is_month_start', 'is_month_end', 'is_quarter_start', 'is_quarter_end',
+    'is_year_start', 'is_year_end', 'date', 'time', 'timetz')
+TIMEDELTA_UNITS = ('second', 'minute', 'hour', 'day', 'week', 'year')
+# Fixed sizes: the draws vary the values that the binnings read.
+TIME_BINS_INITS, TIME_BINS_LEADS = 6, 3
+SMALL_LATS = np.linspace(-90, 90, 7)
+SMALL_LONS = np.linspace(0, 360, 12, endpoint=False)
+DAY_NS = 86_400 * 10**9
+# Days at the calendar's edges: month, quarter and year ends and starts.
+EDGE_DAYS = ('01-01', '02-28', '03-01', '03-31', '04-01', '06-30', '07-01',
+             '09-30', '10-01', '11-30', '12-01', '12-31')
+# One metric set a kind for the layers (the config family draws the
+# subsets): the JAX package compiles each op of a metric again for every
+# new shape, and these families vary the shapes.
+LAYER_DET_METRICS = {'rmse': Call('metrics.deterministic.RMSE'),
+                     'bias': Call('metrics.deterministic.Bias')}
+LAYER_ENS_METRICS = ('crps', 'unbiased_spread_skill')
+
+
+def ens_metrics(r) -> dict:
+  names = r.choice(ENS_METRICS, size=int(r.integers(1, 4)), replace=False)
+  return {str(n): config_metric(str(n), 0) for n in names}
+
+
+def draw_datetimes(r, n: int) -> np.ndarray:
+  """n datetime64[ns] from 1900 to 2100 with sub-second parts: half
+  anywhere, half on the calendar's edges (leap days included) at
+  midnight, a nanosecond before the next, or any instant of the day."""
+  lo = np.datetime64('1900-01-01', 'ns').astype(np.int64)
+  hi = np.datetime64('2101-01-01', 'ns').astype(np.int64)
+  ns = r.integers(lo, hi, n)
+  for i in range(n // 2, n):
+    year = int(r.integers(1900, 2101))
+    day = str(r.choice(EDGE_DAYS))
+    if r.integers(4) == 0 and year % 4 == 0 and (
+        year % 100 or year % 400 == 0):
+      day = '02-29'
+    start = np.datetime64(f'{year}-{day}', 'ns').astype(np.int64)
+    ns[i] = start + int(r.choice([0, DAY_NS - 1, int(r.integers(DAY_NS))]))
+  return ns.astype('datetime64[ns]')
+
+
+def draw_leads(r, n: int) -> np.ndarray:
+  """Leads up to 15 days, whole hours or with sub-second parts."""
+  ns = np.where(r.integers(2, size=n) == 0,
+                r.integers(0, 360, n) * 3_600 * 10**9,
+                r.integers(0, 15 * DAY_NS, n))
+  return ns.astype('timedelta64[ns]')
+
+
+def unit_members(r, values: np.ndarray, absent) -> list:
+  """1-3 members drawn from a unit's values (Python scalars, dates or
+  times), now and then one that no value has."""
+  unique = list(dict.fromkeys(values.reshape(-1).tolist()))
+  k = int(r.integers(1, min(3, len(unique)) + 1))
+  members = [unique[i] for i in r.choice(len(unique), size=k, replace=False)]
+  if absent is not None and r.integers(3) == 0:
+    members.append(absent)
+  return members
+
+
+def time_binning(which: int, r, inits, coords) -> Call:
+  """One of the seven binnings over the drawn coords."""
+  from weatherbenchx_tpu_torch.binning import _extract_time_unit
+  glob = bool(r.integers(2))
+  if which == 0:
+    return Call('binning.ByTimeUnit', dict(
+        unit=str(r.choice(DATETIME_UNITS)), time_dim='init_time',
+        add_global_bin=glob))
+  if which == 1:
+    return Call('binning.ByTimeUnit', dict(
+        unit=str(r.choice(TIMEDELTA_UNITS)), time_dim='lead_time',
+        add_global_bin=glob))
+  if which == 2:
+    unit = str(r.choice(DATETIME_UNITS))
+    values = _extract_time_unit(inits, unit)
+    absent = -1 if values.dtype.kind == 'i' else None
+    if unit == 'date':
+      absent = datetime.date(1850, 1, 1)
+    sets = {}
+    for k in range(int(r.integers(1, 4))):
+      members = unit_members(r, values, absent)
+      # A lone member is given bare half the time, as a set may be.
+      bare = len(members) == 1 and r.integers(2)
+      sets[f's{k}'] = members[0] if bare else members
+    return Call('binning.ByTimeUnitSets', dict(
+        sets=sets, unit=unit, dim='init_time', add_global_bin=glob))
+  if which == 3:
+    unit = str(r.choice(['second', 'minute', 'hour', 'day']))
+    seconds = coords['valid_seconds'][1]
+    divisor = {'second': 1, 'minute': 60, 'hour': 3600, 'day': 86400}[unit]
+    bins = None
+    if unit == 'day' or r.integers(2):
+      bins = sorted(set(unit_members(r, seconds // divisor, -10**6)))
+    return Call('binning.ByTimeUnitFromSeconds', dict(
+        unit=unit, time_dim='valid_seconds', bins=bins))
+  if which == 4:
+    values = np.unique(coords['elevation'][1])
+    edges = np.concatenate([
+        r.choice(values, size=min(3, len(values)), replace=False),
+        r.choice(values, size=2) + 50.0, [-1000.0, 5000.0][:int(
+            r.integers(3))]])
+    edges = np.unique(edges)
+    if len(edges) < 2:
+      edges = np.array([-1000.0, 5000.0])
+    return Call('binning.ByCoordBins', dict(
+        dim_name='elevation', bin_edges=edges, add_global_bin=glob))
+  coord = 'zone' if which == 5 else 'band_id'
+  values = coords[coord][1]
+  absent = 'q' if which == 5 else 99
+  sets = {f'{coord}{k}': unit_members(r, values, absent)
+          for k in range(int(r.integers(1, 4)))}
+  return Call('binning.BySets', dict(
+      sets=sets, coord_name=coord, bin_dim_name=f'{coord}_set',
+      add_set_complements=bool(r.integers(2)), add_global_bin=glob))
+
+
+def draw_time_bins(seed: int) -> Spec:
+  """The host binnings, stacked: the time units of a datetime (every unit
+  of both packages) or a timedelta coord, sets of them, int seconds, edge
+  bins over a float coord, string and integer sets, and a region bin."""
+  r = np.random.default_rng(20_000 + seed)
+  inits = draw_datetimes(r, TIME_BINS_INITS)
+  leads = draw_leads(r, TIME_BINS_LEADS)
+  nlat, nlon = len(SMALL_LATS), len(SMALL_LONS)
+  coords = {
+      'init_time': inits, 'lead_time': leads, 'latitude': SMALL_LATS,
+      'longitude': SMALL_LONS,
+      'valid_seconds': (('init_time', 'lead_time'), r.integers(
+          -30 * 86400, 30 * 86400, (len(inits), len(leads)))),
+      'elevation': (('latitude', 'longitude'), 100.0 * r.integers(
+          -2, 31, (nlat, nlon))),
+      'zone': (('longitude',), r.choice(['a', 'b', 'c', 'd'], nlon)),
+      'band_id': (('latitude',), r.integers(0, 4, nlat)),
+  }
+  dims = ('init_time', 'lead_time', 'latitude', 'longitude')
+  shape = (len(inits), len(leads), nlat, nlon)
+
+  def data(nan: bool) -> Field:
+    arr = r.standard_normal(shape).astype(np.float32)
+    if nan:
+      arr[tuple(r.integers(0, n) for n in shape)] = np.nan
+    return Field(arr, dims, coords)
+  nan = bool(r.integers(3) == 0)
+  kinds = sorted(int(k) for k in r.choice(7, size=int(r.integers(1, 3)),
+                                           replace=False))
+  bin_by = [time_binning(k, r, inits, coords) for k in kinds]
+  if r.integers(2):
+    bin_by.append(regions())
+  reduce = ['latitude', 'longitude']
+  reduce += [d for d in ('init_time', 'lead_time') if r.integers(2)]
+  kw = dict(reduce_dims=reduce, bin_by=bin_by, skipna=bool(r.integers(2)))
+  if r.integers(2):
+    kw['weigh_by'] = []
+  return Spec('time_bins', seed, '+'.join(c.path.split('.')[-1]
+                                          for c in bin_by), (Case(
+      dict(LAYER_DET_METRICS), area_aggregator(**kw),
+      {'2m_temperature': data(nan)}, {'2m_temperature': data(nan)}),))
+
+
+# 0 stations only in a station table: both packages refuse an empty
+# (init, lead, station) block (test_torch_parity_fuzz_layers.py).
+STATION_COUNTS = (0, 1, 7, 40)
+SPARSE_LATS = np.linspace(-90, 90, 13)
+SPARSE_LONS = np.linspace(0, 360, 24, endpoint=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class Loaded:
+  """One chunk through the loaders' ``load_chunk``: the targets (served
+  by ``stream_loader`` with ``targets_loader_kwargs``), then the
+  predictions against them as the reference; then
+  ``compute_metric_values_for_single_chunk``."""
+  metrics: dict
+  aggregator: Call
+  predictions_loader: Call
+  targets: dict
+  targets_loader_kwargs: dict
+  init_times: np.ndarray
+  lead_times: np.ndarray
+
+
+def draw_sparse(seed: int) -> Spec:
+  """Grid forecasts interpolated to 0-40 stations (linear or nearest,
+  with and without the longitude wrap and extrapolation, with and without
+  the altitude adjustment), NaN stations, NaN masks, padded ``index`` and
+  station-name networks. The observations are a station table as the
+  Parquet loaders give it (rows over ``index`` with their init and lead
+  times, interpolated point by point) or a (init, lead, station) block
+  (interpolated over latitude and longitude)."""
+  r = np.random.default_rng(30_000 + seed)
+  layout = str(r.choice(['table', 'block']))
+  # Station counts from a list (the JAX package compiles each op again
+  # for every new count); a block has stations (STATION_BLOCK_EMPTY).
+  n = int(r.choice(STATION_COUNTS[layout == 'block':]))
+  lat = r.uniform(-90, 90, n)
+  lon = r.uniform(-180, 360, n)
+  on_lat = r.integers(3, size=n) == 0
+  lat[on_lat] = r.choice(np.concatenate([[-90.0, 90.0], SPARSE_LATS]),
+                         on_lat.sum())
+  on_lon = r.integers(3, size=n) == 0
+  lon[on_lon] = r.choice(np.concatenate([[0.0, -0.0, 360.0, -180.0],
+                                         SPARSE_LONS]), on_lon.sum())
+  station = dict(latitude=lat, longitude=lon,
+                 elevation=r.uniform(-50, 3000, n),
+                 stationName=np.array([f'ST{i:03d}' for i in range(n)]))
+  inits = np.datetime64('2020-01-01T00', 'ns') + np.arange(2) * np.timedelta64(
+      12, 'h')
+  leads = (np.arange(3) * np.timedelta64(6, 'h')).astype('timedelta64[ns]')
+  if layout == 'table':
+    # One row a (station, init, lead), stations outermost.
+    rows = {k: np.repeat(v, 6) for k, v in station.items()}
+    rows['init_time'] = np.tile(np.repeat(inits, 3), n)
+    rows['lead_time'] = np.tile(leads, 2 * n)
+    obs_dims, obs_shape = ('index',), (6 * n,)
+    obs_coords = {'index': np.arange(6 * n),
+                  **{k: (('index',), v) for k, v in rows.items()}}
+  else:
+    obs_dims, obs_shape = ('init_time', 'lead_time', 'index'), (2, 3, n)
+    obs_coords = {'init_time': inits, 'lead_time': leads,
+                  'index': np.arange(n),
+                  **{k: (('index',), v) for k, v in station.items()}}
+  grid_coords = {'init_time': inits, 'lead_time': leads,
+                 'latitude': SPARSE_LATS, 'longitude': SPARSE_LONS}
+  variables = ['2m_temperature'] + (['10m_wind_speed'] if r.integers(2)
+                                    else [])
+  grid, observations = {}, {}
+  for v in variables:
+    base = 270.0 if v == '2m_temperature' else 8.0
+    grid[v] = Field((base + r.standard_normal(
+        (2, 3, len(SPARSE_LATS), len(SPARSE_LONS)))).astype(np.float32),
+                    ('init_time', 'lead_time', 'latitude', 'longitude'),
+                    grid_coords)
+    obs = (base + r.standard_normal(obs_shape)).astype(np.float32)
+    if n:
+      nan_station = r.integers(4, size=n) == 0  # NaN stations
+      obs[..., np.repeat(nan_station, obs.shape[-1] // n)] = np.nan
+      obs[tuple(r.integers(0, k) for k in obs.shape)] = np.nan
+    observations[v] = Field(obs, obs_dims, obs_coords)
+  method = str(r.choice(['linear', 'nearest']))
+  interp_kw = dict(method=method, wrap_longitude=bool(r.integers(2)),
+                   extrapolate_out_of_bounds=bool(r.integers(2)))
+  if layout == 'block':
+    interp_kw['dims'] = ['latitude', 'longitude']
+  if r.integers(2):
+    elevation = Field(r.uniform(0, 2000, (len(SPARSE_LATS), len(
+        SPARSE_LONS))).astype(str(r.choice(['float32', 'float64']))),
+                      ('latitude', 'longitude'),
+                      {'latitude': SPARSE_LATS, 'longitude': SPARSE_LONS})
+    interp = Call('interpolations.GridToSparseWithAltitudeAdjustment',
+                  dict(grid_elevation=elevation, **interp_kw))
+  else:
+    interp = Call('interpolations.InterpolateToReferenceCoords', interp_kw)
+  masked = bool(r.integers(2))
+  pad = int(r.choice([4, 8, 16])) if masked and r.integers(2) else None
+  loader_kw = dict(add_nan_mask=masked, pad_index_multiple=pad)
+  bin_by = []
+  if n and r.integers(2):
+    names = station['stationName']
+    sets = {f'net{k}': [str(x) for x in r.choice(
+        names, size=int(r.integers(1, n + 1)), replace=False)]
+            for k in range(int(r.integers(1, 3)))}
+    bin_by.append(Call('binning.BySets', dict(
+        sets=sets, coord_name='stationName', bin_dim_name='network',
+        add_set_complements=bool(r.integers(2)),
+        add_global_bin=bool(r.integers(2)))))
+  reduce = ['index'] + (['init_time'] if layout == 'block' and r.integers(2)
+                        else [])
+  aggregator = Call('aggregation.Aggregator', dict(
+      reduce_dims=reduce, bin_by=bin_by, masked=masked,
+      skipna=bool(r.integers(2))))
+  return Spec('sparse', seed, f'{layout}/{interp.path.split(".")[-1]}/'
+              f'{method}', (Loaded(
+                  dict(LAYER_DET_METRICS), aggregator,
+                  Call('data.loaders.PredictionsFromDataset', dict(
+                      ds=grid, interpolation=interp, rename_dimensions=None,
+                      **loader_kw)),
+                  observations, loader_kw, inits, leads),))
+
+
+@dataclasses.dataclass(frozen=True)
+class Stream:
+  """Chunks through an ``EvaluationPipeline``: one init time a chunk,
+  served by ``stream_loader`` by its init time (int ns)."""
+  metrics: dict
+  aggregator: Call
+  predictions: dict
+  targets: dict
+  init_times: np.ndarray
+  lead_times: np.ndarray
+  chunks_per_dispatch: int
+
+
+def draw_dispatch(seed: int) -> Spec:
+  """3-7 chunks whose signature changes mid-stream, one change a seed (a
+  binned coord's values, a mask coord, or float64 data) on and off in
+  random chunks; 1-8 chunks a dispatch."""
+  r = np.random.default_rng(40_000 + seed)
+  n_chunks = int(r.integers(3, 8))
+  ens = bool(r.integers(2))
+  inits = np.datetime64('2020-01-01T00', 'ns') + np.arange(
+      n_chunks) * np.timedelta64(6, 'h')
+  leads = (np.arange(2) * np.timedelta64(6, 'h')).astype('timedelta64[ns]')
+  nlat, nlon = len(SMALL_LATS), len(SMALL_LONS)
+  zones = r.choice(['a', 'b', 'c'], nlon)
+  other_zones = r.choice(['a', 'b', 'c'], nlon)
+  mask = r.random((nlat, nlon)) > 0.2
+  change = str(r.choice(['coord', 'mask'] + ([] if ens else ['dtype'])))
+  variants = ['base', change] + [str(v) for v in r.choice(
+      ['base', change], n_chunks - 2)]
+  r.shuffle(variants)
+  predictions, targets = {}, {}
+  for k, (t, variant) in enumerate(zip(inits, variants)):
+    coords = {'init_time': np.array([t]), 'lead_time': leads,
+              'latitude': SMALL_LATS, 'longitude': SMALL_LONS,
+              'zone': (('longitude',), zones if variant != 'coord'
+                       else other_zones)}
+    shape = (1, len(leads), nlat, nlon)
+    dtype = np.float64 if variant == 'dtype' else np.float32
+    tgt_coords = dict(coords)
+    if variant == 'mask':
+      tgt_coords['mask'] = (('latitude', 'longitude'), mask)
+    pdims = ('init_time', 'lead_time', 'latitude', 'longitude')
+    pshape = shape
+    if ens:
+      pdims = ('number',) + pdims
+      pshape = (N_ENS,) + shape
+    key = int(t.astype(np.int64))
+    predictions[key] = {'2m_temperature': Field(
+        r.standard_normal(pshape).astype(dtype), pdims, coords)}
+    tgt = r.standard_normal(shape).astype(dtype)
+    if r.integers(3) == 0:
+      tgt[0, 0, int(r.integers(nlat)), int(r.integers(nlon))] = np.nan
+    targets[key] = {'2m_temperature': Field(tgt, pdims[-4:], tgt_coords)}
+  bin_by = [Call('binning.BySets', dict(
+      sets={'ab': ['a', 'b'], 'c': 'c'}, coord_name='zone',
+      bin_dim_name='zone_set'))]
+  if r.integers(2):
+    bin_by.append(regions())
+  reduce = ['latitude', 'longitude'] + (['init_time'] if r.integers(2)
+                                        else [])
+  kw = dict(reduce_dims=reduce, bin_by=bin_by, masked=bool(r.integers(2)),
+            skipna=bool(r.integers(2)))
+  if r.integers(2):
+    kw['weigh_by'] = []
+  per_dispatch = int(r.integers(1, 9))
+  metrics = ({n: config_metric(n, 0) for n in LAYER_ENS_METRICS} if ens
+             else dict(LAYER_DET_METRICS))
+  return Spec('dispatch', seed, 'ensemble' if ens else 'deterministic', (
+      Stream(metrics, area_aggregator(**kw), predictions, targets, inits,
+             leads, per_dispatch),))
+
+
+INFERENCE_KINDS = ('rmse_bias', 'acc', 'rev')
+INFERENCE_UNITS = (8, 31, 80)
+INFERENCE_CLR = np.geomspace(0.01, 1, 5)[:-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Inference:
+  """Every inference method (and a baseline comparison) on a state over
+  ``init_time`` units: aggregated here from (predictions, targets) over
+  ``x``, or given as its sums (ACC's anomaly statistics)."""
+  metrics: dict
+  predictions: dict
+  targets: dict
+  baseline: dict
+  sums: tuple
+  methods: tuple
+  replicates: int
+
+
+def ar1(r, shape, phi: float) -> np.ndarray:
+  """AR(1) noise along the first axis (the units), unit variance."""
+  x = r.standard_normal(shape)
+  for i in range(1, shape[0]):
+    x[i] = phi * x[i - 1] + np.sqrt(1 - phi ** 2) * x[i]
+  return x
+
+
+def draw_inference(seed: int) -> Spec:
+  """An AR(1) state of 8-80 units, phi in -0.5..0.95 and an offset: RMSE
+  and bias against a baseline, ACC, or the relative economic value; one
+  of the six methods, with its baseline comparison where there is a
+  baseline."""
+  r = np.random.default_rng(50_000 + seed)
+  kind = INFERENCE_KINDS[seed % 3]
+  # Every (kind, method) pair once in 18 seeds, each kind's methods in
+  # turn; the first 8 seeds take all six methods, REV by bootstrap (its
+  # delta-method t-tests cost the JAX package seconds of compiling).
+  methods = (tuple(METHODS)[(seed // 3 + (0, 4, 3)[seed % 3]) % 6],)
+  # The unit count steps through a short list every 6 seeds: the JAX
+  # package runs these methods op by op and compiles each op again for
+  # every new shape, so a run of seeds at one count compiles it once.
+  n = INFERENCE_UNITS[seed // 6 % len(INFERENCE_UNITS)]
+  n_lead, n_x = 2, 4
+  phi = float(r.uniform(-0.5, 0.95))
+  offset = float(r.uniform(-1, 1))
+  inits = np.datetime64('2020-01-01T00', 'ns') + np.arange(
+      n) * np.timedelta64(12, 'h')
+  dims = ('init_time', 'lead_time', 'x')
+  coords = {'init_time': inits, 'lead_time': np.arange(n_lead),
+            'x': np.arange(n_x),
+            'day': (('init_time',), inits.astype('datetime64[D]'))}
+  shape = (n, n_lead, n_x)
+  predictions, targets, baseline, sums = {}, {}, {}, ()
+  if kind == 'rmse_bias':
+    t = r.standard_normal(shape)
+    noise = ar1(r, shape, phi)
+    predictions = {'v': Field(t + offset + noise, dims, coords)}
+    baseline = {'v': Field(t + ar1(r, shape, phi), dims, coords)}
+    targets = {'v': Field(t, dims, coords)}
+    metrics = {'rmse': Call('metrics.deterministic.RMSE'),
+               'bias': Call('metrics.deterministic.Bias')}
+  elif kind == 'rev':
+    prob = r.random(shape)
+    targets = {'v': Field((r.random(shape) < prob).astype(np.float64), dims,
+                          coords)}
+    predictions['v'] = Field((r.random((5,) + shape) < np.clip(
+        prob + offset * 0.2, 0, 1)[None]).mean(0), dims, coords)
+    # The thresholds lie between the 5 members' probabilities.
+    opt = Field(r.choice([0.1, 0.3, 0.5, 0.7, 0.9], 4), ('cost_loss_ratio',),
+                {'cost_loss_ratio': INFERENCE_CLR})
+    metrics = {'rev': Call('metrics.probabilistic.RelativeEconomicValue', dict(
+        ensemble_size=5, cost_loss_ratios=INFERENCE_CLR,
+        optimal_thresholds=opt))}
+  else:
+    # ACC's three anomaly statistics as sums over x (its climatology
+    # alignment is the metric families' and the config family's).
+    ta = r.standard_normal(shape)
+    pa = 0.6 * ta + 0.8 * ar1(r, shape, phi) + offset
+    stats = {'SquaredPredictionAnomaly': pa ** 2,
+             'SquaredTargetAnomaly': ta ** 2, 'AnomalyCovariance': pa * ta}
+    sums = tuple((k, Field(v.sum(-1), dims[:2], coords),
+                  Field(np.full(shape[:2], float(n_x)), dims[:2], coords))
+                 for k, v in stats.items())
+    clim = Field(np.zeros((2, 4, n_x)), ('dayofyear', 'hour', 'x'),
+                 {'dayofyear': np.arange(1, 3), 'hour': np.arange(0, 24, 6),
+                  'x': np.arange(n_x)})
+    metrics = {'acc': Call('metrics.deterministic.ACC',
+                           dict(climatology={'v': clim}))}
+  return Spec('inference', seed, kind, (Inference(
+      metrics, predictions, targets, baseline, sums, methods,
+      int(r.choice([20, 50]))),))
+
+
+# The port's routes past the register networks (ops/crps_pairwise.py).
+LARGE_ROUTES = ('sorted', 'blocksort', 'mergesort', 'sorted', 'blocksort')
+LARGE_POINT_MEMBERS = 2 ** 19
+
+
+# Each route's edges and sizes the kernels treat apart (run counts, tile
+# and block boundaries, HENS's 7,424 and its lagged 59,392).
+LARGE_MEMBERS = {
+    'sorted': (65, 96, 100, 127, 128, 129, 192, 255, 256),
+    'blocksort': (257, 500, 1_023, 1_024, 1_025, 1_816, 4_000, 7_424,
+                  14_848, 29_000, 58_112),
+    'mergesort': (58_113, 59_392, 65_536, 70_000),
+}
+
+
+def large_member_count(route: str, seed: int, r) -> int:
+  """A listed count three times in four, the route's list in turn every
+  ``len(LARGE_ROUTES)`` seeds (the JAX package compiles each of its ops
+  again for every new M), else any count of the route."""
+  if r.integers(4):
+    counts = LARGE_MEMBERS[route]
+    return counts[seed // len(LARGE_ROUTES) % len(counts)]
+  if route == 'sorted':
+    return int(r.integers(65, 257))
+  if route == 'blocksort':
+    return int(np.exp(r.uniform(np.log(257), np.log(58_112 + 1))))
+  return int(r.integers(58_113, 70_001))
+
+
+def draw_large_members(seed: int) -> Spec:
+  """CRPS (by sort), unbiased spread/skill and ensemble-mean RMSE at M
+  past 64: 65..256 (the sorted runs), 257..58,112 (the block sort) or
+  58,113..70,000 (the merge sort), over a few points near 280 K, with
+  ties, NaN and +-inf members."""
+  r = np.random.default_rng(60_000 + seed)
+  route = LARGE_ROUTES[seed % len(LARGE_ROUTES)]
+  m = large_member_count(route, seed, r)
+  points = int(max(1, min(8, LARGE_POINT_MEMBERS // m)))
+  # Spreads of 2-5 K: an ensemble mean near 280 K rounds to float32 by
+  # up to 1.5e-5 K in any order of sums, so the ensemble-mean statistics
+  # of a spread below about 2 K cannot meet 1e-5 relative in float32.
+  scale = float(r.choice([2.0, 5.0]))
+  offset = float(280.0 + r.uniform(-5, 5))
+  x = offset + scale * r.standard_normal((m, points))
+  if r.integers(2):  # ties: members on a coarse grid
+    x = np.round(x / scale * 4) * scale / 4
+  x = x.astype(np.float32)
+  y = (offset + scale * r.standard_normal(points)).astype(np.float32)
+  for _ in range(int(r.integers(0, 3))):
+    x[int(r.integers(m)), int(r.integers(points))] = r.choice(
+        [np.nan, np.inf, -np.inf])
+  coords = {'number': np.arange(m), 'x': np.arange(points)}
+  return Spec('large_members', seed, route, (Case(
+      ens_metrics(r), Call('aggregation.Aggregator', dict(
+          reduce_dims=['x'], skipna=bool(r.integers(2)))),
+      {'t': Field(x, ('number', 'x'), coords)},
+      {'t': Field(y, ('x',), {'x': coords['x']})}),))
+
+
+def as_float64(spec: Spec) -> Spec:
+  """The spec with every float32 input in float64 (the float64
+  reference of ``large_members``)."""
+  def cast(obj):
+    if isinstance(obj, Field) and obj.values.dtype == np.float32:
+      return Field(obj.values.astype(np.float64), obj.dims, obj.coords)
+    if isinstance(obj, dict):
+      return {k: cast(v) for k, v in obj.items()}
+    return obj
+  return dataclasses.replace(spec, cases=tuple(
+      dataclasses.replace(c, predictions=cast(c.predictions),
+                          targets=cast(c.targets)) for c in spec.cases))
+
+
 DRAWS = {'config': draw_config, 'wrappers': draw_wrappers,
          'spatial_rank': draw_spatial_rank, 'seeps': draw_seeps,
-         LARGE_K: draw_large_k}
+         'time_bins': draw_time_bins, 'sparse': draw_sparse,
+         'dispatch': draw_dispatch, 'inference': draw_inference,
+         'large_members': draw_large_members, LARGE_K: draw_large_k}
 
 
 def draw(family: str, seed: int):
@@ -444,15 +1003,162 @@ def on_device(device) -> Callable[[Field], DimArray]:
   return array
 
 
-def run(spec: Spec, device) -> dict[str, DimArray]:
-  """The spec's metric values by the port, every array on ``device``."""
-  array = on_device(device)
+def stream_loader(package: types.ModuleType, chunks: dict, **kwargs):
+  """A ``DataLoader`` of ``package`` serving built chunks by their first
+  init time (int ns), through the package's own ``load_chunk``."""
+  base = importlib.import_module(f'{package.__name__}.data.base')
+
+  class StreamLoader(base.DataLoader):
+
+    def _load_chunk_from_source(self, init_times, lead_times=None):
+      t = np.asarray(init_times).astype('datetime64[ns]').astype(np.int64)
+      return chunks[int(t[0])]
+  return StreamLoader(**kwargs)
+
+
+def run_case(case, package: types.ModuleType, array, device=None,
+             states=None) -> dict:
+  """One case's metric values by ``package``, its arrays made by
+  ``array``; ``device`` goes to the port's pipeline, ``states`` (main,
+  baseline) replace an ``Inference`` case's own."""
+  agg = importlib.import_module(f'{package.__name__}.aggregation')
+  if isinstance(case, Case):
+    return agg.compute_metric_values_for_single_chunk(*build(
+        (case.metrics, case.aggregator, case.predictions, case.targets),
+        package, array))
+  if isinstance(case, Loaded):
+    metrics, aggregator, p_loader, targets = build(
+        (case.metrics, case.aggregator, case.predictions_loader,
+         case.targets), package, array)
+    first = int(case.init_times[0].astype(np.int64))
+    targets = stream_loader(package, {first: targets},
+                            **case.targets_loader_kwargs).load_chunk(
+                                case.init_times, case.lead_times)
+    predictions = p_loader.load_chunk(case.init_times, case.lead_times,
+                                      reference=targets)
+    return agg.compute_metric_values_for_single_chunk(
+        metrics, aggregator, predictions, targets)
+  if isinstance(case, Stream):
+    return run_stream(case, package, array, device)
+  if isinstance(case, Inference):
+    return run_inference(case, package, array, states)
+  raise TypeError(f'unknown case {type(case).__name__}')
+
+
+def run_stream(case: Stream, package, array, device=None) -> dict:
+  pipeline = importlib.import_module(f'{package.__name__}.parallel.pipeline')
+  time_chunks = importlib.import_module(f'{package.__name__}.time_chunks')
+  metrics, aggregator, predictions, targets = build(
+      (case.metrics, case.aggregator, case.predictions, case.targets),
+      package, array)
+  kwargs = {} if device is None else {'device': device}
+  pipe = pipeline.EvaluationPipeline(
+      metrics=metrics, aggregator=aggregator,
+      predictions_loader=stream_loader(package, predictions),
+      targets_loader=stream_loader(package, targets),
+      times=time_chunks.TimeChunks(case.init_times, case.lead_times,
+                                   init_time_chunk_size=1),
+      chunks_per_dispatch=case.chunks_per_dispatch, **kwargs)
+  return pipe.run().metric_values(metrics)
+
+
+def inference_states(case: Inference, package, array) -> tuple:
+  """(main, baseline) states of ``package`` over ``init_time`` units, in
+  float64."""
+  agg = importlib.import_module(f'{package.__name__}.aggregation')
+  if case.sums:
+    sums = build(case.sums, package, array)
+    state = agg.AggregationState({k: {'v': s} for k, s, _ in sums},
+                                 {k: {'v': w} for k, _, w in sums})
+    return state, None
+  base = importlib.import_module(f'{package.__name__}.metrics.base')
+  metrics, predictions, baseline, targets = build(
+      (case.metrics, case.predictions, case.baseline, case.targets),
+      package, array)
+
+  def state(p):
+    stats = base.compute_unique_statistics_for_all_metrics(
+        metrics, p, targets)
+    # Indicator statistics come out in float32 in both packages.
+    return agg.Aggregator(reduce_dims=['x']).aggregate_statistics(
+        stats).map(lambda x: x.copy(data=array(Field(
+            _host(x.data).astype(np.float64), x.dims, {})).data))
+  return state(predictions), state(baseline) if baseline else None
+
+
+METHODS = {
+    'iid_t': ('t_test.IID', 'init_time', {}),
+    'ar2_t': ('t_test.GeerAR2Corrected', 'init_time', {}),
+    'hac_ewc_t': ('t_test.LazarusHACEWC', 'init_time', {}),
+    'iid_bootstrap': ('bootstrap.IIDBootstrap', 'init_time', {'seed': 3}),
+    'cluster_bootstrap': ('bootstrap.ClusterBootstrap', 'day', {'seed': 4}),
+    'stationary_bootstrap': ('bootstrap.StationaryBootstrap', 'init_time',
+                             {'seed': 5}),
+}
+
+
+def run_inference(case: Inference, package, array, states=None) -> dict:
+  """Point estimates, standard errors, 90% intervals, p-values and tests
+  of the case's methods; each one's baseline comparison too, where the
+  case has a baseline."""
+  main, baseline = states or inference_states(case, package, array)
+  metrics = build(case.metrics, package, array)
+  out = {}
+
+  def keep(prefix, tree):
+    for metric, per_var in tree.items():
+      for var, da in per_var.items():
+        out[f'{prefix}/{metric}/{var}'] = da
+
+  for name in case.methods:
+    path, unit, kw = METHODS[name]
+    module, cls_name = path.rsplit('.', 1)
+    cls = getattr(importlib.import_module(
+        f'{package.__name__}.inference.{module}'), cls_name)
+    if 'seed' in kw:
+      kw = dict(kw, n_replicates=case.replicates)
+    runs = {name: cls(metrics, main, unit, **kw)}
+    if baseline is not None and unit == 'init_time':
+      runs[f'{name}_vs_baseline'] = cls.for_baseline_comparison(
+          metrics, main, baseline, experimental_unit_dim=unit, **kw)
+    for key, method in runs.items():
+      keep(f'{key}/point', method.point_estimates())
+      keep(f'{key}/stderr', method.standard_error_estimates())
+      lo, hi = method.confidence_intervals(0.1)
+      keep(f'{key}/lower', lo)
+      keep(f'{key}/upper', hi)
+      keep(f'{key}/p', method.p_values(0.0))
+      keep(f'{key}/significant', method.significance_tests(0.0, 0.1))
+  return out
+
+
+def run_in(spec: Spec, package: types.ModuleType, array, device=None,
+           states=None) -> dict:
+  """The spec's values by ``package`` (see ``run_case``)."""
   out = {}
   for case in spec.cases:
-    out.update(aggregation.compute_metric_values_for_single_chunk(
-        *build((case.metrics, case.aggregator, case.predictions,
-                case.targets), weatherbenchx_tpu_torch, array)))
+    out.update(run_case(case, package, array, device, states))
   return out
+
+
+def run(spec: Spec, device) -> dict[str, DimArray]:
+  """The spec's values by the port, every array on ``device``."""
+  return run_in(spec, weatherbenchx_tpu_torch, on_device(device), device)
+
+
+def per_chunk(spec: Spec) -> Spec:
+  """The spec with each stream evaluated one chunk a dispatch."""
+  return dataclasses.replace(spec, cases=tuple(
+      dataclasses.replace(c, chunks_per_dispatch=1)
+      if isinstance(c, Stream) else c for c in spec.cases))
+
+
+def float64_reference(spec: Spec) -> dict | None:
+  """``large_members``: the same draw in float64 through the port's CPU
+  path (sorts with the median shift, float64 sums); None elsewhere."""
+  if spec.family != 'large_members':
+    return None
+  return run(as_float64(spec), 'cpu')
 
 
 def _host(x) -> np.ndarray:
@@ -569,12 +1275,13 @@ def fuzz_family(family: str, seeds, device, failures: list) -> dict:
   run; failures (a raise is one) appended to ``failures``."""
   report = {'configs': 0, 'failures': 0, 'max_gap': 0.0, 'seconds': 0.0,
             'cpu_seconds': 0.0, 'launches': {}, 'launches_by_kind': {},
-            'members': {}}
+            'members': {}, 'kinds': []}
   crps_pairwise.reset_launch_counts()
   for seed in seeds:
     report['configs'] += 1
     try:
       spec = draw(family, seed)
+      report['kinds'].append(spec.kind)
       before = dict(crps_pairwise.LAUNCHES)
       t0 = time.perf_counter()
       got = run(spec, device)
@@ -587,7 +1294,14 @@ def fuzz_family(family: str, seeds, device, failures: list) -> dict:
       t0 = time.perf_counter()
       want = run(spec, 'cpu')
       report['cpu_seconds'] += time.perf_counter() - t0
-      report['max_gap'] = max(report['max_gap'], compare_results(want, got))
+      atol, rtol = TOLERANCES.get(family, (ATOL, RTOL))
+      report['max_gap'] = max(report['max_gap'],
+                              compare_results(want, got, atol, rtol))
+      reference = float64_reference(spec)
+      if reference is not None:
+        report['max_gap_float64'] = max(
+            report.get('max_gap_float64', 0.0),
+            compare_results(reference, got, atol, rtol))
     except Exception as e:  # noqa: BLE001 -- every config is reported
       report['failures'] += 1
       failures.append({'family': family, 'seed': seed,
@@ -621,13 +1335,16 @@ def fuzz_large_k(seeds, device, failures: list) -> dict:
   return report
 
 
-def fuzz(families, seeds: int, large_k_seeds: int, device) -> tuple:
-  """(report per family, failures) of the sweep on ``device``."""
+def fuzz(seeds: Mapping[str, int], device) -> tuple:
+  """(report per family, failures) of the sweep on ``device``: seeds
+  0..n-1 of each family ``{family: n}``."""
   failures: list = []
-  report = {f: fuzz_family(f, range(seeds), device, failures)
-            for f in families if f != LARGE_K}
-  if large_k_seeds:
-    report[LARGE_K] = fuzz_large_k(range(large_k_seeds), device, failures)
+  report = {}
+  for family, n in seeds.items():
+    if family == LARGE_K:
+      report[family] = fuzz_large_k(range(n), device, failures)
+    else:
+      report[family] = fuzz_family(family, range(n), device, failures)
   return report, failures
 
 
@@ -651,11 +1368,15 @@ def card_line() -> str:
 
 def main(argv=None) -> int:
   p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  p.add_argument('--seeds', type=int, default=200)
-  p.add_argument('--large_k_seeds', type=int, default=None,
-                 help='seeds of the 721 x 1440 family (default: min(seeds, '
-                      '20))')
-  p.add_argument('--families', default=','.join(FAMILIES + (LARGE_K,)),
+  p.add_argument('--seeds', type=int, default=200,
+                 help='seeds of each family; large_k, the 721 x 1440 '
+                      'family, takes min(seeds, 20)')
+  p.add_argument('--family_seeds', default='',
+                 help='seeds by family, overriding --seeds, e.g. '
+                      'dispatch=20,large_k=2; each family must be in '
+                      '--families')
+  p.add_argument('--families',
+                 default=','.join(FAMILIES + LAYER_FAMILIES + (LARGE_K,)),
                  help='comma-separated families')
   p.add_argument('--max_report', type=int, default=5)
   p.add_argument('--device', default='cuda',
@@ -663,17 +1384,23 @@ def main(argv=None) -> int:
   args = p.parse_args(argv)
   device = resolve_device(args.device)
   families = tuple(f for f in args.families.split(',') if f)
+  overrides = dict(kv.split('=') for kv in args.family_seeds.split(',') if kv)
   unknown = set(families) - set(DRAWS)
   if unknown:
     p.error(f'unknown families {sorted(unknown)}')
-  n_large = (args.large_k_seeds if args.large_k_seeds is not None
-             else min(args.seeds, 20)) if LARGE_K in families else 0
+  absent = set(overrides) - set(families)
+  if absent:
+    p.error(f'--family_seeds names families not in --families: '
+            f'{sorted(absent)}')
+  seeds = {f: min(args.seeds, 20) if f == LARGE_K else args.seeds
+           for f in families}
+  seeds.update({f: int(n) for f, n in overrides.items()})
   t0 = time.perf_counter()
-  report, failures = fuzz(families, args.seeds, n_large, device)
+  report, failures = fuzz(seeds, device)
   print(json.dumps({
       'metric': 'port_parity_fuzz', 'device': str(device),
       'card': card_line() if device.type == 'cuda' else None,
-      'seeds': args.seeds, 'large_k_seeds': n_large,
+      'seeds': seeds, 'large_k_seeds': seeds.get(LARGE_K, 0),
       'failures': len(failures),
       'wall_s': time.perf_counter() - t0, 'families': report}), flush=True)
   for f in failures[:args.max_report]:
