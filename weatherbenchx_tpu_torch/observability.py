@@ -1,4 +1,4 @@
-"""Stage timers and counters that the pipeline reports into.
+"""Stage timers and counters that the pipeline reports into; spans.
 
 The port of ``weatherbenchx_tpu/observability.py:21-104`` (host-only code,
 copied): a thread-safe ``Metrics`` registry of counters and timing
@@ -16,6 +16,16 @@ around one dispatch's device copies and the launch of its evaluation, one
 chunk or a batch of ``chunks_per_dispatch``; device work may still be
 running when it stops), ``checkpoint_seconds``,
 ``chunk_stats_sink_seconds``.
+
+Spans (``span``): ``torch.profiler`` ranges that cost a flag check when no
+profile records. ``parallel/evaluator`` opens ``wbx.prepare_host``,
+``wbx.to_device`` (also around ``place`` and ``to_device_stacked``),
+``wbx.eval`` (one compute pass), inside it ``wbx.statistic.<name>`` per
+statistic holding ``wbx.operands`` (the weights and bin masks) and
+``wbx.aggregate`` (the masked contraction), and ``wbx.state_add`` (a
+chunk's state added to the running one in ``eval_accum``);
+``ops/crps_pairwise`` opens ``wbx.<kernel>`` around each kernel wrapper
+call.
 """
 
 import collections
@@ -34,31 +44,22 @@ import torch
 
 @dataclasses.dataclass
 class Distribution:
-  """Streaming distribution (count/sum/min/max + sum of squares)."""
+  """Streaming distribution (count/sum/min/max)."""
 
   count: int = 0
   total: float = 0.0
   min: float = math.inf
   max: float = -math.inf
-  total_sq: float = 0.0
 
   def update(self, value: float) -> None:
     self.count += 1
     self.total += value
-    self.total_sq += value * value
     self.min = min(self.min, value)
     self.max = max(self.max, value)
 
   @property
   def mean(self) -> float:
     return self.total / self.count if self.count else 0.0
-
-  @property
-  def std(self) -> float:
-    if self.count < 2:
-      return 0.0
-    var = self.total_sq / self.count - self.mean ** 2
-    return math.sqrt(max(var, 0.0))
 
   def __repr__(self):
     return (f'n={self.count} mean={self.mean * 1e3:.1f}ms '
@@ -98,7 +99,7 @@ class Metrics:
   @property
   def timings(self) -> Mapping[str, Distribution]:
     # Snapshots: a live Distribution could be updated field by field under
-    # a reader computing mean/std from a torn pair.
+    # a reader computing the mean from a torn pair.
     with self._lock:
       return {name: dataclasses.replace(dist)
               for name, dist in self._timings.items()}
@@ -114,6 +115,27 @@ class Metrics:
 # Process-global default registry, for pipelines given none.
 default_metrics = Metrics()
 
+# What ``span`` returns while no profile records: one context for every
+# span, so that an untraced run builds nothing.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+  """A profiler range ``name`` while a profile records, else a no-op.
+
+  ``torch.profiler.record_function(name)`` while a ``torch.profiler``
+  profile records on this thread, otherwise one shared
+  ``contextlib.nullcontext()``.
+
+  ``record_function`` builds its record even with no profiler running,
+  some microseconds a call; this costs a flag check. A profile
+  records only the ranges of the thread that started it, and the flag is
+  that thread's.
+  """
+  if torch._C._autograd._profiler_enabled():  # pylint: disable=protected-access
+    return torch.profiler.record_function(name)
+  return _NO_SPAN
+
 
 @contextlib.contextmanager
 def maybe_profile(trace_dir: str | None,
@@ -122,9 +144,8 @@ def maybe_profile(trace_dir: str | None,
 
   CPU activity, and CUDA activity when ``device`` is a CUDA device; the
   trace is written into ``trace_dir`` as a Chrome/TensorBoard JSON file
-  (``*.pt.trace.json``) when the context exits. The port's named ranges
-  (``wbx.statistic.<name>`` per statistic, ``wbx.<kernel>`` per kernel
-  wrapper call) appear in it.
+  (``*.pt.trace.json``) when the context exits. The port's spans (the
+  module's docstring lists them) appear in it.
   """
   if not trace_dir:
     yield

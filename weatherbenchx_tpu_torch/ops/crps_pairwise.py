@@ -49,12 +49,13 @@ written out as straight-line code from ``sort_network``.
 
 ``LAUNCHES`` counts kernel launches per kernel, so that a run can show its
 main path went through the kernels; the plain versions do not count. Each
-public function runs inside a ``torch.profiler.record_function`` range
-named ``wbx.<function>``, so that a profiler trace names it.
+public function runs inside a span named ``wbx.<function>``
+(``observability.span``), so that a profiler trace names it.
 """
 
 import torch
 
+from weatherbenchx_tpu_torch import observability
 from weatherbenchx_tpu_torch.ops import _build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -470,7 +471,7 @@ def fused_ensemble_stats(x: torch.Tensor, y: torch.Tensor) -> tuple:
                      f'{tuple(y.shape)}; want x = (M, *y.shape)')
   if x.dtype != y.dtype:
     raise TypeError(f'dtype mismatch: {x.dtype} vs {y.dtype}')
-  with torch.profiler.record_function('wbx.fused_ensemble_stats'):
+  with observability.span('wbx.fused_ensemble_stats'):
     if _route(x, y) == 'cpu':
       return fused_ensemble_stats_plain(x, y)
     rest = y.shape
@@ -487,7 +488,7 @@ def pairwise_spread_sum(x: torch.Tensor) -> torch.Tensor:
   """
   if x.dim() < 1:
     raise ValueError('need an ensemble axis')
-  with torch.profiler.record_function('wbx.pairwise_spread_sum'):
+  with observability.span('wbx.pairwise_spread_sum'):
     if _route(x) == 'cpu':
       return pairwise_spread_sum_plain(x)
     return _launch_stats(x.contiguous().reshape(x.shape[0], -1),
@@ -509,7 +510,7 @@ def pairwise_cross_sum(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                      f'{tuple(y.shape)}')
   if x.dtype != y.dtype:
     raise TypeError(f'dtype mismatch: {x.dtype} vs {y.dtype}')
-  with torch.profiler.record_function('wbx.pairwise_cross_sum'):
+  with observability.span('wbx.pairwise_cross_sum'):
     if _route(x, y) == 'cpu':
       return pairwise_cross_sum_plain(x, y)
     return _launch_cross(x.contiguous().reshape(x.shape[0], -1),

@@ -72,6 +72,7 @@ import torch
 
 from weatherbenchx_tpu_torch import aggregation as aggregation_lib
 from weatherbenchx_tpu_torch import darray
+from weatherbenchx_tpu_torch import observability
 from weatherbenchx_tpu_torch.darray import Coord, DimArray, as_tensor
 from weatherbenchx_tpu_torch.metrics import base as metrics_base
 from weatherbenchx_tpu_torch.parallel import distributed
@@ -465,10 +466,11 @@ class ChunkEvaluator:
   def prepare_host(self, predictions: Mapping[Hashable, DimArray],
                    targets: Mapping[Hashable, DimArray]) -> tuple:
     """Each unique statistic's host hook, in order; no device work."""
-    predictions = dict(predictions)
-    for stat in self._stats:
-      predictions, _ = stat.prepare_chunk(predictions, targets)
-    return predictions, targets
+    with observability.span('wbx.prepare_host'):
+      predictions = dict(predictions)
+      for stat in self._stats:
+        predictions, _ = stat.prepare_chunk(predictions, targets)
+      return predictions, targets
 
   def _place(self, da: DimArray, shard, parts=None) -> DimArray:
     """Host ``da`` on the device: its data, validity mask and climatology
@@ -503,10 +505,12 @@ class ChunkEvaluator:
     """The host-prepared chunk on the evaluator's device: data, validity
     masks and the climatology index and value coords; on a mesh, this
     rank's slice of them, with the shard it was cut by."""
-    shard = self._shard_for(predictions, targets)
-    return PlacedPair(
-        {var: self._place(da, shard) for var, da in predictions.items()},
-        {var: self._place(da, shard) for var, da in targets.items()}, shard)
+    with observability.span('wbx.to_device'):
+      shard = self._shard_for(predictions, targets)
+      return PlacedPair(
+          {var: self._place(da, shard) for var, da in predictions.items()},
+          {var: self._place(da, shard) for var, da in targets.items()},
+          shard)
 
   def place(self, side: Mapping[Hashable, DimArray]) -> dict:
     """One side of a chunk on the evaluator's device, as ``to_device``
@@ -517,7 +521,8 @@ class ChunkEvaluator:
     if self.mesh is not None:
       raise ValueError('on a mesh, place both sides with to_device: they '
                        'are cut by one shard')
-    return {var: self._place(da, None) for var, da in side.items()}
+    with observability.span('wbx.to_device'):
+      return {var: self._place(da, None) for var, da in side.items()}
 
   def prepare_pair(self, predictions: Mapping[Hashable, DimArray],
                    targets: Mapping[Hashable, DimArray]) -> PlacedPair:
@@ -560,14 +565,15 @@ class ChunkEvaluator:
     stacked along ``CHUNK_DIM``; on a mesh, this rank's slice of it, cut
     by the shard of the whole stack (its per-chunk host coords, e.g.
     ``lead_time`` when leads are chunked, gain ``CHUNK_DIM``)."""
-    parts = [{var: [pair[side][var] for pair in pairs]
-              for var in pairs[0][side]} for side in (0, 1)]
-    stacked = [{var: self._stack_host(p) for var, p in side.items()}
-               for side in parts]
-    shard = self._shard_for(*stacked)
-    return PlacedPair(*({var: self._place(da, shard, parts[side][var])
-                         for var, da in stacked[side].items()}
-                        for side in (0, 1)), shard)
+    with observability.span('wbx.to_device'):
+      parts = [{var: [pair[side][var] for pair in pairs]
+                for var in pairs[0][side]} for side in (0, 1)]
+      stacked = [{var: self._stack_host(p) for var, p in side.items()}
+                 for side in parts]
+      shard = self._shard_for(*stacked)
+      return PlacedPair(*({var: self._place(da, shard, parts[side][var])
+                           for var, da in stacked[side].items()}
+                          for side in (0, 1)), shard)
 
   # -- evaluation ----------------------------------------------------------------------
 
@@ -605,32 +611,35 @@ class ChunkEvaluator:
     """The aggregated state of a chunk on the device; with
     ``statistics_out`` (a dict), each statistic is also copied there to the
     host as it is aggregated: computed once, consumed twice."""
-    self.dispatches += 1
-    predictions, targets = pair
-    shard = self._shard_of(pair)
-    live = self._live(shard)
-    sums, weights = {}, {}
-    with metrics_base.device_resources(self.resources(), live):
-      stats = metrics_base.generate_unique_statistics_for_all_metrics(
-          self.metrics, predictions, targets)
-      for expected in self._stat_names:
-        # A named range per statistic, its compute and its aggregation, for
-        # a profiler trace (observability.maybe_profile).
-        with torch.profiler.record_function(f'wbx.statistic.{expected}'):
-          name, values = next(stats)
-          one = {name: values}
-          state = self.aggregator.aggregate_statistics(
-              one, self.operands_for(one, live))
-          if live is not None:
-            self._check_declared(name, values, predictions, shard)
-            state = self._whole_state(state, values, shard)
-          sums.update(state.sum_weighted_statistics)
-          weights.update(state.sum_weights)
-          if statistics_out is not None:
-            statistics_out[name] = {var: host_copy(self._whole(da, shard))
-                                    for var, da in values.items()}
-      stats.close()
-    return aggregation_lib.AggregationState(sums, weights)
+    with observability.span('wbx.eval'):
+      self.dispatches += 1
+      predictions, targets = pair
+      shard = self._shard_of(pair)
+      live = self._live(shard)
+      sums, weights = {}, {}
+      with metrics_base.device_resources(self.resources(), live):
+        stats = metrics_base.generate_unique_statistics_for_all_metrics(
+            self.metrics, predictions, targets)
+        for expected in self._stat_names:
+          # A span per statistic: its compute is the time outside the two
+          # spans inside it.
+          with observability.span(f'wbx.statistic.{expected}'):
+            name, values = next(stats)
+            one = {name: values}
+            with observability.span('wbx.operands'):
+              operands = self.operands_for(one, live)
+            with observability.span('wbx.aggregate'):
+              state = self.aggregator.aggregate_statistics(one, operands)
+            if live is not None:
+              self._check_declared(name, values, predictions, shard)
+              state = self._whole_state(state, values, shard)
+            sums.update(state.sum_weighted_statistics)
+            weights.update(state.sum_weights)
+            if statistics_out is not None:
+              statistics_out[name] = {var: host_copy(self._whole(da, shard))
+                                      for var, da in values.items()}
+        stats.close()
+      return aggregation_lib.AggregationState(sums, weights)
 
   def eval_chunk(
       self,
@@ -678,7 +687,9 @@ class ChunkEvaluator:
     """Evaluates a pair on the device (on a mesh, the ``PlacedPair``
     that ``prepare_pair`` or ``to_device`` returned) and adds it to
     ``prev_state``."""
-    return prev_state + self._eval(pair)
+    state = self._eval(pair)
+    with observability.span('wbx.state_add'):
+      return prev_state + state
 
   def eval_prepared(self, pairs: Sequence[tuple]
                     ) -> list[aggregation_lib.AggregationState]:
