@@ -211,6 +211,176 @@ def test_evaluator_operands_are_prepare_operands_own_objects():
   assert len(ev._operand_cache) == 2  # with and without a mask coord
 
 
+# -- the masked contraction --------------------------------------------------------
+
+ELEVATION = np.random.default_rng(5).uniform(-50, 3000, (N_LAT, N_LON))
+LAYOUTS = {  # binnings; the last layout is aggregated in two shards
+    'regions': lambda b: [b.Regions(REGIONS)],
+    'regions_elevation': lambda b: [
+        b.Regions(REGIONS), b.ByCoordBins('elevation', [-100, 500, 1500, 4e3])],
+    'time_units': lambda b: [b.ByTimeUnit('hour', 'lead_time')],
+    'regions_sharded': lambda b: [b.Regions(REGIONS)],
+}
+NAN_AT = {'none': (), 'masked': ((0, 0), (4, 7)), 'unmasked': ((3, 5),)}
+
+
+def _masked_stat(mod, dtype, nan, seed=40):
+  """A statistic over DIMS with a validity mask and an elevation coord
+  over the grid; NaN, for all inits and leads, at grid points where the
+  mask is False ('masked') or True ('unmasked')."""
+  rng = np.random.default_rng(seed)
+  mask = rng.random((N_LAT, N_LON)) > 0.3
+  x = rng.standard_normal((N_INIT, N_LEAD, N_LAT, N_LON))
+  x = (x > 0) if dtype == bool else x.astype(dtype)
+  for i, j in NAN_AT[nan]:
+    mask[i, j] = nan == 'unmasked'
+    x[..., i, j] = np.nan
+  coords = {'init_time': INITS, 'lead_time': LEADS, 'latitude': LAT,
+            'longitude': LON,
+            'mask': mod.Coord(('latitude', 'longitude'), mask),
+            'elevation': mod.Coord(('latitude', 'longitude'), ELEVATION)}
+  return mod.DimArray(x, DIMS, coords)
+
+
+def _layout_aggregator(which, layout, **kwargs):
+  _, agg, b, w = PKG[which]
+  return agg.Aggregator(reduce_dims=['init_time', 'latitude', 'longitude'],
+                        bin_by=LAYOUTS[layout](b),
+                        weigh_by=[w.GridAreaWeighting()], **kwargs)
+
+
+def _numpy_state(agg, stat, masked, skipna):
+  """(Σ w·s, Σ w) by numpy's float64 einsum of the port's operands, with
+  the masked points zeroed in the statistic and left out of the weights."""
+  ops = agg.aggregation_operands(stat.astype(torch.float32))
+  x = stat.values.astype(np.float64)
+  keep = np.ones(x.shape, bool)
+  if masked:
+    keep &= stat.coord_values('mask')[None, None]
+  if skipna:
+    keep &= ~np.isnan(x)
+  if masked or skipna:
+    x = np.where(keep, x, 0.0)
+  letters = {d: chr(ord('a') + i) for i, d in enumerate(
+      td.broadcast_dims(stat.dims, *[op.dims for op in ops]))}
+  out = tuple(d for d in letters if d not in agg.reduce_dims)
+  spec = ','.join(''.join(letters[d] for d in a) for a in
+                  [stat.dims] + [op.dims for op in ops])
+  spec += '->' + ''.join(letters[d] for d in out)
+  vals = [np.asarray(op.values, np.float64) for op in ops]
+  return (out, np.einsum(spec, x, *vals),
+          np.einsum(spec, keep.astype(np.float64), *vals))
+
+
+def _aggregate_in_shards(agg, stat):
+  """The sum of the states of the two halves of the longitudes, each
+  aggregated with operands ``prepare_operands`` builds for its shard."""
+  mask = stat.coords['mask']
+  stat = stat.assign_coords(mask=td.Coord(mask.dims, torch.as_tensor(
+      mask.values)))
+  states = []
+  for sl in (slice(0, N_LON // 2), slice(N_LON // 2, N_LON)):
+    shard = aggregation.ChunkShard({'longitude': sl}, {'longitude': N_LON},
+                                   {'longitude': stat.coords['longitude']})
+    part = stat.isel(longitude=sl).drop_coords('elevation')
+    ops = agg.prepare_operands({'s': {'v': part}}, shard=shard)['s']['v']
+    states.append(agg.aggregate_stat_var(part, ops))
+  return aggregation.AggregationState.sum(states)
+
+
+def _nan_spread(got, want):
+  """The port NaN wherever ``want`` is, and equal to it where both are
+  finite: the JAX package's XLA einsum leaves finite the bins without a
+  NaN point, over a stack of two area masks or over time-unit bins of a
+  kept dim, where the port, as numpy's einsum, spreads the NaN to every
+  bin (ROADMAP.md §C, "NaN through a stack of bin masks")."""
+  gv, wv = got.values, np.asarray(want.values)
+  assert np.isnan(gv[np.isnan(wv)]).all()
+  both = np.isfinite(gv) & np.isfinite(wv)
+  np.testing.assert_allclose(gv[both], wv[both], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize('layout', sorted(LAYOUTS))
+@pytest.mark.parametrize('masked', [False, True], ids=['unmasked', 'masked'])
+@pytest.mark.parametrize('skipna', [False, True], ids=['', 'skipna'])
+@pytest.mark.parametrize('dtype,nan', [(np.float32, 'none'),
+                                       (np.float32, 'masked'),
+                                       (np.float32, 'unmasked'),
+                                       (bool, 'none')],
+                         ids=['f32', 'f32_nan_masked', 'f32_nan_unmasked',
+                              'bool'])
+def test_masked_contraction_matches_jax_and_numpy(layout, masked, skipna,
+                                                  dtype, nan):
+  """One zeroing pass, one contraction, the weights' indicator at the
+  mask's own dims (skipna off) or the statistic's (skipna on): the JAX
+  package's aggregation and numpy's float64 einsum. A NaN at a masked
+  point is zeroed; elsewhere, skipna off, it spreads to every bin."""
+  kw = {'masked': masked, 'skipna': skipna}
+  agg = _layout_aggregator('torch', layout, **kw)
+  stat = _masked_stat(td, dtype, nan)
+  if layout.endswith('sharded'):
+    got = _aggregate_in_shards(agg, stat)
+  else:
+    got = agg.aggregate_stat_var(stat)
+  want = _layout_aggregator('jax', layout, **kw).aggregate_stat_var(
+      _masked_stat(jd, dtype, nan))
+  dims, sums, weights = _numpy_state(agg, stat, masked, skipna)
+  for part, ref in (('sum_weighted_statistics', sums),
+                    ('sum_weights', weights)):
+    g = getattr(got, part).transpose(*dims)
+    np.testing.assert_allclose(g.values, ref, rtol=RTOL, atol=ATOL,
+                               equal_nan=True, err_msg=part)
+    spreads = (nan == 'unmasked' or (nan == 'masked' and not masked))
+    if spreads and not skipna and layout in ('regions_elevation',
+                                            'time_units'):
+      _nan_spread(g, getattr(want, part))
+    else:
+      _close(getattr(got, part), getattr(want, part))
+  if nan == 'masked' and masked:
+    assert np.isfinite(got.sum_weighted_statistics.values).all()
+  if nan == 'unmasked' and not skipna:
+    assert np.isnan(got.sum_weighted_statistics.values).any()
+
+
+def test_masks_of_one_layout_give_their_own_indicators():
+  """Two chunks of one layout whose device masks differ in content share
+  their operands (the layout key reads a device mask by shape and dtype)
+  and each gets the indicator of its own mask."""
+  agg = _layout_aggregator('torch', 'regions', masked=True)
+  cache = {}
+  got = []
+  for seed in (50, 51):
+    stat = _masked_stat(td, np.float32, 'none', seed)
+    stat = stat.assign_coords(mask=td.Coord(
+        ('latitude', 'longitude'), torch.as_tensor(stat.coord_values('mask'))))
+    ops = agg.prepare_operands({'s': {'v': stat}}, cache)['s']['v']
+    got.append((ops, agg.aggregate_stat_var(stat, ops),
+                _numpy_state(agg, stat, True, False)))
+  assert got[0][0] is got[1][0] and len(cache) == 1
+  for _, state, (dims, sums, weights) in got:
+    np.testing.assert_allclose(state.sum_weights.transpose(*dims).values,
+                               weights, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        state.sum_weighted_statistics.transpose(*dims).values, sums,
+        rtol=RTOL, atol=ATOL)
+  assert not np.allclose(got[0][1].sum_weights.values,
+                         got[1][1].sum_weights.values)
+
+
+def test_indicator_forms_count_each_form_and_reset():
+  """``INDICATOR_FORMS``: the mask's own dims with skipna off, masked or
+  not; the broadcast with skipna on; zeros after the reset."""
+  aggregation.reset_indicator_forms()
+  assert aggregation.INDICATOR_FORMS == {'mask_dims': 0, 'broadcast': 0}
+  stat = _masked_stat(td, np.float32, 'masked')
+  for kw in ({'masked': True}, {}, {'masked': True, 'skipna': True},
+             {'skipna': True}, {'masked': True}):
+    _layout_aggregator('torch', 'regions', **kw).aggregate_stat_var(stat)
+  assert aggregation.INDICATOR_FORMS == {'mask_dims': 3, 'broadcast': 2}
+  aggregation.reset_indicator_forms()
+  assert aggregation.INDICATOR_FORMS == {'mask_dims': 0, 'broadcast': 0}
+
+
 # -- AggregationState: sum_along_dims, dot, map_multi ----------------------------
 
 

@@ -1020,3 +1020,56 @@ def test_mergesort_two_launches_give_equal_bits(cuda):
     crps_pairwise.SCRATCH_BYTES = scratch
   for a, b in zip(first, batched):
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_masked_aggregation_on_the_card_waits_for_nothing(cuda):
+  """A masked, region-binned float32 statistic with device operands and a
+  device mask, NaN at masked points: ``aggregate_statistics`` makes no
+  synchronizing call (sync debug mode 'error' raises on one), two calls
+  give equal bits, and the values are the CPU path's."""
+  from weatherbenchx_tpu_torch import aggregation, binning, weighting
+  from weatherbenchx_tpu_torch.darray import Coord, DimArray
+  rng = np.random.default_rng(21)
+  n_lat, n_lon = 61, 120
+  lat = np.linspace(90, -90, n_lat)
+  lon = np.arange(n_lon) * 3.0
+  mask = np.ones((n_lat, n_lon), bool)
+  mask[[0, -1]] = False
+  x = rng.standard_normal((4, 5, n_lat, n_lon)).astype(np.float32)
+  x[..., 0, :7] = np.nan
+  dims = ('init_time', 'lead_time', 'latitude', 'longitude')
+  inits = np.datetime64('2020-01-01', 'ns') + np.arange(4) * np.timedelta64(
+      12, 'h')
+  leads = (np.arange(5) * np.timedelta64(12, 'h')).astype('timedelta64[ns]')
+
+  def stats(device):
+    coords = {'init_time': inits, 'lead_time': leads, 'latitude': lat,
+              'longitude': lon, 'mask': Coord(('latitude', 'longitude'),
+                                               torch.from_numpy(mask).to(device))}
+    return {name: {'t2m': DimArray(torch.from_numpy(x * k).to(device), dims,
+                                   coords)}
+            for k, name in enumerate(['a', 'b', 'c'], 1)}
+
+  agg = aggregation.Aggregator(
+      reduce_dims=['init_time', 'latitude', 'longitude'],
+      weigh_by=[weighting.GridAreaWeighting()],
+      bin_by=[binning.Regions({'global': ((-90, 90), (0, 360)),
+                               'tropics': ((-20, 20), (0, 360)),
+                               'box': ((25, 60), (240, 285))})],
+      masked=True)
+  on_card = stats(cuda)
+  operands = agg.prepare_operands(on_card, {}, cuda)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode('error')
+  try:
+    first = agg.aggregate_statistics(on_card, operands).to_dataset()
+    again = agg.aggregate_statistics(on_card, operands).to_dataset()
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  want = agg.aggregate_statistics(stats('cpu')).to_dataset()
+  assert sorted(first) == sorted(want)
+  for k, w in want.items():
+    assert first[k].dims == w.dims, k
+    assert first[k].data.is_cuda and torch.equal(first[k].data, again[k].data)
+    assert torch.isfinite(first[k].data).all(), k
+    assert _rel(first[k].data.cpu(), w.data) < 1e-5, k

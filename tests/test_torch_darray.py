@@ -160,6 +160,40 @@ def test_dot_matches_jax(arrays, bool_mask):
                rtol=1e-5)
 
 
+@pytest.mark.parametrize('fill,data_dtype,out_dtype', [
+    (0, torch.float32, torch.float32), (0.0, torch.float32, torch.float32),
+    (np.float64(0), torch.float32, torch.float32),
+    (float('nan'), torch.bool, torch.float32), (0, torch.int32, torch.int32)],
+    ids=['int', 'float', 'np.float64', 'nan_into_bool', 'int_into_int32'])
+def test_where_scalar_fill_makes_no_host_tensor(monkeypatch, fill, data_dtype,
+                                               out_dtype):
+  """A scalar fill enters the select as a scalar: no CPU tensor reaches
+  ``_on_one_device``, whose copy of one to a card would wait for it (data
+  on the meta device stands in for a card's here)."""
+  seen = []
+  real = td._on_one_device
+
+  def spy(*tensors):
+    seen.extend(tensors)
+    return real(*tensors)
+
+  monkeypatch.setattr(td, '_on_one_device', spy)
+  x = td.DimArray(torch.zeros((3, 4), dtype=data_dtype, device='meta'),
+                  ('a', 'b'))
+  cond = td.DimArray(torch.ones(4, dtype=torch.bool, device='meta'), ('b',))
+  out = x.where(cond, fill)
+  assert seen and all(t.device.type == 'meta' for t in seen)
+  assert out.dims == ('a', 'b') and out.data.device.type == 'meta'
+  assert out.dtype == out_dtype
+  # On the CPU, the same values and dtype as a 0-d tensor fill gives.
+  xc = td.DimArray(torch.arange(12).reshape(3, 4).to(data_dtype), ('a', 'b'))
+  cc = td.DimArray(torch.tensor([True, False, True, False]), ('b',))
+  got = xc.where(cc, fill)
+  want = torch.where(cc.data, xc.data, torch.tensor(fill).to(out_dtype))
+  assert got.dtype == want.dtype
+  torch.testing.assert_close(got.data, want, equal_nan=True)
+
+
 def test_full_float32_matmul_precision():
   import weatherbenchx_tpu_torch  # noqa: F401
   assert not torch.backends.cuda.matmul.allow_tf32

@@ -7,13 +7,18 @@ Every metric is a function of weighted means of per-chunk statistics, so
 evaluation over many chunks reduces to summing ``(Σ w·s, Σ w)`` pairs — a
 commutative monoid — then applying each metric's finalizer to the means.
 
-Per chunk, each (statistic, variable) is contracted with its weights and
-bin masks in one ``darray.dot`` (``torch.einsum`` in full float32). The
-state serializes with the JAX package's ``#``-separated key schema.
+Per chunk, each (statistic, variable) is zeroed where masked in one
+``where`` and contracted in one ``darray.dot`` (``torch.einsum`` in full
+float32) with its weights and bin masks, as a layout keeps them in the
+contraction dtype (``_contraction_form``). The weights' indicator is
+contracted at the mask's own dims, and broadcast to the statistic's only
+where skipna makes it read the values (``INDICATOR_FORMS`` counts each).
+The state serializes with the JAX package's ``#``-separated key schema.
 """
 
 import dataclasses
 import functools
+import math
 import weakref
 from typing import (Any, Callable, Collection, Hashable, Iterable, Mapping,
                     MutableMapping, Sequence)
@@ -305,6 +310,79 @@ def _layout_key(stat: DimArray, read_coords: Collection[str] = ()) -> tuple:
 
 _UNSET = object()  # "build the operands here", as distinct from None (drop)
 
+# How often the weights' indicator was contracted in each form: at the
+# mask's own dims ('mask_dims': the statistic's values are not read), or
+# broadcast to the statistic's dims ('broadcast': skipna makes the mask
+# depend on the values).
+INDICATOR_FORMS = {'mask_dims': 0, 'broadcast': 0}
+
+
+def reset_indicator_forms() -> None:
+  """Zeroes ``INDICATOR_FORMS``."""
+  for k in INDICATOR_FORMS:
+    INDICATOR_FORMS[k] = 0
+
+
+class LayoutOperands(list):
+  """A layout's weights and bin masks, with their contraction form.
+
+  The list ``Aggregator.aggregation_operands`` builds, as
+  ``Aggregator.prepare_operands`` shares and caches it; the forms
+  ``_contraction_form`` builds are kept on it, once a layout.
+  """
+
+  def __init__(self, operands: Iterable[DimArray]):
+    super().__init__(operands)
+    self.forms: dict = {}
+
+
+def _contraction_form(operands: Sequence[DimArray], dtype: torch.dtype,
+                      device: torch.device) -> list[DimArray]:
+  """The operands as the contraction takes them: in ``dtype`` on
+  ``device``, largest first, each one whose dims lie within a larger one's
+  multiplied into it (area weights into the region masks over their grid).
+  Kept on a ``LayoutOperands``, so built once per layout, not per call."""
+  forms = getattr(operands, 'forms', {})
+  key = (dtype, device)
+  if key not in forms:
+    groups: list[DimArray] = []
+    for op in sorted(operands, key=lambda op: -op.data.numel()):
+      op = op.copy(data=op.data.to(device=device, dtype=dtype))
+      into = next((i for i, g in enumerate(groups)
+                   if set(op.dims) <= set(g.dims)), None)
+      if into is None:
+        groups.append(op)
+      else:
+        groups[into] = groups[into] * op
+    forms[key] = groups
+  return forms[key]
+
+
+def _summed_after(x: DimArray, groups: Sequence[DimArray],
+                  reduce: Sequence[str]) -> tuple[str, ...]:
+  """The reduce dims of ``x`` that its contraction with ``groups`` keeps
+  and sums afterwards.
+
+  Against one operand over x's grid, ``torch.einsum`` would first sum x's
+  reduce dims that the operand lacks (init_time), a pass over x, and then
+  contract the whole grid as one long K against a few rows, which the BLAS
+  splits. Kept, the dims before the grid become rows of the GEMM, and the
+  grid's first reduce dim a batch of GEMMs over the rest of the grid; the
+  sum over both then reads a result no larger than x, in a fixed order.
+  """
+  if len(groups) != 1:
+    return ()
+  (g,) = groups
+  shared = [d for d in x.dims if d in g.dims]
+  if not shared:
+    return ()
+  late = [d for d in x.dims[:x.dims.index(shared[0])] if d in reduce]
+  grid = [d for d in shared if d in reduce]
+  own = math.prod(n for d, n in g.sizes.items() if d not in x.dims)
+  if len(grid) > 1 and math.prod(x.sizes[d] for d in grid[1:]) >= own:
+    late.append(grid[0])
+  return tuple(late)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ChunkShard:
@@ -418,8 +496,44 @@ class Aggregator:
       operands = self.aggregation_operands(stat)
     if operands is None or not set(self.reduce_dims).issubset(stat.dims):
       return None
-    return darray.dot(stat, *operands, dim=tuple(
-        d for d in stat.dims if d in set(self.reduce_dims)))
+    return self._contract(stat, stat, operands)
+
+  def _contract(self, x: DimArray, stat: DimArray,
+                operands: Sequence[DimArray]) -> DimArray:
+    """``darray.dot(x.broadcast_like(stat), *operands)`` over the reduce
+    dims, for an ``x`` whose dims lie within ``stat``'s, without the
+    broadcast: ``x`` contracted at its own dims with the operands'
+    contraction form, times the sizes of the reduce dims that neither
+    spans, spread over the kept dims that x lacks. Dims, coords and dtype
+    are those of the contraction of ``stat`` itself."""
+    reduce_dims = set(self.reduce_dims)
+    reduce = tuple(d for d in stat.dims if d in reduce_dims)
+    dtype = functools.reduce(torch.promote_types, [stat.dtype] + [
+        op.dtype for op in operands if op.dtype != torch.bool])
+    if dtype == torch.bool:  # bool sums would be logical, as in darray.dot
+      dtype = torch.float32
+    device = next((t.device for t in [stat.data, x.data]
+                   + [op.data for op in operands]
+                   if t.device.type != 'cpu'), torch.device('cpu'))
+    groups = _contraction_form(operands, dtype, device)
+    x = x.astype(dtype)
+    spanned = set(x.dims).union(*[g.dims for g in groups])
+    late = _summed_after(x, groups, reduce)
+    out = darray.dot(x, *groups, dim=tuple(
+        d for d in reduce if d in spanned and d not in late))
+    if late:
+      out = out.sum(late)
+    out_dims = tuple(d for d in darray.broadcast_dims(
+        stat.dims, *[op.dims for op in operands]) if d not in reduce)
+    sizes = {d: n for op in operands for d, n in op.sizes.items()}
+    sizes.update(stat.sizes)
+    shape = tuple(sizes[d] for d in out_dims)
+    count = math.prod(stat.sizes[d] for d in reduce if d not in spanned)
+    data = darray._expand_to(out.data, out.dims, out_dims)
+    if count != 1 or data.shape != shape:
+      data = data.expand(shape) * count
+    return DimArray(data, out_dims, darray._merge_coords(
+        out_dims, stat.coords, *[op.coords for op in operands]))
 
   def _promote(self, stat: DimArray) -> DimArray:
     # A bool statistic would sum to a count in the contraction but must
@@ -427,24 +541,29 @@ class Aggregator:
     return stat.astype(torch.float32) if stat.dtype == torch.bool else stat
 
   def _prepare_masked(self, stat: DimArray) -> tuple[DimArray, DimArray]:
-    """masked/skipna prep: (zeroed statistic, weights-indicator mask)."""
+    """masked/skipna prep: (zeroed statistic, weights-indicator mask).
+
+    The mask keeps its own dims (the validity mask's, or none: ones where
+    nothing is masked) unless skipna makes it read the statistic's values.
+    """
     if self.masked and stat.has_coord('mask'):
-      mask = DimArray(stat.coords['mask'].values, stat.coords['mask'].dims)
+      c = stat.coords['mask']
+      if not set(c.dims).issubset(stat.dims):
+        raise ValueError(f'mask dims {c.dims} are not all dims of the '
+                         f'statistic {stat.dims}')
+      mask = DimArray(c.values, c.dims)
       if self.skipna:
-        mask = mask & ~stat.isnull()
-      # Zero the masked values in the stat (avoids NaN*0 -> NaN), and use
-      # the broadcast mask as the weights indicator.
+        mask = stat.notnull() & mask
+      # Zero the masked values in the stat (avoids NaN*0 -> NaN).
       stat = stat.where(mask, 0)
-      mask = mask.broadcast_like(stat)
+      mask = mask.copy(data=mask.data.expand(
+          tuple(stat.sizes[d] for d in mask.dims)))
     elif self.skipna:
-      mask = ~stat.isnull()
+      mask = stat.notnull()
       stat = stat.where(mask, 0)
     else:
-      mask = darray.ones_like(stat, dtype=torch.bool)
-    if mask.sizes != stat.sizes:
-      raise ValueError(f'mask sizes {mask.sizes} != statistic sizes '
-                       f'{stat.sizes}')
-    return stat, mask.astype(stat.dtype)
+      mask = DimArray(torch.ones((), dtype=stat.dtype, device=stat.device))
+    return stat, mask
 
   def aggregate_stat_var(self, stat: DimArray,
                          operands=_UNSET) -> AggregationState | None:
@@ -455,9 +574,10 @@ class Aggregator:
       operands = self.aggregation_operands(stat)
     if operands is None or not set(self.reduce_dims).issubset(stat.dims):
       return None
-    stat, maskf = self._prepare_masked(stat)
-    return AggregationState(self.aggregation_fn(stat, operands),
-                            self.aggregation_fn(maskf, operands))
+    stat, mask = self._prepare_masked(stat)
+    INDICATOR_FORMS['broadcast' if self.skipna else 'mask_dims'] += 1
+    return AggregationState(self._contract(stat, stat, operands),
+                            self._contract(mask, stat, operands))
 
   def aggregate_stat_vars(
       self, stats: Mapping[Hashable, DimArray],
@@ -515,7 +635,7 @@ class Aggregator:
             ops = [shard.take(op) for op in ops]
           if ops is not None and device is not None:
             ops = [op.copy(data=op.data.to(device)) for op in ops]
-          cache[key] = ops
+          cache[key] = None if ops is None else LayoutOperands(ops)
         out[name][var] = cache[key]
     return out
 

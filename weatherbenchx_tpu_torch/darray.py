@@ -321,6 +321,7 @@ class DimArray:
   def where(self, cond, other=float('nan')) -> DimArray:
     """Keep values where cond is True, else ``other`` (xarray semantics)."""
     cond_da = cond if isinstance(cond, DimArray) else DimArray(cond)
+    fill = None
     if isinstance(other, DimArray):
       other_da = other
     else:
@@ -334,15 +335,23 @@ class DimArray:
           other_t = other_t.to(self.dtype)
         elif other_t.is_floating_point():
           other_t = other_t.to(torch.get_default_dtype())
+        if other_t.device.type == 'cpu':
+          # Into the select as a scalar (of the same type): a host tensor
+          # would be copied to the data's device from pageable memory,
+          # which waits for the device.
+          fill = other_t.item()
       other_da = DimArray(other_t)
     _check_shared_sizes((self.dims, self.shape),
                         (cond_da.dims, cond_da.shape),
                         (other_da.dims, other_da.shape))
     out_dims = broadcast_dims(self.dims, cond_da.dims, other_da.dims)
-    x, c, o = _on_one_device(self.data, cond_da.data, other_da.data)
+    if fill is None:
+      x, c, o = _on_one_device(self.data, cond_da.data, other_da.data)
+      fill = _expand_to(o, other_da.dims, out_dims)
+    else:
+      x, c = _on_one_device(self.data, cond_da.data)
     data = torch.where(_expand_to(c, cond_da.dims, out_dims),
-                       _expand_to(x, self.dims, out_dims),
-                       _expand_to(o, other_da.dims, out_dims))
+                       _expand_to(x, self.dims, out_dims), fill)
     return DimArray(data, out_dims,
                     _merge_coords(out_dims, self.coords, cond_da.coords))
 
