@@ -26,6 +26,9 @@ A metric's value per (lead, region) follows from the weighted means over
   fair_crps = skill - spread / 2; spread_skill = sqrt(var / umse);
   ensemble_mean_rmse = sqrt(umse).
 
+This is the default reference module (``spec.py`` gives the contract):
+a configuration that names no ``reference_module`` is held to this one.
+
 The members are sorted in float32 (a sort is exact) and then taken to
 float64. The points go in blocks of about ``BLOCK_VALUES`` members, so
 that a block's temporaries fit beside the chunks on the device.
@@ -47,6 +50,25 @@ REFERENCE_METRICS = {
                      lambda s: torch.sqrt(s['var'] / s['umse'])),
     'ensemble_mean_rmse': (('umse',), lambda s: torch.sqrt(s['umse'])),
 }
+
+
+def grid(config: dict) -> tuple:
+  """(latitudes north to south, as ERA5 stores them; longitudes) in
+  degrees, float64: the equiangular grid with both poles that the
+  configuration's sizes give."""
+  ny, nx = config['latitudes'], config['longitudes']
+  return 90 - np.arange(ny) * (180 / (ny - 1)), np.arange(nx) * (360 / nx)
+
+
+def validity_mask(config: dict) -> np.ndarray:
+  """(latitude, longitude) bool of the points the stores hold:
+  ``drop_pole_rows`` leaves out the two pole rows."""
+  mask = np.ones((config['latitudes'], config['longitudes']), bool)
+  if config.get('mask') == 'drop_pole_rows':
+    mask[[0, -1]] = False
+  elif config.get('mask') not in (None, 'none'):
+    raise ValueError(f'unknown mask {config["mask"]!r}')
+  return mask
 
 
 def area_weights(lat_deg: np.ndarray) -> np.ndarray:
@@ -166,11 +188,35 @@ class Reference:
             for name, ref in self.metrics.items()}
 
 
-def relative_gap(got: np.ndarray, want: np.ndarray) -> float:
-  """max |got - want| / |want|; inf where either is not finite or the
-  shapes differ."""
+def values(config: dict, traffic: dict, scoring, pool: list,
+           resources: dict, counts: dict, device) -> dict:
+  """The default reference module's values (``spec.py`` gives the
+  contract): ``{metric: {variable: (('lead_time', 'region'), (L, R)
+  float64, {'region': names})}}``, each pool chunk ``j`` summed
+  ``counts[j]`` times."""
+  del traffic, resources
+  lat, lon = grid(config)
+  ref = Reference(config, scoring.metrics, scoring.target, lat, lon,
+                  validity_mask(config), device)
+  n = [counts.get(j, 0) for j in range(len(pool))]
+  out = {name: {} for name in scoring.metrics}
+  for var in config['variables']:
+    sums = [ref.chunk_sums(pc.forecast[var],
+                           pc.target[var] if scoring.target ==
+                           'deterministic' else pc.analysis[var])
+            for pc in pool]
+    for name, want in ref.values(sums, n).items():
+      out[name][var] = (('lead_time', 'region'), want.cpu().numpy(),
+                        {'region': ref.regions})
+  return out
+
+
+def relative_gap(got: np.ndarray, want: np.ndarray,
+                 floor: float = 0.0) -> float:
+  """max |got - want| / max(|want|, floor); inf where either is not
+  finite or the shapes differ."""
   got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
   if got.shape != want.shape or not (np.isfinite(got).all()
                                      and np.isfinite(want).all()):
     return math.inf
-  return float(np.max(np.abs(got - want) / np.abs(want)))
+  return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), floor)))

@@ -4,11 +4,15 @@
       --trace <0|1>
 
 From the root of a checkout. The cell's files are found by name
-(``spec.py``). Set-up (counted in ``setup_s``, from the start of the
-process): ``import torch`` and the port, the CUDA context, the pool of
-distinct chunks made on the card from ``--seed`` (``traffic.py``), one
-evaluator per scoring, and each pool chunk handed over once through the
-timed calls (the kernel library is loaded, and on a checkout's first run
+(``spec.py``, which also gives the contracts of a generator module, a
+reference module and a resource named in a metric set). Set-up (counted
+in ``setup_s``, from the start of the process): ``import torch`` and the
+port, the CUDA context, the pool of distinct chunks made on the card from
+``--seed`` and the resources its metric sets and aggregation name
+(climatologies, a land-sea mask), by the cell's generator module
+(``traffic.py`` unless the configuration names another), one evaluator
+per scoring, and each pool chunk handed over once through the timed
+calls (the kernel library is loaded, and on a checkout's first run
 built, there), its values taken to the host; then the kernel route of
 those chunks is held to the traffic's ``route`` (launches and member
 counts a chunk, the fused kernel's form), and a cell that takes another
@@ -25,19 +29,24 @@ until ``--seconds`` have passed; then the metric values
 follows the window, in the same states, before the values are taken.
 
 Then, the peak memory read and the port's states freed, the plain
-reference (``reference.py``) works every metric value out again in float64
-from the same pool, summed over as many chunks of each pool chunk as the
-run handed over, and each metric's largest relative gap is held to the
-traffic's limit: that decides ``correct``. The last line of standard
-output is the result, one JSON object; the numbers compared, each beside
-its limit, end both it (``checks``) and standard error.
+reference (``reference.py`` unless the configuration names another) works
+every metric value out again in float64 from the same pool and resources,
+summed over as many chunks of each chunk key (the generator's
+``chunk_key``: the pool chunk, and whatever else decides a chunk's
+statistics) as the run handed over, and each metric's largest relative
+gap, over every dim of the reference's values, is held to its limit (a
+value of the port that the reference leaves out fails): that decides
+``correct``. The last line of standard output is the result, one
+JSON object; the numbers compared, each beside its limit, end both it
+(``checks``) and standard error.
 
 Without a CUDA card (or with fewer than the cell's chips) it exits with 2
 and prints no result; so it does, with 3, where a module whose top-level
 name is jax, jaxlib, flax or weatherbenchx_tpu (the JAX package) is loaded
 once the window has closed. ``--control bf16`` runs the control of the
 comparison, the port's own bfloat16 path (the pool handed over in
-bfloat16); the benchmark's own runs never do.
+bfloat16, as the generator makes it with ``dtype``); the benchmark's own
+runs never do.
 """
 
 import time
@@ -46,6 +55,7 @@ _PROCESS_START = time.perf_counter()
 
 # pylint: disable=wrong-import-position
 import argparse
+import collections
 import contextlib
 import gc
 import json
@@ -59,7 +69,6 @@ import tempfile
 FORBIDDEN_MODULES = ('jax', 'jaxlib', 'flax', 'weatherbenchx_tpu')
 # Chunks the host may run ahead of the card.
 AHEAD = 2
-REDUCE_DIMS = ('init_time', 'latitude', 'longitude')
 
 
 class RouteError(RuntimeError):
@@ -150,46 +159,36 @@ class _Marks:
 
 
 def _host_values(values: dict) -> dict:
-  """{key: (dims, float64 numpy, region labels)} of metric values."""
+  """{key: (dims, float64 numpy, {dim: [label as str]} of the dims with
+  coords)} of metric values."""
   out = {}
   for key, da in values.items():
-    regions = (list(map(str, da.coord_values('region')))
-               if da.has_coord('region') else None)
-    out[key] = (da.dims, da.data.detach().cpu().double().numpy(), regions)
+    labels = {d: list(map(str, da.coord_values(d))) for d in da.dims
+              if da.has_coord(d)}
+    out[key] = (da.dims, da.data.detach().cpu().double().numpy(), labels)
   return out
 
 
-def _metric_gap(got, want, regions) -> float:
-  """The reference module's relative gap of port values ``got`` (from
-  _host_values) against ``want`` (lead, region); inf if missing or laid
-  out otherwise."""
+def _gap(got, want, floor: float) -> float:
+  """The relative gap (``reference.relative_gap``) of port values ``got``
+  (from _host_values) against the reference's ``want`` (dims, values,
+  labels), laid out as ``want``: its dims in its order, the dims it labels
+  in its label order; inf if missing or laid out otherwise."""
   from wbxbench import reference
   if got is None:
     return math.inf
   dims, data, labels = got
-  if dims != ('lead_time', 'region') or labels is None or (
-      sorted(labels) != sorted(regions)):
+  want_dims, want_data, want_labels = want
+  if sorted(dims) != sorted(want_dims):
     return math.inf
-  data = data[:, [labels.index(r) for r in regions]]
-  return reference.relative_gap(data, want.detach().cpu().numpy())
-
-
-def _pool_as(config, traffic, seed, device, dtype) -> list:
-  """The pool in ``dtype``, made chunk by chunk, so that a chunk's
-  float32 arrays are freed, and handed back to the card, before the next
-  is made."""
-  import torch
-  from wbxbench import traffic as traffic_lib
-  out = []
-  for j in range(traffic['pool']):
-    pc = traffic_lib.make_chunk(config, traffic, seed, j, device)
-    out.append(traffic_lib.PoolChunk(
-        *({v: t.to(dtype) for v, t in side.items()}
-          for side in (pc.forecast, pc.target, pc.analysis))))
-    del pc
-    if torch.device(device).type == 'cuda':
-      torch.cuda.empty_cache()
-  return out
+  data = data.transpose([dims.index(d) for d in want_dims])
+  for axis, d in enumerate(want_dims):
+    if d in want_labels:
+      have, order = labels.get(d), [str(x) for x in want_labels[d]]
+      if have is None or sorted(have) != sorted(order):
+        return math.inf
+      data = data.take([have.index(x) for x in order], axis=axis)
+  return reference.relative_gap(data, want_data, floor)
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device='cuda',
@@ -197,30 +196,27 @@ def run(cell, seed: int, seconds: float, trace: bool, device='cuda',
   """One run of ``cell`` (a ``spec.Cell``) on ``device``; returns the
   result (the last line's object; its ``checks`` last)."""
   import torch
-  from weatherbenchx_tpu_torch import aggregation, binning, weighting
+  from weatherbenchx_tpu_torch import aggregation
   from weatherbenchx_tpu_torch.ops import crps_pairwise
   from weatherbenchx_tpu_torch.parallel import evaluator
-  from wbxbench import spec, traffic as traffic_lib
+  from wbxbench import reference, spec
   torch.set_num_threads(1)
   cuda = torch.device(device).type == 'cuda'
   if control not in (None, 'bf16'):
     raise ValueError(f'unknown control {control!r}')
-  config, traffic = cell.config, cell.traffic
-  mask = torch.from_numpy(traffic_lib.validity_mask(config)).to(device)
+  config, traffic, gen = cell.config, cell.traffic, cell.generator
+  mask = torch.from_numpy(reference.validity_mask(config)).to(device)
   if control == 'bf16':
-    program_pool = _pool_as(config, traffic, seed, device, torch.bfloat16)
+    program_pool = gen.make_pool(config, traffic, seed, device,
+                                 dtype=torch.bfloat16)
   else:
-    pool = program_pool = traffic_lib.make_pool(config, traffic, seed,
-                                                device)
+    pool = program_pool = gen.make_pool(config, traffic, seed, device)
+  resources = gen.resources(config, traffic, seed, device)
   scorers = []
   for scoring in cell.scorings:
-    metrics = spec.port_metrics(scoring)
-    aggregator = aggregation.Aggregator(
-        reduce_dims=list(REDUCE_DIMS),
-        weigh_by=[weighting.GridAreaWeighting()],
-        bin_by=[binning.Regions(config['regions'])], masked=True)
+    metrics = spec.port_metrics(scoring, resources)
     scorers.append((scoring, metrics, evaluator.ChunkEvaluator(
-        metrics, aggregator, device=device)))
+        metrics, spec.port_aggregator(cell, resources), device=device)))
   n_pool = len(program_pool)
 
   def hand_over(c: int, states: list, ranges: bool) -> float:
@@ -229,8 +225,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device='cuda',
     host = 0.0
     pc = program_pool[c % n_pool]
     for k, (scoring, _, ev) in enumerate(scorers):
-      preds, tgts = traffic_lib.handover(config, traffic, pc, c,
-                                         scoring.target, mask)
+      preds, tgts = gen.handover(config, traffic, pc, c, scoring.target,
+                                 mask)
       t = time.perf_counter()
       with _range(torch, 'bench.prepare_pair', ranges):
         pair = ev.prepare_pair(preds, tgts)
@@ -300,12 +296,12 @@ def run(cell, seed: int, seconds: float, trace: bool, device='cuda',
   if cuda:
     torch.cuda.empty_cache()
   if control == 'bf16':
-    pool = traffic_lib.make_pool(config, traffic, seed, device)
-  counts = [0] * n_pool
-  for k in range(n_pool, n_pool + chunks):
-    counts[k % n_pool] += 1
+    pool = gen.make_pool(config, traffic, seed, device)
+  counts = collections.Counter(
+      gen.chunk_key(config, traffic, k, n_pool)
+      for k in range(n_pool, n_pool + chunks))
   t_ref = time.perf_counter()
-  checks = _checks(cell, values, pool, counts, device)
+  checks = _checks(cell, values, pool, resources, counts, device)
   reference_s = time.perf_counter() - t_ref
   correct = bool(checks) and all(
       v['value'] is not None and v['value'] <= v['limit']
@@ -331,9 +327,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device='cuda',
     metrics_out = {m['name']: {'value': e2e[m['name']], 'unit': m['unit']}
                    for m in cell.end_to_end}
   log(f'{cell.name} seed {seed}: {window_chunks} chunks in the window, '
-      f'{chunks} in all (pool counts {counts}), setup {setup_s:.3f} s, '
-      f'window to values {t_values - t0:.3f} s ({full_gc.count} full '
-      f'collections of the Python heap, {full_gc.seconds:.3f} s), reference '
+      f'{chunks} in all ({len(counts)} chunk keys: {dict(counts)}), setup '
+      f'{setup_s:.3f} s, window to values {t_values - t0:.3f} s '
+      f'({full_gc.count} full collections of the Python heap, '
+      f'{full_gc.seconds:.3f} s), reference '
       f'{reference_s:.3f} s, card {card}, control {control}')
   result = {'correct': correct, 'attempted': chunks, 'failed': 0,
             'metrics': metrics_out, 'device': device_info}
@@ -400,29 +397,25 @@ def _traced_stretch(torch, device, n: int, hand_over, first: int,
     return trace_lib.reduce(path, kernels)
 
 
-def _checks(cell, values: list, pool: list, counts: list, device) -> dict:
+def _checks(cell, values: list, pool: list, resources: dict,
+            counts: collections.Counter, device) -> dict:
   """{'<metric>.<variable>': {'value': the largest relative gap to the
-  reference, or None where a value is missing or not finite; 'limit'}}."""
-  from wbxbench import reference, traffic as traffic_lib
-  config = cell.config
-  lat, lon = traffic_lib.grid(config)
-  mask = traffic_lib.validity_mask(config)
+  cell's reference module (each metric's ``gap_floor``, else 0), or None
+  where a value is missing, not finite or not in the reference; 'limit':
+  the traffic's ``metric_rel_gap``}}."""
   limit = cell.traffic['limits']['metric_rel_gap']
   checks = {}
   for scoring, got in zip(cell.scorings, values):
-    ref = reference.Reference(config, scoring.metrics, scoring.target, lat,
-                              lon, mask, device)
-    for var in config['variables']:
-      sums = [ref.chunk_sums(pc.forecast[var],
-                             pc.target[var] if scoring.target ==
-                             'deterministic' else pc.analysis[var])
-              for pc in pool]
-      want = ref.values(sums, counts)
-      for name in scoring.metrics:
-        key = f'{name}.{var}'
-        gap = _metric_gap(got.get(key), want[name], ref.regions)
-        checks[key] = {'value': gap if math.isfinite(gap) else None,
-                       'limit': limit}
+    want = cell.reference.values(cell.config, cell.traffic, scoring, pool,
+                                 resources, counts, device)
+    for name, per_variable in want.items():
+      floor = scoring.metrics[name].get('gap_floor', 0.0)
+      for var, w in per_variable.items():
+        gap = _gap(got.get(f'{name}.{var}'), w, floor)
+        checks[f'{name}.{var}'] = {
+            'value': gap if math.isfinite(gap) else None, 'limit': limit}
+    for key in got:
+      checks.setdefault(key, {'value': None, 'limit': limit})
   return checks
 
 

@@ -23,6 +23,9 @@ A cell's pool holds ``pool`` such chunks of ``chunk['init_times']`` inits x
 calls. The same seed gives the same pool on any run; every seed gives the
 same shapes. ``handover`` wraps a pool chunk into fresh ``DimArray``s with
 an init time of its own for each chunk of the window.
+
+This is the default generator module (``spec.py`` gives the contract): a
+configuration that names no ``generator_module`` runs this one.
 """
 
 import dataclasses
@@ -30,6 +33,10 @@ import hashlib
 
 import numpy as np
 import torch
+
+# The grid (latitudes north to south, as ERA5 stores them), as the
+# reference works it out from the configuration.
+from wbxbench.reference import grid
 
 ENSEMBLE_DIM = 'number'
 DIMS = ('init_time', 'lead_time', 'latitude', 'longitude')
@@ -51,26 +58,6 @@ class PoolChunk:
   forecast: dict
   target: dict
   analysis: dict
-
-
-def grid(config: dict) -> tuple:
-  """(latitudes north to south, as ERA5 stores them; longitudes), in
-  degrees, float64."""
-  ny, nx = config['latitudes'], config['longitudes']
-  lat = 90 - np.arange(ny) * (180 / (ny - 1))
-  lon = np.arange(nx) * (360 / nx)
-  return lat, lon
-
-
-def validity_mask(config: dict) -> np.ndarray:
-  """(latitude, longitude) bool: the gridpoints the stores hold values at;
-  ``drop_pole_rows`` leaves out the two pole rows."""
-  mask = np.ones((config['latitudes'], config['longitudes']), bool)
-  if config.get('mask') == 'drop_pole_rows':
-    mask[[0, -1]] = False
-  elif config.get('mask') not in (None, 'none'):
-    raise ValueError(f'unknown mask {config["mask"]!r}')
-  return mask
 
 
 def lead_hours(config: dict, chunk: dict) -> np.ndarray:
@@ -127,9 +114,42 @@ def make_chunk(config: dict, traffic: dict, seed: int, j: int,
   return out
 
 
-def make_pool(config: dict, traffic: dict, seed: int, device) -> list:
-  return [make_chunk(config, traffic, seed, j, device)
-          for j in range(traffic['pool'])]
+def pool_in(make, n: int, device, dtype=None) -> list:
+  """``[make(j) for j in range(n)]``, the pool chunks. With a ``dtype``
+  (the control's), each chunk is made in float32 and handed back to the
+  device in that type before the next is made, so that its float32 arrays
+  are freed."""
+  if dtype is None:
+    return [make(j) for j in range(n)]
+  out = []
+  for j in range(n):
+    pc = make(j)
+    out.append(PoolChunk(*({v: t.to(dtype) for v, t in side.items()}
+                           for side in (pc.forecast, pc.target, pc.analysis))))
+    del pc
+    if torch.device(device).type == 'cuda':
+      torch.cuda.empty_cache()
+  return out
+
+
+def make_pool(config: dict, traffic: dict, seed: int, device,
+              dtype=None) -> list:
+  """The cell's ``traffic['pool']`` distinct chunks (``pool_in``)."""
+  return pool_in(lambda j: make_chunk(config, traffic, seed, j, device),
+                 traffic['pool'], device, dtype)
+
+
+def resources(config: dict, traffic: dict, seed: int, device) -> dict:
+  """No resources: the ensemble scorings read no climatology and no
+  land-sea mask."""
+  del config, traffic, seed, device
+  return {}
+
+
+def chunk_key(config: dict, traffic: dict, c: int, pool: int) -> int:
+  """A chunk's statistics depend on its pool chunk alone."""
+  del config, traffic
+  return c % pool
 
 
 def handover(config: dict, traffic: dict, pool_chunk: PoolChunk, c: int,
