@@ -367,6 +367,48 @@ def test_masks_of_one_layout_give_their_own_indicators():
                          got[1][1].sum_weights.values)
 
 
+@pytest.mark.parametrize('masked', [False, True], ids=['unmasked', 'masked'])
+def test_statistics_of_a_layout_share_an_unmasked_indicator(masked,
+                                                            monkeypatch):
+  """Where nothing is masked, the statistics of one layout share one
+  contraction of the weights' indicator, kept on the layout's operands
+  across calls, with the bits of contracting it each time and each
+  statistic's own coords; a masked statistic contracts its own mask every
+  time."""
+  agg = _layout_aggregator('torch', 'regions', masked=masked)
+  indicators = []
+  contract = aggregation.Aggregator._contract
+
+  def counted(self, x, stat, operands):
+    if x is not stat:
+      indicators.append(x.ndim)
+    return contract(self, x, stat, operands)
+  monkeypatch.setattr(aggregation.Aggregator, '_contract', counted)
+  cache = {}
+  stats = []
+  for seed in (60, 61):
+    stat = _masked_stat(td, np.float32, 'none', seed)
+    stats.append(stat.assign_coords(mask=td.Coord(
+        ('latitude', 'longitude'),
+        torch.as_tensor(stat.coord_values('mask')))))
+  stats.append(stats[0].assign_coords(lead_time=LEADS + np.timedelta64(
+      24, 'h')))
+  ops = [agg.prepare_operands({'s': {'v': s}}, cache)['s']['v']
+         for s in stats]
+  assert ops[0] is ops[1] is ops[2] and len(cache) == 1
+  got = [agg.aggregate_stat_var(s, o) for s, o in zip(stats, ops)]
+  assert len(indicators) == (3 if masked else 1)
+  want = [agg.aggregate_stat_var(s, list(o)) for s, o in zip(stats, ops)]
+  for s, g, w in zip(stats, got, want):
+    assert g.sum_weights.dims == w.sum_weights.dims
+    assert torch.equal(g.sum_weights.data, w.sum_weights.data)
+    assert sorted(g.sum_weights.coords) == sorted(w.sum_weights.coords)
+    np.testing.assert_array_equal(g.sum_weights.coord_values('lead_time'),
+                                  s.coord_values('lead_time'))
+    assert torch.equal(g.sum_weighted_statistics.data,
+                       w.sum_weighted_statistics.data)
+
+
 def test_indicator_forms_count_each_form_and_reset():
   """``INDICATOR_FORMS``: the mask's own dims with skipna off, masked or
   not; the broadcast with skipna on; zeros after the reset."""

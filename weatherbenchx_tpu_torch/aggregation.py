@@ -12,7 +12,9 @@ Per chunk, each (statistic, variable) is zeroed where masked in one
 float32) with its weights and bin masks, as a layout keeps them in the
 contraction dtype (``_contraction_form``). The weights' indicator is
 contracted at the mask's own dims, and broadcast to the statistic's only
-where skipna makes it read the values (``INDICATOR_FORMS`` counts each).
+where skipna makes it read the values (``INDICATOR_FORMS`` counts each);
+where nothing is masked it depends on the layout alone and is contracted
+once a layout (``Aggregator._indicator``).
 The state serializes with the JAX package's ``#``-separated key schema.
 """
 
@@ -40,7 +42,7 @@ def _host_dim_coords_equal(a: DimArray, b: DimArray) -> bool:
     ca, cb = a.coords.get(d), b.coords.get(d)
     if (ca is None) != (cb is None):
       return False
-    if ca is None:
+    if ca is None or ca is cb or ca.values is cb.values:
       continue
     if ca.is_host != cb.is_host:
       return False
@@ -334,6 +336,7 @@ class LayoutOperands(list):
   def __init__(self, operands: Iterable[DimArray]):
     super().__init__(operands)
     self.forms: dict = {}
+    self.indicators: dict = {}
 
 
 def _contraction_form(operands: Sequence[DimArray], dtype: torch.dtype,
@@ -516,7 +519,8 @@ class Aggregator:
                    + [op.data for op in operands]
                    if t.device.type != 'cpu'), torch.device('cpu'))
     groups = _contraction_form(operands, dtype, device)
-    x = x.astype(dtype)
+    if x.dtype != dtype:
+      x = x.astype(dtype)
     spanned = set(x.dims).union(*[g.dims for g in groups])
     late = _summed_after(x, groups, reduce)
     out = darray.dot(x, *groups, dim=tuple(
@@ -540,11 +544,12 @@ class Aggregator:
     # aggregate to a weighted mean: promote it first (xr.dot promotes too).
     return stat.astype(torch.float32) if stat.dtype == torch.bool else stat
 
-  def _prepare_masked(self, stat: DimArray) -> tuple[DimArray, DimArray]:
+  def _prepare_masked(self, stat: DimArray
+                      ) -> tuple[DimArray, DimArray | None]:
     """masked/skipna prep: (zeroed statistic, weights-indicator mask).
 
-    The mask keeps its own dims (the validity mask's, or none: ones where
-    nothing is masked) unless skipna makes it read the statistic's values.
+    The mask keeps its own dims (the validity mask's) unless skipna makes
+    it read the statistic's values; None where nothing is masked.
     """
     if self.masked and stat.has_coord('mask'):
       c = stat.coords['mask']
@@ -562,8 +567,32 @@ class Aggregator:
       mask = stat.notnull()
       stat = stat.where(mask, 0)
     else:
-      mask = DimArray(torch.ones((), dtype=stat.dtype, device=stat.device))
+      mask = None
     return stat, mask
+
+  def _indicator(self, mask: DimArray | None, stat: DimArray,
+                 operands: Sequence[DimArray]) -> DimArray:
+    """The weights' indicator: ``mask`` contracted as ``stat`` is.
+
+    Where nothing is masked (``mask`` None) it is the operands' own sum
+    over the reduce dims, spread over ``stat``'s kept dims: it reads
+    ``stat``'s dims, shape, dtype and device alone, so a
+    ``LayoutOperands`` keeps it once for each of them, and the
+    statistics of a layout share one contraction, in every chunk. The
+    coords are the statistic's, as ``_contract`` merges them.
+    """
+    if mask is not None:
+      return self._contract(mask, stat, operands)
+    ones = DimArray(torch.ones((), dtype=stat.dtype, device=stat.device))
+    kept = getattr(operands, 'indicators', None)
+    if kept is None:
+      return self._contract(ones, stat, operands)
+    key = (stat.dims, stat.shape, stat.dtype, stat.device)
+    if key not in kept:
+      kept[key] = self._contract(ones, stat, operands)
+    out = kept[key]
+    return DimArray(out.data, out.dims, darray._merge_coords(
+        out.dims, stat.coords, *[op.coords for op in operands]))
 
   def aggregate_stat_var(self, stat: DimArray,
                          operands=_UNSET) -> AggregationState | None:
@@ -577,7 +606,7 @@ class Aggregator:
     stat, mask = self._prepare_masked(stat)
     INDICATOR_FORMS['broadcast' if self.skipna else 'mask_dims'] += 1
     return AggregationState(self._contract(stat, stat, operands),
-                            self._contract(mask, stat, operands))
+                            self._indicator(mask, stat, operands))
 
   def aggregate_stat_vars(
       self, stats: Mapping[Hashable, DimArray],

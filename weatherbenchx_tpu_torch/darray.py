@@ -154,9 +154,10 @@ def _merge_coords(
 ) -> dict[str, Coord]:
   """Merges coords of operands whose dims fit result_dims; first one wins."""
   out: dict[str, Coord] = {}
+  kept = set(result_dims)
   for cd in coord_dicts:
     for name, coord in cd.items():
-      if name not in out and set(coord.dims).issubset(result_dims):
+      if name not in out and kept.issuperset(coord.dims):
         out[name] = coord
   return out
 
@@ -190,10 +191,14 @@ class DimArray:
     self.dims = dims
     cdict: dict[str, Coord] = {}
     for name, c in (coords or {}).items():
-      coord = _as_coord(name, c, dims)
-      if coord.dims == (name,) and name in dims:
+      coord = c if type(c) is Coord else _as_coord(name, c, dims)
+      cdims = coord.dims
+      if len(cdims) == 1 and cdims[0] == name and name in dims:
         n = data.shape[dims.index(name)]
-        cn = np.shape(coord.values)[0] if np.ndim(coord.values) else 1
+        v = coord.values
+        vshape = v.shape if isinstance(v, (np.ndarray, torch.Tensor)) else (
+            np.shape(v))
+        cn = vshape[0] if vshape else 1
         if cn != n:
           raise ValueError(
               f'coordinate {name!r} has {cn} labels but dim {name!r} has '
@@ -389,10 +394,12 @@ class DimArray:
     if isinstance(o, (int, float, np.number)) and not isinstance(o, bool):
       # torch computes scalar / tensor as reciprocal(tensor) * scalar, two
       # roundings; numpy and XLA divide once. A 0-d tensor of the result
-      # dtype divides correctly rounded and promotes like the scalar.
+      # dtype divides correctly rounded and promotes like the scalar. It
+      # stays on the host: a 0-d CPU tensor enters a device kernel as its
+      # scalar, where one made on the device is a copy from pageable host
+      # memory that waits for the device.
       dt = torch.result_type(self.data, o)
-      o = torch.tensor(o, dtype=dt, device=self.device)
-      return self.copy(data=torch.div(o, self.data))
+      return self.copy(data=torch.div(torch.tensor(o, dtype=dt), self.data))
     return self._binary_op(o, operator.truediv, True)
   def __pow__(self, o): return self._binary_op(o, operator.pow)
   # jnp.mod takes the divisor's sign: torch.remainder, not torch.fmod.

@@ -14,7 +14,13 @@ The port of ``weatherbenchx_tpu/metrics/base.py``:
   climatology on the host; the evaluator uploads it once and maps it to
   the device copy through ``device_resources``. Alignment indices, and
   for climatologies too large to keep on the device the aligned values,
-  are built per chunk on the host by ``Statistic.prepare_chunk``.
+  are built per chunk on the host by ``Statistic.prepare_chunk``; the
+  statistics of a chunk share one alignment of its valid times
+  (``alignment_memo``). Each
+  gather opens a span (``wbx.climatology`` on the device,
+  ``wbx.climatology_host`` on the host) and counts the bytes it writes in
+  ``observability.default_metrics`` (``climatology_gather_bytes``,
+  ``climatology_host_gather_bytes``).
 """
 
 import abc
@@ -25,6 +31,7 @@ from typing import Any, Hashable, Iterator, Mapping, final
 import numpy as np
 import torch
 
+from weatherbenchx_tpu_torch import observability
 from weatherbenchx_tpu_torch.darray import Coord, DimArray, _label_indices
 
 # -- device resources ---------------------------------------------------------
@@ -476,16 +483,19 @@ def gather_climatology(
   time dims, then its other (spatial) dims, and their coords.
   """
   time_dims, other_dims, order, tshape = _gather_layout(clim, indices)
-  data = clim.data.permute(order)
-  data = data.reshape((-1,) + tuple(data.shape[len(time_dims):]))
-  flat = None
-  stride = 1
-  for d, s in zip(reversed(time_dims), reversed(tshape)):
-    i = torch.as_tensor(indices[d], device=data.device).long() * stride
-    flat = i if flat is None else flat + i
-    stride *= s
-  gathered = data.index_select(0, flat.reshape(-1))
-  gathered = gathered.reshape(tuple(flat.shape) + tuple(data.shape[1:]))
+  with observability.span('wbx.climatology'):
+    data = clim.data.permute(order)
+    data = data.reshape((-1,) + tuple(data.shape[len(time_dims):]))
+    flat = None
+    stride = 1
+    for d, s in zip(reversed(time_dims), reversed(tshape)):
+      i = torch.as_tensor(indices[d], device=data.device).long() * stride
+      flat = i if flat is None else flat + i
+      stride *= s
+    gathered = data.index_select(0, flat.reshape(-1))
+    gathered = gathered.reshape(tuple(flat.shape) + tuple(data.shape[1:]))
+  observability.default_metrics.counter(
+      'climatology_gather_bytes', gathered.numel() * gathered.element_size())
   return DimArray(gathered, tuple(out_dims) + tuple(other_dims),
                   _spatial_coords(clim, other_dims))
 
@@ -509,8 +519,32 @@ def gather_climatology_host(
     stride *= s
   gathered = np.take(data, flat.reshape(-1), axis=0).reshape(
       flat.shape + data.shape[1:])
+  observability.default_metrics.counter('climatology_host_gather_bytes',
+                                        gathered.nbytes)
   return DimArray(gathered, tuple(out_dims) + tuple(other_dims),
                   _spatial_coords(clim, other_dims))
+
+
+_ACTIVE_ALIGNMENTS = threading.local()
+
+
+@contextlib.contextmanager
+def alignment_memo():
+  """A memo of the index coords ``attach_climatology_indices`` makes,
+  shared by the host hooks of one chunk's preparation: the statistics
+  whose climatologies share time labels (ACC's three, SEEPS's thresholds)
+  align a chunk's valid times once, not once each."""
+  prev = getattr(_ACTIVE_ALIGNMENTS, 'memo', None)
+  _ACTIVE_ALIGNMENTS.memo = {}
+  try:
+    yield
+  finally:
+    _ACTIVE_ALIGNMENTS.memo = prev
+
+
+def _labels_key(values) -> tuple:
+  v = np.asarray(values)
+  return (v.dtype.str, v.shape, v.tobytes())
 
 
 def attach_climatology_indices(
@@ -520,8 +554,13 @@ def attach_climatology_indices(
   """Attaches host int32 alignment-index coords to each prediction.
 
   Host-side per chunk (O(number of valid times)); the evaluator moves them
-  to the device with the chunk.
+  to the device with the chunk. Variables with the same time coords,
+  aligned to climatologies with the same time labels, share one set of
+  coords (within ``alignment_memo``, across the statistics of a chunk),
+  and a prediction that already carries them is left as it is.
   """
+  memo = getattr(_ACTIVE_ALIGNMENTS, 'memo', None)
+  memo = {} if memo is None else memo
   out = dict(predictions)
   for var, da in predictions.items():
     if var in climatology:
@@ -532,11 +571,20 @@ def attach_climatology_indices(
       clim = next(iter(climatology.values()))
     else:
       continue
-    vt_dims, vt = valid_time_coord(da)
-    idx = climatology_alignment_indices(clim, vt)
-    out[var] = da.assign_coords(**{
-        f'{CLIM_INDEX_PREFIX}{d}': Coord(vt_dims, np.asarray(i, np.int32))
-        for d, i in idx.items()})
+    key = (tuple((d, _labels_key(clim.coord_values(d)))
+                 for d in ('time', 'dayofyear', 'hour') if d in clim.dims),
+           tuple((n, da.coords[n].dims, _labels_key(da.coords[n].values))
+                 for n in ('valid_time', 'init_time', 'lead_time')
+                 if da.has_coord(n)))
+    coords = memo.get(key)
+    if coords is None:
+      vt_dims, vt = valid_time_coord(da)
+      idx = climatology_alignment_indices(clim, vt)
+      coords = memo[key] = {
+          f'{CLIM_INDEX_PREFIX}{d}': Coord(vt_dims, np.asarray(i, np.int32))
+          for d, i in idx.items()}
+    if any(da.coords.get(name) is not c for name, c in coords.items()):
+      out[var] = da.assign_coords(**coords)
   return out
 
 
@@ -622,8 +670,9 @@ class StatisticWithClimatology(Statistic):
         if rid not in self._host_gather_ids or name in da.coords:
           continue  # resident, or attached by a statistic sharing it
         vt_dims, vt = valid_time_coord(da)
-        g = gather_climatology_host(
-            clim, climatology_alignment_indices(clim, vt), vt_dims)
+        with observability.span('wbx.climatology_host'):
+          g = gather_climatology_host(
+              clim, climatology_alignment_indices(clim, vt), vt_dims)
         da = da.assign_coords(**{name: Coord(g.dims, g.values)})
       predictions[var] = da
     return predictions

@@ -8,10 +8,16 @@ distributions, and a process-global default registry; and
 
 Counters the pipeline records: ``chunks_done``, ``load_retries``,
 ``chunks_failed``, ``signature_splits`` (batches flushed early because the
-next chunk's signature differed). Timings (seconds):
-``load_targets_seconds``, ``load_predictions_seconds`` (which includes the
-statistics' host preparation of the chunk: climatology alignment indices
-and host-gathered climatology slices), ``eval_chunk_seconds`` (host clock
+next chunk's signature differed). Counters the port records in
+``default_metrics`` whatever registry a pipeline has: ``eval_passes``
+(``ChunkEvaluator`` compute passes, one a ``wbx.eval``),
+``climatology_gather_bytes`` (bytes the climatology gathers write on the
+evaluator's device) and ``climatology_host_gather_bytes`` (bytes the host
+gathers of non-resident climatologies write, ``metrics/base``).
+Timings (seconds): ``load_targets_seconds``, ``load_predictions_seconds``
+(which includes the statistics' host preparation of the chunk:
+climatology alignment indices and host-gathered climatology slices),
+``eval_chunk_seconds`` (host clock
 around one dispatch's device copies and the launch of its evaluation, one
 chunk or a batch of ``chunks_per_dispatch``; device work may still be
 running when it stops), ``checkpoint_seconds``,
@@ -24,6 +30,11 @@ profile records. ``parallel/evaluator`` opens ``wbx.prepare_host``,
 statistic holding ``wbx.operands`` (the weights and bin masks) and
 ``wbx.aggregate`` (the masked contraction), and ``wbx.state_add`` (a
 chunk's state added to the running one in ``eval_accum``);
+``metrics/base`` opens ``wbx.climatology`` around each gather of a
+climatology at a chunk's valid times on the device (inside the
+statistic's ``wbx.statistic.<name>``) and ``wbx.climatology_host`` around
+each gather on the host in a statistic's ``prepare_chunk`` (inside
+``wbx.prepare_host``);
 ``ops/crps_pairwise`` opens ``wbx.<kernel>`` around each kernel wrapper
 call.
 """

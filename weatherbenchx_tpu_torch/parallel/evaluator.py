@@ -465,29 +465,43 @@ class ChunkEvaluator:
 
   def prepare_host(self, predictions: Mapping[Hashable, DimArray],
                    targets: Mapping[Hashable, DimArray]) -> tuple:
-    """Each unique statistic's host hook, in order; no device work."""
-    with observability.span('wbx.prepare_host'):
+    """Each unique statistic's host hook, in order; no device work. The
+    hooks share one ``alignment_memo``."""
+    with (observability.span('wbx.prepare_host'),
+          metrics_base.alignment_memo()):
       predictions = dict(predictions)
       for stat in self._stats:
         predictions, _ = stat.prepare_chunk(predictions, targets)
       return predictions, targets
 
-  def _place(self, da: DimArray, shard, parts=None) -> DimArray:
+  def _place(self, da: DimArray, shard, parts=None,
+             placed: dict | None = None) -> DimArray:
     """Host ``da`` on the device: its data, validity mask and climatology
     index and value coords; on a mesh, this rank's slice of them, made
     whole along the dims the statistics read across. With ``parts``,
     ``da`` is their stack (``_stack_host``), and the data and the
     device-bound coords are copied from the parts, each straight into its
-    slice of the stack on the device."""
+    slice of the stack on the device. ``placed`` (kept by the caller for
+    one chunk) holds the device copy of each device-bound coord object
+    already copied, so that variables sharing a coord share one copy."""
     if shard is not None:  # a lazy array then reads only this rank's slice
       da = shard.take(da)
       if parts is not None:
         parts = [shard.take(p) for p in parts]
     if parts is None:
       data = da.data.to(self.device)
-      coords = {name: (Coord(c.dims, as_tensor(c.values, self.device))
-                       if _device_bound(name) else c)
-                for name, c in da.coords.items()}
+      # The device-bound coords are small; copied without blocking, a host
+      # array is staged and the host goes on, where a blocking copy would
+      # wait for the device's queue to drain.
+      placed = {} if placed is None else placed
+      coords = {}
+      for name, c in da.coords.items():
+        if _device_bound(name):
+          if id(c) not in placed:
+            placed[id(c)] = (c, Coord(c.dims, as_tensor(c.values).to(
+                self.device, non_blocking=True)))
+          c = placed[id(c)][1]
+        coords[name] = c
     else:
       data = _stack_to([p.data for p in parts], self.device)
       coords = dict(da.coords)
@@ -507,9 +521,12 @@ class ChunkEvaluator:
     rank's slice of them, with the shard it was cut by."""
     with observability.span('wbx.to_device'):
       shard = self._shard_for(predictions, targets)
+      placed: dict = {}
       return PlacedPair(
-          {var: self._place(da, shard) for var, da in predictions.items()},
-          {var: self._place(da, shard) for var, da in targets.items()},
+          {var: self._place(da, shard, placed=placed)
+           for var, da in predictions.items()},
+          {var: self._place(da, shard, placed=placed)
+           for var, da in targets.items()},
           shard)
 
   def place(self, side: Mapping[Hashable, DimArray]) -> dict:
@@ -522,7 +539,9 @@ class ChunkEvaluator:
       raise ValueError('on a mesh, place both sides with to_device: they '
                        'are cut by one shard')
     with observability.span('wbx.to_device'):
-      return {var: self._place(da, None) for var, da in side.items()}
+      placed: dict = {}
+      return {var: self._place(da, None, placed=placed)
+              for var, da in side.items()}
 
   def prepare_pair(self, predictions: Mapping[Hashable, DimArray],
                    targets: Mapping[Hashable, DimArray]) -> PlacedPair:
@@ -613,6 +632,9 @@ class ChunkEvaluator:
     host as it is aggregated: computed once, consumed twice."""
     with observability.span('wbx.eval'):
       self.dispatches += 1
+      # The same pass in the process's registry, where a reader that holds
+      # no evaluator (wbxbench's per-pass gathered GB) counts it.
+      observability.default_metrics.counter('eval_passes')
       predictions, targets = pair
       shard = self._shard_of(pair)
       live = self._live(shard)
